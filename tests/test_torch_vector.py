@@ -1,0 +1,119 @@
+"""Batches of the torch port against the JAX reference's Arrow bridge.
+
+A reference batch is built with ``velox_tpu.vector.device.from_arrow``,
+fetched with ``jax.device_get``, rebuilt in the port with
+``batch_from_numpy`` and converted back with each package's ``to_arrow``:
+the two Arrow tables must be equal in values and types.
+"""
+
+import decimal
+
+import jax
+import numpy as np
+import pyarrow as pa
+import pytest
+import torch
+
+from velox_tpu.vector import device as jd
+from velox_tpu_torch import types as TT
+from velox_tpu_torch.vector import device as td
+
+torch.set_num_threads(1)
+
+N = 700  # rows; the capacity pads to 1024
+
+
+def _arrow_columns():
+    rng = np.random.default_rng(0)
+    nulls = rng.random(N) < 0.2
+    big = [decimal.Decimal(int(v)).scaleb(-4) * (10 ** 20)
+           for v in rng.integers(-10 ** 9, 10 ** 9, N)]
+    return {
+        "bigint": pa.array(rng.integers(-2 ** 62, 2 ** 62, N),
+                           mask=nulls),
+        "integer": pa.array(rng.integers(-2 ** 31, 2 ** 31 - 1, N,
+                                         dtype=np.int32)),
+        "boolean": pa.array(rng.random(N) < 0.5, mask=nulls),
+        "double": pa.array(rng.standard_normal(N)),
+        "date": pa.array(rng.integers(8000, 11000, N, dtype=np.int32),
+                         type=pa.int32()).cast(pa.date32()),
+        "decimal_12_2": pa.array(
+            [decimal.Decimal(int(v)).scaleb(-2)
+             for v in rng.integers(-10 ** 11, 10 ** 11, N)],
+            type=pa.decimal128(12, 2), mask=nulls),
+        "decimal_38_4": pa.array(big, type=pa.decimal128(38, 4),
+                                 mask=nulls),
+        "varchar": pa.array(
+            [["A", "N", "R", "MAIL", "TRUCK"][i]
+             for i in rng.integers(0, 5, N)], mask=nulls),
+    }
+
+
+def _port_batch(jbatch):
+    """The port's batch over the same host arrays as a reference batch."""
+    jb = jax.device_get(jbatch)
+    columns, dtypes, dicts = {}, {}, {}
+    for name, col in jb.columns.items():
+        kids = [np.asarray(c.data) for c in col.children]
+        validity = None if col.validity is None else np.asarray(col.validity)
+        columns[name] = (np.asarray(col.data), validity, *kids)
+        dtypes[name] = TT.parse_type(str(col.dtype))
+        if col.dictionary is not None:
+            dicts[name] = td.Dictionary(col.dictionary.values)
+    return td.batch_from_numpy(columns, np.asarray(jb.mask), dtypes, dicts,
+                               device="cpu")
+
+
+@pytest.mark.parametrize("name", sorted(_arrow_columns()))
+@pytest.mark.parametrize("masked", [False, True])
+def test_to_arrow_matches_reference(name, masked):
+    table = pa.table({name: _arrow_columns()[name]})
+    jbatch = jd.from_arrow(table)
+    if masked:  # filters AND into the mask and keep rows in place
+        keep = np.arange(jbatch.capacity) % 3 != 0
+        jbatch = jbatch.with_mask(jbatch.mask & keep)
+    want = jd.to_arrow(jbatch)
+    got = td.to_arrow(_port_batch(jbatch))
+    assert got.schema == want.schema
+    assert got.equals(want)
+
+
+@pytest.mark.parametrize("name", sorted(_arrow_columns()))
+def test_from_arrow_matches_reference(name):
+    table = pa.table({name: _arrow_columns()[name]})
+    jb = jax.device_get(jd.from_arrow(table))
+    tb = td.from_arrow(table, device="cpu")
+    assert tb.capacity == jb.capacity == 1024
+    np.testing.assert_array_equal(tb.mask.numpy(), np.asarray(jb.mask))
+    jc, tc = jb.columns[name], tb.columns[name]
+    assert str(tc.dtype) == str(jc.dtype)
+    np.testing.assert_array_equal(tc.data.numpy(), np.asarray(jc.data))
+    assert (tc.validity is None) == (jc.validity is None)
+    if tc.validity is not None:
+        np.testing.assert_array_equal(tc.validity.numpy(),
+                                      np.asarray(jc.validity))
+    for tk, jk in zip(tc.children, jc.children):
+        np.testing.assert_array_equal(tk.data.numpy(), np.asarray(jk.data))
+    if jc.dictionary is not None:
+        assert tc.dictionary.values.tolist() == \
+            jc.dictionary.values.tolist()
+    assert td.to_arrow(tb).equals(table)
+
+
+def test_batch_accounting():
+    table = pa.table(_arrow_columns())
+    tb = td.from_arrow(table, device="cpu")
+    jb = jd.from_arrow(table)
+    assert tb.nbytes == jb.nbytes
+    assert int(tb.num_active()) == int(jb.num_active()) == N
+    assert tb.num_active().dtype == torch.int32
+    assert str(tb.row_type()) == str(jb.row_type())
+    assert td.default_capacity(N) == jd.default_capacity(N)
+    assert td.round_up(1025, 1024) == jd.round_up(1025, 1024)
+
+
+def test_types_map_to_torch_dtypes():
+    for t in (TT.BOOLEAN, TT.INTEGER, TT.BIGINT, TT.DOUBLE, TT.DATE,
+              TT.decimal(12, 2), TT.VARCHAR):
+        assert torch.empty(0, dtype=t.torch_dtype()).numpy().dtype == \
+            t.np_dtype()

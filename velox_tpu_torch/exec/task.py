@@ -1,0 +1,215 @@
+"""Task: executes one plan fragment serially on one torch device.
+
+Counterpart of ``velox_tpu/exec/task.py`` (velox/exec/Task.h serial
+``Task::next`` mode, LocalPlanner and the Driver pull loop). Every batch
+of the query lives on ``QueryCtx.device``; the host loop only moves batch
+handles, and reads a device value once at the end (the error total and
+the output rows).
+
+Ported node kinds: Values, TableScan (with a pushed-down filter),
+Filter/Project chains (fused, exec/fuse.py) and the global
+``sum(a * b)`` Aggregation that runs through the filter-sum kernel
+(ops/filter_reduce.py). Every other node kind, and every other
+aggregation, raises NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Iterator, List
+
+import torch
+
+from velox_tpu_torch import types as T
+from velox_tpu_torch.common import metrics as M
+from velox_tpu_torch.connectors.connector import get_connector
+from velox_tpu_torch.core import plan as P
+from velox_tpu_torch.exec.fuse import chain_fn, collapse_chain
+from velox_tpu_torch.exec.operator import (
+    FilterProjectOperator, Operator, SourceOperator, TableScanOperator,
+    ValuesOperator,
+)
+from velox_tpu_torch.vector.device import DeviceBatch
+
+
+class QueryCtx:
+    """Per-query context: the device the query runs on. There is no
+    default: a query on a CUDA card names it, so it never lands on the
+    host by omission. Parity: velox/core/QueryCtx.h:33."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+
+
+class Task:
+    """Serial single-fragment execution (Task::next parity)."""
+
+    def __init__(self, plan: P.PlanNode, ctx: QueryCtx):
+        self.plan = plan
+        self.ctx = ctx
+        self.operators: List[Operator] = []  # for stats
+        self._error_counts: List[torch.Tensor] = []
+
+    # ---- public API --------------------------------------------------------
+
+    def _strip_errors(self, batch: DeviceBatch) -> DeviceBatch:
+        """Detach a batch's checked-op error count into the task total
+        (one device scalar per batch; read once at query end)."""
+        if batch is not None and batch.errors is not None:
+            self._error_counts.append(batch.errors)
+            batch = DeviceBatch(batch.columns, batch.mask)
+        return batch
+
+    def check_errors(self) -> None:
+        """Raise VeloxUserError if any checked operation failed.
+        Parity: Task::setError (exec/Task.cpp:2574)."""
+        if not self._error_counts:
+            return
+        total = int(sum(self._error_counts).item())
+        self._error_counts = []
+        if total:
+            from velox_tpu_torch.common.errors import (
+                VeloxUserError, traced_error_suffix,
+            )
+            raise VeloxUserError(
+                f"{total} row(s) failed a checked operation (division by "
+                "zero, integer overflow, or invalid cast); wrap the "
+                "expression in TRY(...) to get NULLs instead"
+                + traced_error_suffix())
+
+    def batches(self) -> Iterator[DeviceBatch]:
+        for b in self._run_node(self.plan):
+            yield self._strip_errors(b)
+
+    def run(self):
+        """Execute to completion; return a pyarrow Table."""
+        import pyarrow as pa
+
+        from velox_tpu_torch.vector.device import to_arrow
+        t0 = time.perf_counter()
+        out = list(self.batches())
+        self.check_errors()
+        tables = [to_arrow(b) for b in out]
+        M.record_counter(M.K_TASK_QUERIES)
+        M.record_histogram(M.K_QUERY_WALL_MS,
+                           (time.perf_counter() - t0) * 1e3)
+        for t in tables:
+            M.record_counter(M.K_OUTPUT_ROWS, t.num_rows)
+            M.record_counter(M.K_OUTPUT_BYTES, t.nbytes)
+        if not tables:
+            schema = T.to_arrow(self.plan.output_type())
+            return pa.table({n: pa.array([], type=f.type)
+                             for n, f in zip(schema.names, schema)})
+        return pa.concat_tables(tables)
+
+    def stats(self):
+        return [op.stats.as_dict() for op in self.operators]
+
+    # ---- pipeline construction ----------------------------------------------
+
+    def _run_node(self, node: P.PlanNode) -> Iterator[DeviceBatch]:
+        """Recursively build + drive the pipeline rooted at `node`."""
+        if isinstance(node, P.ValuesNode):
+            yield from self._drive_source(
+                ValuesOperator(node, self.ctx.device))
+        elif isinstance(node, P.TableScanNode) and node.filter is None:
+            yield from self._drive_source(self._make_scan(node))
+        elif isinstance(node, (P.TableScanNode, P.FilterNode,
+                               P.ProjectNode)):
+            # the whole Filter/Project chain, including a pushed-down scan
+            # filter, runs as one fused step over the bare source
+            chain = collapse_chain(node)
+            op = FilterProjectOperator(node, chain_fn(chain))
+            yield from self._drive(chain.source, op)
+        elif isinstance(node, P.AggregationNode):
+            chain = collapse_chain(node.source)
+            op = self._try_filter_sum(node, chain)
+            if op is None:
+                raise NotImplementedError(
+                    "velox_tpu_torch runs only global sum(a * b) over a "
+                    "range-filtered TPC-H scan (the filter-sum kernel); "
+                    "the generic aggregation is not ported yet")
+            yield from self._drive(chain.source, op)
+        else:
+            raise NotImplementedError(
+                f"no operator for {type(node).__name__} in velox_tpu_torch")
+
+    def _try_filter_sum(self, node: P.AggregationNode, chain):
+        """Kernel pushdown: global sum(a*b) over a range-filtered scan runs
+        as one fused pass (ops/filter_reduce.py). Returns the operator,
+        or None when the plan or the connector's stats don't match."""
+        from velox_tpu_torch.ops.filter_reduce import (
+            FilterSumOperator, match_filter_sum,
+        )
+        if not isinstance(chain.source, P.TableScanNode):
+            return None
+        try:
+            conn = get_connector(chain.source.connector_id)
+        except KeyError:
+            return None
+        stats_fn = getattr(conn, "column_stats", None)
+        if stats_fn is None:
+            return None
+        stats = {}
+        for c in chain.source.output_type().names:
+            s = stats_fn(chain.source.table, c)
+            if s is not None:
+                stats[c] = s
+        spec = match_filter_sum(node, chain, stats)
+        if spec is None:
+            return None
+        M.record_counter(M.K_FILTER_SUM_KERNEL)
+        return FilterSumOperator(node, spec, self.ctx.device)
+
+    def _make_scan(self, node: P.TableScanNode) -> TableScanOperator:
+        conn = get_connector(node.connector_id)
+        source = conn.create_data_source(node.table, node.columns, self.ctx)
+        splits = conn.default_splits(node.table)
+        return TableScanOperator(node, source, splits)
+
+    # ---- driver loop (Driver::runInternal parity) ---------------------------
+
+    def _drive(self, source_node: P.PlanNode, op: Operator
+               ) -> Iterator[DeviceBatch]:
+        self.operators.append(op)
+        st = op.stats
+        for batch in self._run_node(source_node):
+            batch = self._strip_errors(batch)
+            M.record_counter(M.K_TASK_BATCHES)
+            t0 = time.perf_counter_ns()
+            op.add_input(batch)
+            st.add_input_wall_ns += time.perf_counter_ns() - t0
+            st.input_batches += 1
+            st.input_bytes += batch.nbytes
+            while True:
+                t0 = time.perf_counter_ns()
+                out = op.get_output()
+                st.get_output_wall_ns += time.perf_counter_ns() - t0
+                if out is None:
+                    break
+                st.output_batches += 1
+                st.output_bytes += out.nbytes
+                yield out
+        t0 = time.perf_counter_ns()
+        op.no_more_input()
+        st.finish_wall_ns += time.perf_counter_ns() - t0
+        while True:
+            out = op.get_output()
+            if out is None:
+                break
+            st.output_batches += 1
+            st.output_bytes += out.nbytes
+            yield out
+
+    def _drive_source(self, op: SourceOperator) -> Iterator[DeviceBatch]:
+        self.operators.append(op)
+        st = op.stats
+        while not op.is_finished():
+            t0 = time.perf_counter_ns()
+            out = op.get_output()
+            st.get_output_wall_ns += time.perf_counter_ns() - t0
+            if out is None:
+                break
+            st.output_batches += 1
+            st.output_bytes += out.nbytes
+            yield out

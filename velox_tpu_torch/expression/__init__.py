@@ -1,0 +1,3 @@
+from velox_tpu_torch.expression.eval import (  # noqa: F401
+    EvalValue, ExprSet,
+)

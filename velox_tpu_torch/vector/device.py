@@ -1,0 +1,351 @@
+"""Device-resident columnar batches held as torch tensors.
+
+Counterpart of ``velox_tpu/vector/device.py``. A ``DeviceBatch`` holds one
+dense tensor per column, padded to a ``capacity`` (multiples of 1024 as in
+the reference, so masks and batch shapes line up across the two engines),
+plus a bool ``mask`` of active rows. Every tensor of a batch lies on one
+``torch.device``; nothing here moves data between devices except the
+Arrow bridge, which copies to and from the host.
+
+Scan batches keep the reference's prefix contract: ``mask`` is
+``arange(capacity) < n``. The filter-sum kernel relies on it
+(``ops/filter_reduce.py``). Filters AND into the mask and keep rows in
+place, as in the reference.
+
+Not ported yet: ARRAY/MAP/ROW columns, raw (byte-matrix) strings and
+TIMESTAMP arithmetic. ``from_arrow`` and ``to_arrow`` raise on them.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+from velox_tpu_torch import types as T
+
+
+def round_up(n: int, m: int) -> int:
+    return ((n + m - 1) // m) * m
+
+
+def default_capacity(n: int) -> int:
+    """Pad row counts to multiples of 1024 with a floor of 1024."""
+    return max(1024, round_up(n, 1024))
+
+
+class Dictionary:
+    """A host-side value dictionary for a string column.
+
+    Hash/eq by identity, as in the reference. Values are a numpy object
+    array of Python str/bytes; device columns hold int32 ids into it.
+    """
+
+    __slots__ = ("values", "_index", "is_sorted")
+
+    def __init__(self, values):
+        self.values = np.asarray(values, dtype=object)
+        self._index: Optional[Dict] = None
+        self.is_sorted = False  # memoized by ordered-comparison checks
+
+    def __len__(self):
+        return len(self.values)
+
+    def id_of(self, value) -> int:
+        """Return the id of `value`, or -1 if absent (never matches)."""
+        if self._index is None:
+            self._index = {v: i for i, v in enumerate(self.values)}
+        return self._index.get(value, -1)
+
+    def take(self, ids: np.ndarray) -> np.ndarray:
+        """Materialize values for the given ids (overridable for lazily
+        formatted dictionaries, e.g. tpch c_name)."""
+        return self.values[np.clip(ids, 0, len(self) - 1)]
+
+    def __repr__(self):
+        return f"Dictionary({len(self.values)} values)"
+
+
+class DeviceColumn:
+    """One column: dense data tensor + optional validity (True = non-null).
+
+    ``validity is None`` means no nulls. Strings are int32 dictionary ids
+    into ``dictionary``. A DECIMAL(19..38) column keeps its low int64 limb
+    in ``data`` and its high limb as ``children[0]`` (a BIGINT column).
+    """
+
+    def __init__(self, data: torch.Tensor, validity=None,
+                 dtype: T.DataType = T.BIGINT,
+                 dictionary: Optional[Dictionary] = None,
+                 children: Optional[tuple] = None):
+        self.data = data
+        self.validity = validity
+        self.dtype = dtype
+        self.dictionary = dictionary
+        self.children = tuple(children) if children else ()
+
+    @property
+    def capacity(self) -> int:
+        return self.data.shape[0]
+
+    def __repr__(self):
+        return (f"DeviceColumn({self.dtype}, cap={self.capacity}, "
+                f"nulls={'y' if self.validity is not None else 'n'})")
+
+
+class DeviceBatch:
+    """A batch of rows on one device: named columns + an active-row mask.
+
+    ``errors`` (optional) is a 0-dim int32 tensor counting checked-
+    operation failures produced while computing this batch; the Task
+    strips and sums them and reads the total once at query end
+    (common/errors.py).
+    """
+
+    def __init__(self, columns: Dict[str, DeviceColumn], mask: torch.Tensor,
+                 errors: Optional[torch.Tensor] = None):
+        self.columns = columns
+        self.mask = mask
+        self.errors = errors
+
+    @property
+    def capacity(self) -> int:
+        return self.mask.shape[0]
+
+    @property
+    def device(self) -> torch.device:
+        return self.mask.device
+
+    def num_active(self) -> torch.Tensor:
+        """Count of active rows as a 0-dim int32 tensor (no host sync)."""
+        return self.mask.sum(dtype=torch.int32)
+
+    @property
+    def nbytes(self) -> int:
+        """Device-memory footprint: data + validity + mask bytes."""
+        def col_bytes(c) -> int:
+            n = c.data.numel() * c.data.element_size()
+            if c.validity is not None:
+                n += c.validity.numel() * c.validity.element_size()
+            for ch in c.children:
+                n += col_bytes(ch)
+            return n
+        total = self.mask.numel() * self.mask.element_size()
+        for c in self.columns.values():
+            total += col_bytes(c)
+        return total
+
+    def row_type(self) -> T.DataType:
+        names = list(self.columns)
+        return T.row(names, [self.columns[n].dtype for n in names])
+
+    def __repr__(self):
+        return f"DeviceBatch(cap={self.capacity}, cols={list(self.columns)})"
+
+
+def prefix_mask(n, capacity: int, device) -> torch.Tensor:
+    """The scan-batch mask ``arange(capacity) < n``."""
+    return torch.arange(capacity, dtype=torch.int32, device=device) < n
+
+
+# ---------------------------------------------------------------------------
+# Host bridges.
+# ---------------------------------------------------------------------------
+
+def _pad_np(arr: np.ndarray, capacity: int, fill=0) -> np.ndarray:
+    n = arr.shape[0]
+    if n == capacity:
+        return arr
+    out = np.full((capacity,), fill, dtype=arr.dtype)
+    out[:n] = arr
+    return out
+
+
+def _upload(arr: np.ndarray, device) -> torch.Tensor:
+    arr = np.ascontiguousarray(arr)
+    if not arr.flags.writeable:  # e.g. a view of an Arrow buffer
+        arr = arr.copy()
+    return torch.from_numpy(arr).to(device)
+
+
+def batch_from_numpy(columns: Dict[str, Sequence[np.ndarray]],
+                     mask: np.ndarray,
+                     dtypes: Dict[str, T.DataType],
+                     dictionaries: Optional[Dict[str, Dictionary]] = None,
+                     device="cpu") -> DeviceBatch:
+    """Build a batch from host arrays, e.g. a reference batch after
+    ``jax.device_get``.
+
+    ``columns`` maps a name to ``(data, validity, *children)``: validity is
+    a bool array or None, and each child array becomes a BIGINT child
+    column (the high limb of a long decimal). Arrays keep their dtypes.
+    """
+    dictionaries = dictionaries or {}
+    cols = {}
+    for name, (data, validity, *kids) in columns.items():
+        children = tuple(DeviceColumn(_upload(np.asarray(k), device), None,
+                                      T.BIGINT) for k in kids)
+        cols[name] = DeviceColumn(
+            _upload(np.asarray(data), device),
+            None if validity is None else _upload(np.asarray(validity,
+                                                             bool), device),
+            dtypes[name], dictionaries.get(name), children)
+    return DeviceBatch(cols, _upload(np.asarray(mask, bool), device))
+
+
+def column_from_arrow(arr, capacity: int,
+                      dictionary: Optional[Dictionary] = None,
+                      device="cpu") -> DeviceColumn:
+    """One pyarrow Array/ChunkedArray -> DeviceColumn (flat types only)."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+
+    if isinstance(arr, pa.ChunkedArray):
+        arr = arr.combine_chunks()
+    dtype = T.from_arrow(arr.type)
+    n = len(arr)
+    validity_np = np.asarray(pc.is_valid(arr)) if arr.null_count else None
+    children = ()
+    col_dict = None
+    if dtype.is_complex:
+        raise NotImplementedError(
+            f"{dtype} columns are not ported to velox_tpu_torch")
+    if dtype.is_string:
+        darr = (arr if pa.types.is_dictionary(arr.type)
+                else pc.dictionary_encode(arr))
+        ids = np.asarray(darr.indices.fill_null(0)).astype(np.int32)
+        values = darr.dictionary.to_pylist()
+        if dictionary is None and len(values) > 1:
+            # sorted local dictionary: ids become order-preserving
+            order = sorted(range(len(values)), key=lambda i: values[i])
+            remap = np.empty(len(values), dtype=np.int32)
+            remap[np.asarray(order)] = np.arange(len(values), dtype=np.int32)
+            ids = remap[ids]
+            values = [values[i] for i in order]
+        if dictionary is not None:
+            remap = np.array([dictionary.id_of(v) for v in values],
+                             dtype=np.int32)
+            if (remap < 0).any():
+                missing = [v for v, r in zip(values, remap) if r < 0]
+                raise ValueError(
+                    f"values {missing[:5]} missing from stable dictionary")
+            ids = remap[ids]
+            col_dict = dictionary
+        else:
+            col_dict = Dictionary(values)
+        data_np = _pad_np(ids, capacity)
+    elif dtype.kind is T.TypeKind.DECIMAL:
+        # decimal128 storage: little-endian (lo, hi) int64 limb pairs
+        buf = arr.buffers()[1]
+        limbs = np.frombuffer(buf, dtype=np.int64, count=2 * (arr.offset + n))
+        limbs = limbs[2 * arr.offset:].reshape(-1, 2)
+        data_np = _pad_np(np.ascontiguousarray(limbs[:, 0]), capacity)
+        if dtype.is_long_decimal:
+            children = (DeviceColumn(_upload(_pad_np(
+                np.ascontiguousarray(limbs[:, 1]), capacity), device),
+                None, T.BIGINT),)
+    elif dtype.kind is T.TypeKind.TIMESTAMP:
+        data_np = _pad_np(np.asarray(arr.cast(pa.timestamp("us")))
+                          .astype(np.int64), capacity)
+    elif dtype.kind is T.TypeKind.DATE:
+        data_np = _pad_np(np.asarray(arr.cast(pa.int32())).astype(np.int32),
+                          capacity)
+    elif dtype.kind is T.TypeKind.UNKNOWN:
+        data_np = np.zeros((capacity,), dtype=np.bool_)
+        validity_np = np.zeros((n,), dtype=np.bool_)
+    else:
+        if arr.null_count:
+            arr = arr.fill_null(False if pa.types.is_boolean(arr.type) else 0)
+        data_np = _pad_np(np.asarray(arr).astype(dtype.np_dtype()), capacity)
+    validity = (None if validity_np is None
+                else _upload(_pad_np(validity_np, capacity, False), device))
+    return DeviceColumn(_upload(data_np, device), validity, dtype, col_dict,
+                        children)
+
+
+def from_arrow(table, capacity: Optional[int] = None,
+               dictionaries: Optional[Dict[str, Dictionary]] = None,
+               device="cpu") -> DeviceBatch:
+    """pyarrow Table/RecordBatch -> DeviceBatch (padded, masked)."""
+    n = table.num_rows
+    cap = capacity if capacity is not None else default_capacity(n)
+    if n > cap:
+        raise ValueError(f"{n} rows exceed capacity {cap}")
+    dictionaries = dictionaries or {}
+    cols = {name: column_from_arrow(table.column(name), cap,
+                                    dictionaries.get(name), device)
+            for name in table.schema.names}
+    return DeviceBatch(cols, prefix_mask(n, cap, device))
+
+
+def _host(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def to_arrow(batch: DeviceBatch):
+    """DeviceBatch -> pyarrow Table (active rows only, in order)."""
+    import pyarrow as pa
+
+    mask = _host(batch.mask)
+    arrays, names = [], []
+    for name, col in batch.columns.items():
+        if col.dtype.is_complex:
+            raise NotImplementedError(
+                f"{col.dtype} columns are not ported to velox_tpu_torch")
+        data = _host(col.data)[mask]
+        valid = None if col.validity is None else _host(col.validity)[mask]
+        if col.dtype.is_long_decimal:
+            hi = _host(col.children[0].data)[mask]
+            arrays.append(_long_decimal_to_arrow(data, hi, valid, col.dtype))
+        else:
+            arrays.append(_np_to_arrow(data, valid, col))
+        names.append(name)
+    return pa.table(arrays, names=names)
+
+
+def _decimals(ints, valid, scale: int):
+    import decimal as pydec
+    with pydec.localcontext() as c:
+        c.prec = 50  # the default 28 digits would round 38-digit values
+        return [None if (valid is not None and not v)
+                else pydec.Decimal(int(x)).scaleb(-scale)
+                for x, v in zip(ints, valid if valid is not None
+                                else np.ones(len(ints), bool))]
+
+
+def _long_decimal_to_arrow(lo: np.ndarray, hi: np.ndarray,
+                           valid: Optional[np.ndarray], dt: T.DataType):
+    """Long decimal (lo data + hi child limb) -> pyarrow decimal128."""
+    import pyarrow as pa
+    lo_u = lo.astype(np.int64).view(np.uint64)
+    ints = [(int(h) << 64) | int(l) for l, h in zip(lo_u, hi)]
+    return pa.array(_decimals(ints, valid, dt.scale), type=T.to_arrow(dt))
+
+
+def _np_to_arrow(data: np.ndarray, validity: Optional[np.ndarray],
+                 col: DeviceColumn):
+    import pyarrow as pa
+
+    dt = col.dtype
+    pa_mask = None if validity is None else ~validity
+    if dt.is_string:
+        if col.dictionary is None:
+            raise NotImplementedError(
+                "raw (non-dictionary) string columns are not ported to "
+                "velox_tpu_torch")
+        out = col.dictionary.take(data)
+        if validity is not None:
+            out = out.copy()
+            out[~validity] = None
+        return pa.array(out.tolist(), type=T.to_arrow(dt))
+    if dt.kind is T.TypeKind.DECIMAL:
+        return pa.array(_decimals(data, validity, dt.scale),
+                        type=T.to_arrow(dt))
+    if dt.kind is T.TypeKind.TIMESTAMP:
+        return pa.array(data.astype("datetime64[us]"), mask=pa_mask)
+    if dt.kind is T.TypeKind.DATE:
+        return pa.array(data, type=pa.date32(), mask=pa_mask)
+    if dt.kind is T.TypeKind.UNKNOWN:
+        return pa.nulls(len(data))
+    return pa.array(data, mask=pa_mask)
