@@ -18,9 +18,28 @@ Phases, each printing one line; any failure raises and exits non-zero:
 5. heads: the scan+filter+project heads of Q6 and Q1 without their
    aggregations; active-row counts and column sums, reduced on the card,
    must equal numpy exactly.
+6. radix_kernels: the counting-sort pass kernels (histogram B4, rank B2,
+   position B3) against their plain PyTorch versions on the card, exact,
+   over row counts from 1 to 60M and skewed, narrow, sorted and reversed
+   digits; median times of each mode and of its plain version at 6.7M
+   and 60M rows, and of whole radix_sort_perm calls on the orderBy and
+   full-sort keys against a stable torch.sort of the same packed lane.
+7. q1: TPC-H Q1 twice (array-mode partial/final aggregation, DECIMAL(38)
+   sums, half-up avgs, the final OrderBy); every output value must equal
+   a numpy oracle exactly.
+8. topn: the orderBy config (ORDER BY l_shipdate, l_orderkey LIMIT 1000,
+   run as a TopN): equal to the first 1000 rows of np.lexsort; B4 and B3
+   launch once per radix pass per batch, B2 never.
+9. sort_full: ORDER BY l_shipdate, l_orderkey, l_linenumber over all of
+   lineitem: the row order must be np.lexsort's; the key and row ids do
+   not fit 64 bits, so every pass runs B4 and B2.
+10. q6_generic: Q6 with a filter the kernel matcher rejects, through the
+   generic aggregation: the Q6 value, and no filter-sum launch.
 
-The line before the last is a JSON object describing each kernel; the
-last line is {"ok": true, "device": {...}}.
+Each path phase sets every kernel's launch count to 0 just before it runs
+the query and reads the counts just after. The line before the last is a
+JSON object describing each kernel; the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -34,10 +53,17 @@ import time
 import numpy as np
 import torch
 
+from velox_tpu_torch import types as T
 from velox_tpu_torch.common import metrics as M
 from velox_tpu_torch.connectors.tpch import register_tpch
+from velox_tpu_torch.core.plan import SortOrder
+from velox_tpu_torch.exec.sort import (
+    pack_words_u64, radix_sort_perm, sort_words,
+)
 from velox_tpu_torch.exec.task import QueryCtx, Task
+from velox_tpu_torch.expression.eval import EvalValue
 from velox_tpu_torch.native import build
+from velox_tpu_torch.ops import radix as R
 from velox_tpu_torch.ops.filter_reduce import (
     MAX_COLS, filtered_sum_product, filtered_sum_product_reference,
 )
@@ -52,6 +78,9 @@ Q6_FILTER = ("l_shipdate >= date '1994-01-01' and "
 Q6_COLS = ["l_shipdate", "l_extendedprice", "l_quantity", "l_discount"]
 Q1_COLS = ["l_returnflag", "l_linestatus", "l_quantity", "l_extendedprice",
            "l_discount", "l_tax", "l_shipdate"]
+SORT_COLS = ["l_shipdate", "l_orderkey", "l_linenumber"]
+LI_COLS = sorted(set(Q1_COLS + Q6_COLS + SORT_COLS))
+RADIX_KERNELS = (R.radix_hist, R.radix_rank, R.radix_pos)
 Q1_PROJECT = [
     "l_returnflag", "l_linestatus", "l_quantity", "l_extendedprice",
     "l_extendedprice * (1.0 - l_discount) as l_sum_disc_price",
@@ -102,7 +131,10 @@ def build_phase() -> None:
     if build.load_dbgen() is None:
         raise RuntimeError("no C++ compiler: the native TPC-H generator "
                            "did not build")
-    phase("build", seconds=dict(build.BUILD_SECONDS))
+    ptxas = {name: [ln.strip() for ln in log.splitlines()
+                    if "registers" in ln or "spill" in ln]
+             for name, log in build.BUILD_LOG.items() if name != "dbgen"}
+    phase("build", seconds=dict(build.BUILD_SECONDS), ptxas=ptxas)
 
 
 def _case(rng, n: int, k: int, n_active: int, empty: bool):
@@ -173,9 +205,7 @@ def kernel_phase(rng) -> dict:
     return {"max_abs_err": max_err, "timings": timings}
 
 
-def q6_oracle(gen) -> int:
-    n_orders = gen.num_rows("orders")
-    li = gen.gen_lineitem(0, n_orders, Q6_COLS)
+def q6_oracle(li) -> int:
     m = ((li["l_shipdate"] >= D94) & (li["l_shipdate"] < D95)
          & (li["l_discount"] >= 5) & (li["l_discount"] <= 7)
          & (li["l_quantity"] < 2400))
@@ -183,10 +213,10 @@ def q6_oracle(gen) -> int:
                 * li["l_discount"][m].astype(np.int64)).sum())
 
 
-def q6_phase(conn, ctx) -> int:
+def q6_phase(conn, ctx, li) -> int:
     rows = conn.gen.num_rows("lineitem")
     n_splits = len(conn.default_splits("lineitem"))
-    expect = q6_oracle(conn.gen)
+    expect = q6_oracle(li)
     plan = tpch_plan(6)
     counter = M.K_FILTER_SUM_KERNEL
     fired0 = M.reporter().snapshot()["counters"].get(counter, 0)
@@ -238,11 +268,7 @@ def _head_sums(plan, ctx):
     return int(count.item()), out, time.perf_counter() - t0
 
 
-def heads_phase(conn, ctx) -> None:
-    n_orders = conn.gen.num_rows("orders")
-    li = {k: v.astype(np.int64) for k, v in conn.gen.gen_lineitem(
-        0, n_orders, sorted(set(Q1_COLS + Q6_COLS))).items()}
-
+def heads_phase(ctx, li) -> None:
     q6 = (PlanBuilder().table_scan("lineitem", Q6_COLS, filter=Q6_FILTER)
           .project(["l_extendedprice * l_discount as revenue"]).plan())
     m6 = ((li["l_shipdate"] >= D94) & (li["l_shipdate"] < D95)
@@ -271,6 +297,363 @@ def heads_phase(conn, ctx) -> None:
         phase(name, active_rows=count, columns=sorted(got), wall_s=wall)
 
 
+def lineitem_columns(conn):
+    """Every lineitem column the oracles read, for the whole table, as
+    int64 host arrays (the generator the connector uses)."""
+    n_orders = conn.gen.num_rows("orders")
+    return {k: v.astype(np.int64) for k, v in conn.gen.gen_lineitem(
+        0, n_orders, LI_COLS).items()}
+
+
+def reset_launches() -> None:
+    filtered_sum_product.launches = 0
+    for k in RADIX_KERNELS:
+        k.launches = 0
+
+
+def read_launches() -> dict:
+    out = {"filter_sum": filtered_sum_product.launches}
+    out.update({k.__name__: k.launches for k in RADIX_KERNELS})
+    return out
+
+
+# ---------------------------------------------------------------------------
+# radix_kernels: B2, B3, B4 against their plain versions
+# ---------------------------------------------------------------------------
+
+RADIX_SIZES = (1, 255, 4097, 131089, 6_700_000, 60_000_000)
+TIMED_SIZES = (6_700_000, 60_000_000)  # one SF10 batch, all of lineitem
+RADIX_DISTS = ("uniform", "one_digit", "w1", "w2", "w7", "sorted",
+               "reversed")
+
+
+def _digits(dist: str, n: int, gen) -> torch.Tensor:
+    if dist == "one_digit":
+        return torch.full((n,), 173, dtype=torch.int32, device="cuda")
+    width = int(dist[1:]) if dist.startswith("w") else 8
+    d = torch.randint(0, 1 << width, (n,), generator=gen, device="cuda",
+                      dtype=torch.int32)
+    if dist == "sorted":
+        d = torch.sort(d).values
+    elif dist == "reversed":
+        d = torch.sort(d, descending=True).values
+    return d.contiguous()
+
+
+def _modes(d: torch.Tensor):
+    """(name, kernel call, plain call) of each mode, on one digit tensor;
+    the tables B2 and B3 read come from the kernel histogram's scan."""
+    table = R.radix_hist(d)
+    offset = R._tile_offsets(table)[0].contiguous()
+    tile_base = R._destinations(table)
+    return (
+        ("radix_hist", lambda: R.radix_hist(d),
+         lambda: R.radix_hist_reference(d)),
+        ("radix_rank", lambda: R.radix_rank(d, offset),
+         lambda: R.radix_rank_reference(d, offset)),
+        ("radix_pos", lambda: R.radix_pos(d, tile_base),
+         lambda: R.radix_pos_reference(d, tile_base)),
+    )
+
+
+def _max_err(a: torch.Tensor, b: torch.Tensor) -> int:
+    if a.shape != b.shape or a.dtype != b.dtype:
+        raise AssertionError(f"kernel {a.dtype} {tuple(a.shape)} vs plain "
+                             f"{b.dtype} {tuple(b.shape)}")
+    if a.numel() == 0:
+        return 0
+    return int((a.long() - b.long()).abs().max().item())
+
+
+def _sort_keys(li, n: int, cols, conn):
+    """sort_words of the first n lineitem rows by `cols` (ascending),
+    narrowed by the connector's stats, on the card."""
+    cap = max(1024, -(-n // 1024) * 1024)
+    vals = []
+    for c in cols:
+        data = np.zeros(cap, np.int32 if c != "l_orderkey" else np.int64)
+        data[:n] = li[c][:n]
+        dt = {"l_shipdate": T.DATE, "l_orderkey": T.BIGINT,
+              "l_linenumber": T.INTEGER}[c]
+        vals.append(EvalValue(torch.from_numpy(data).cuda(), None, dt))
+    active = torch.arange(cap, device="cuda") < n
+    ranges = [conn.column_stats("lineitem", c) for c in cols]
+    words, bits = sort_words(vals, [SortOrder.ASC_NULLS_LAST] * len(cols),
+                             cap, active, ranges)
+    return words, bits, cap
+
+
+def radix_phase(seed: int, conn, li) -> dict:
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    max_err = {name: 0 for name in ("radix_hist", "radix_rank",
+                                    "radix_pos")}
+    cases = 0
+    for n in RADIX_SIZES:
+        for dist in RADIX_DISTS:
+            d = _digits(dist, n, gen)
+            for name, kernel, plain in _modes(d):
+                err = _max_err(kernel(), plain())
+                max_err[name] = max(max_err[name], err)
+                if err:
+                    raise AssertionError(f"{name} differs from its plain "
+                                         f"version by {err} at n={n} "
+                                         f"digits={dist}")
+            want = R.radix_pass_positions_reference(d, n)
+            for fn in (R.radix_pass_positions,
+                       R.radix_pass_positions_nogather):
+                if _max_err(fn(d, n), want):
+                    raise AssertionError(f"{fn.__name__} is not the stable "
+                                         f"counting-sort order at n={n} "
+                                         f"digits={dist}")
+            cases += 1
+            del d
+    torch.cuda.synchronize()
+    timings = {}
+    for n in TIMED_SIZES:
+        d = _digits("uniform", n, gen)
+        calls = 20 if n < 10_000_000 else 5
+        t = {}
+        for name, kernel, plain in _modes(d):
+            t[name] = {"ms": time_ms(kernel, calls),
+                       "plain_ms": time_ms(plain, calls)}
+        t["pass_nogather"] = {
+            "ms": time_ms(lambda: R.radix_pass_positions_nogather(d, n),
+                          calls),
+            "plain_ms": time_ms(
+                lambda: R.radix_pass_positions_reference(d, n), calls)}
+        timings[n] = t
+        del d
+    # whole sorts: the orderBy key over one batch and the full-sort key
+    # over the table, against a stable torch.sort of the packed lane
+    sorts = {}
+    n_all = len(li["l_orderkey"])
+    for name, cols, n in (("orderby_key", SORT_COLS[:2], 6_700_000),
+                          ("full_sort_key", SORT_COLS, n_all)):
+        n = min(n, n_all)
+        words, bits, cap = _sort_keys(li, n, cols, conn)
+        lanes = pack_words_u64(words, bits)
+        if len(lanes) != 1 or sum(bits) >= 64:
+            raise AssertionError(f"{name}: {sum(bits)} key bits, "
+                                 f"{len(lanes)} lanes")
+        perm = radix_sort_perm(words, bits, cap)
+        ref = torch.sort(lanes[0], stable=True).indices
+        if _max_err(perm, ref):
+            raise AssertionError(f"{name}: radix permutation differs from "
+                                 "the stable torch.sort permutation")
+        calls = 5 if n < 10_000_000 else 2
+        sorts[name] = {
+            "rows": n, "key_bits": sum(bits),
+            "radix_sort_perm_ms": time_ms(
+                lambda: radix_sort_perm(words, bits, cap), calls, 3),
+            "torch_sort_ms": time_ms(
+                lambda: torch.sort(lanes[0], stable=True).indices, calls, 3)}
+        del words, lanes, perm, ref
+    phase("radix_kernels", cases=cases, max_abs_err=max_err,
+          times={str(n): t for n, t in timings.items()}, sorts=sorts)
+    return {"max_abs_err": max_err, "timings": timings, "sorts": sorts}
+
+
+# ---------------------------------------------------------------------------
+# Query paths of this slice
+# ---------------------------------------------------------------------------
+
+def _host_rows(batches, names):
+    """Active rows of output batches on the host: {name: python ints or
+    strings}, long decimals through both limbs."""
+    out = {n: [] for n in names}
+    for b in batches:
+        mask = b.mask.cpu().numpy()
+        for n in names:
+            col = b.columns[n]
+            data = col.data.cpu().numpy()[mask]
+            if col.validity is not None \
+                    and not col.validity.cpu().numpy()[mask].all():
+                raise AssertionError(f"unexpected NULL in {n}")
+            if col.dtype.is_long_decimal:
+                hi = col.children[0].data.cpu().numpy()[mask]
+                vals = [(int(h) << 64) | (int(lo) & (2 ** 64 - 1))
+                        for lo, h in zip(data, hi)]
+            elif col.dictionary is not None:
+                vals = list(col.dictionary.values[data])
+            else:
+                vals = [int(x) for x in data]
+            out[n].extend(vals)
+    return out
+
+
+def _psum(a: np.ndarray) -> int:
+    """Exact sum of an int64 array as a Python int (chunked, no int64
+    overflow)."""
+    return sum(int(a[i:i + (1 << 20)].sum()) for i in range(0, len(a),
+                                                           1 << 20))
+
+
+def _half_up(s: int, c: int) -> int:
+    q = (abs(s) + c // 2) // c
+    return -q if s < 0 else q
+
+
+def q1_oracle(li) -> dict:
+    flags, status = np.array(["A", "N", "R"]), np.array(["F", "O"])
+    m = li["l_shipdate"] <= D980902
+    q, p = li["l_quantity"], li["l_extendedprice"]
+    d, t = li["l_discount"], li["l_tax"]
+    out = {k: [] for k in ("l_returnflag", "l_linestatus", "sum_qty",
+                           "sum_base_price", "sum_disc_price",
+                           "sum_charge", "avg_qty", "avg_price", "avg_disc",
+                           "count_order")}
+    for fi in range(3):
+        for si in range(2):
+            sel = m & (li["l_returnflag"] == fi) & (li["l_linestatus"] == si)
+            c = int(sel.sum())
+            if not c:
+                continue
+            disc_price = p[sel] * (100 - d[sel])
+            out["l_returnflag"].append(str(flags[fi]))
+            out["l_linestatus"].append(str(status[si]))
+            out["sum_qty"].append(_psum(q[sel]))
+            out["sum_base_price"].append(_psum(p[sel]))
+            out["sum_disc_price"].append(_psum(disc_price))
+            out["sum_charge"].append(_psum(disc_price * (100 + t[sel])))
+            out["avg_qty"].append(_half_up(_psum(q[sel]), c))
+            out["avg_price"].append(_half_up(_psum(p[sel]), c))
+            out["avg_disc"].append(_half_up(_psum(d[sel]), c))
+            out["count_order"].append(c)
+    return out
+
+
+def _run(plan, ctx):
+    """(output batches, wall, launch counts) of one query; the counts are
+    reset just before it and read just after."""
+    reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    task = Task(plan, ctx)
+    out = list(task.batches())
+    task.check_errors()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, read_launches()
+
+
+def _expect_launches(name, got, want):
+    for k, v in want.items():
+        if got[k] != v:
+            raise AssertionError(f"{name}: {k} launched {got[k]} times, "
+                                 f"expected {v}")
+
+
+def q1_phase(ctx, li) -> dict:
+    want = q1_oracle(li)
+    walls, launches = [], []
+    for _ in range(2):
+        out, wall, counts = _run(tpch_plan(1), ctx)
+        got = _host_rows(out, list(want))
+        if got != want:
+            raise AssertionError(f"Q1 {got} != numpy oracle {want}")
+        # the final OrderBy: 4 key bits, the scatter branch, one pass
+        _expect_launches("q1", counts, {"radix_hist": 1, "radix_pos": 1,
+                                        "radix_rank": 0, "filter_sum": 0})
+        walls.append(wall)
+        launches.append(counts)
+    phase("q1", groups=len(want["count_order"]),
+          count_order=want["count_order"], launches=launches[-1],
+          wall_s=walls, rows_per_s=[len(li["l_orderkey"]) / w
+                                    for w in walls])
+    return launches[-1]
+
+
+def _key_bits(conn, cols) -> int:
+    """1 active bit + each column's width, narrowed by the connector's
+    stats."""
+    bits = 1
+    for c in cols:
+        lo, hi = conn.column_stats("lineitem", c)
+        bits += (hi - lo).bit_length()
+    return bits
+
+
+def topn_phase(conn, ctx, li, order) -> dict:
+    plan = (PlanBuilder().table_scan("lineitem", SORT_COLS[:2])
+            .order_by(SORT_COLS[:2]).limit(1000).plan())
+    bits = _key_bits(conn, SORT_COLS[:2])
+    n_batches = len(conn.default_splits("lineitem"))
+    passes = -(-bits // 8)
+    out, wall, counts = _run(plan, ctx)
+    _expect_launches("topn", counts, {
+        "radix_hist": passes * n_batches, "radix_pos": passes * n_batches,
+        "radix_rank": 0, "filter_sum": 0})
+    got = _host_rows(out, SORT_COLS[:2])
+    top = order[:1000]
+    for c in SORT_COLS[:2]:
+        if got[c] != [int(x) for x in li[c][top]]:
+            raise AssertionError(f"TopN {c} differs from np.lexsort's "
+                                 "first 1000 rows")
+    phase("topn", key_bits=bits, batches=n_batches, passes=passes,
+          launches=counts, wall_s=wall)
+    return counts
+
+
+def sort_full_phase(conn, ctx, li, order) -> dict:
+    plan = (PlanBuilder().table_scan("lineitem", SORT_COLS)
+            .order_by(SORT_COLS).plan())
+    bits = _key_bits(conn, SORT_COLS)
+    out, wall, counts = _run(plan, ctx)
+    cap = sum(b.capacity for b in out)
+    # key + row-id bits past 64: the classic loop, B4 + B2 a pass over
+    # the key's 32-bit words; at SF10, 42 key bits + 26 row-id bits
+    classic = bits + max(1, cap - 1).bit_length() > 64
+    if conn.scale_factor >= 10 and not classic:
+        raise AssertionError(f"full sort of {cap} rows and {bits} key bits "
+                             "would not take the classic loop")
+    if classic:
+        words = [32] * (bits // 32) + ([bits % 32] if bits % 32 else [])
+        passes = sum(-(-w // 8) for w in words)
+        want = {"radix_hist": passes, "radix_rank": passes, "radix_pos": 0}
+    else:
+        passes = -(-bits // 8)
+        want = {"radix_hist": passes, "radix_rank": 0, "radix_pos": passes}
+    _expect_launches("sort_full", counts, dict(want, filter_sum=0))
+    rows = 0
+    for b in out:
+        m = b.mask
+        n = int(m.sum().item())
+        for c in SORT_COLS:
+            got = b.columns[c].data[m].cpu().numpy()
+            if not np.array_equal(got, li[c][order[rows:rows + n]]):
+                raise AssertionError(f"full sort: {c} is not in "
+                                     "np.lexsort order")
+        rows += n
+    if rows != len(order):
+        raise AssertionError(f"full sort gave {rows} rows, not {len(order)}")
+    phase("sort_full", rows=rows, capacity=cap, key_bits=bits,
+          classic_loop=classic, passes=passes, launches=counts, wall_s=wall,
+          rows_per_s=rows / wall)
+    return counts
+
+
+def q6_generic_phase(ctx, li) -> dict:
+    plan = (PlanBuilder().table_scan(
+        "lineitem", Q6_COLS, filter=f"({Q6_FILTER}) or l_quantity < 0.0")
+        .project(["l_extendedprice * l_discount as revenue"])
+        .single_aggregation([], ["sum(revenue) as revenue"]).plan())
+    expect = q6_oracle(li)
+    fired0 = M.reporter().snapshot()["counters"].get(M.K_FILTER_SUM_KERNEL,
+                                                     0)
+    out, wall, counts = _run(plan, ctx)
+    fired = M.reporter().snapshot()["counters"].get(M.K_FILTER_SUM_KERNEL,
+                                                    0) - fired0
+    _expect_launches("q6_generic", counts, {"filter_sum": 0})
+    if fired:
+        raise AssertionError("the filter-sum matcher took the generic plan")
+    got = _host_rows(out, ["revenue"])["revenue"]
+    if got != [expect]:
+        raise AssertionError(f"generic Q6 {got} != numpy oracle {expect}")
+    phase("q6_generic", revenue_scaled_e4=expect, launches=counts,
+          wall_s=wall)
+    return counts
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sf", type=float, default=10.0,
@@ -283,11 +666,22 @@ def main() -> None:
     kernel = kernel_phase(np.random.default_rng(args.seed))
     conn = register_tpch(args.sf)
     ctx = QueryCtx(device="cuda")
-    launches = q6_phase(conn, ctx)
-    heads_phase(conn, ctx)
+    li = lineitem_columns(conn)
+    reset_launches()
+    launches = q6_phase(conn, ctx, li)
+    heads_phase(ctx, li)
+    radix = radix_phase(args.seed, conn, li)
+    t0 = time.perf_counter()
+    order = np.lexsort([li[c] for c in reversed(SORT_COLS)])
+    phase("oracle_lexsort", rows=len(order),
+          seconds=time.perf_counter() - t0)
+    by_phase = {"q1": q1_phase(ctx, li),
+                "topn": topn_phase(conn, ctx, li, order),
+                "sort_full": sort_full_phase(conn, ctx, li, order),
+                "q6_generic": q6_generic_phase(ctx, li)}
 
     main_shape = kernel["timings"][6_700_000]
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "filter_sum",
         "route": "cuda",
         "source": "velox_tpu_torch/csrc/filter_sum.cu",
@@ -300,7 +694,31 @@ def main() -> None:
         "ms_60m_rows": kernel["timings"][60_000_000]["ms"],
         "plain_ms_60m_rows": kernel["timings"][60_000_000]["plain_ms"],
         "all_read_ms_60m_rows": kernel["timings"][60_000_000]["all_read_ms"],
-    }]}), flush=True)
+    }]
+    # (kernel, TPU kernel it replaces, the path phase whose launches are
+    # reported, rows of the timed shape that phase gives it)
+    for name, line, main_phase, rows in (
+            ("radix_hist", 85, "topn", 6_700_000),
+            ("radix_rank", 45, "sort_full", 60_000_000),
+            ("radix_pos", 116, "topn", 6_700_000)):
+        other = 60_000_000 if rows == 6_700_000 else 6_700_000
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "velox_tpu_torch/csrc/radix_pass.cu",
+            "replaces": f"velox_tpu/ops/pallas_kernels.py:{line}",
+            "launches": by_phase[main_phase][name],
+            "launches_by_phase": {p: c[name] for p, c in by_phase.items()},
+            "max_abs_err": radix["max_abs_err"][name],
+            "ms": radix["timings"][rows][name]["ms"],
+            "plain_ms": radix["timings"][rows][name]["plain_ms"],
+            "rows": rows,
+            f"ms_{other // 1_000_000}m_rows":
+                radix["timings"][other][name]["ms"],
+            f"plain_ms_{other // 1_000_000}m_rows":
+                radix["timings"][other][name]["plain_ms"],
+        })
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,0 +1,376 @@
+"""The generic aggregation of the torch port against the JAX reference.
+
+Covers ops/wide.py and ops/int128.py (elementwise, exact), the
+aggregation operator fed the reference's own batches (carried over with
+``testing.batches.batch_from_reference``), and whole plans at SF 0.01:
+TPC-H Q1 (array mode, DECIMAL(38) sums and half-up avgs), a sort-mode
+group-by (Q18's inner aggregate), a global aggregation, and Q6 through
+the generic path. Arrow tables must be equal in value and type.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pyarrow as pa
+import pytest
+import torch
+
+from velox_tpu.connectors.tpch import register_tpch as jax_register_tpch
+from velox_tpu.exec.aggregation import AggregationOperator as JAggOp
+from velox_tpu.exec.task import Task as JTask
+from velox_tpu.ops import int128 as JI
+from velox_tpu.ops import wide as JW
+from velox_tpu.testing.plan_builder import PlanBuilder as JPlanBuilder
+from velox_tpu.tpch import tpch_plan as jax_tpch_plan
+from velox_tpu.vector.device import to_arrow as jax_to_arrow
+from velox_tpu_torch.connectors.tpch import register_tpch
+from velox_tpu_torch import types as T
+from velox_tpu_torch.exec import groupby as G
+from velox_tpu_torch.exec.aggregation import AggregationOperator
+from velox_tpu_torch.exec.fuse import chain_fn, collapse_chain
+from velox_tpu_torch.exec.task import QueryCtx, Task
+from velox_tpu_torch.expression.eval import EvalValue
+from velox_tpu_torch.ops import int128 as I
+from velox_tpu_torch.ops import radix as R
+from velox_tpu_torch.ops import wide as W
+from velox_tpu_torch.ops.filter_reduce import (
+    FilterSumOperator, match_filter_sum,
+)
+from velox_tpu_torch.testing.batches import batch_from_reference
+from velox_tpu_torch.testing.plan_builder import PlanBuilder
+from velox_tpu_torch.tpch import tpch_plan
+from velox_tpu_torch.vector.device import (
+    DeviceBatch, DeviceColumn, Dictionary, to_arrow,
+)
+
+torch.set_num_threads(1)
+
+CPU = QueryCtx(device="cpu")
+Q6_COLS = ["l_shipdate", "l_extendedprice", "l_quantity", "l_discount"]
+Q6_FILTER = ("l_shipdate >= date '1994-01-01' and "
+             "l_shipdate < date '1995-01-01' and "
+             "l_discount between 0.05 and 0.07 and "
+             "l_quantity < 24.0")
+
+
+@pytest.fixture(autouse=True)
+def _tpch():
+    jax_register_tpch(0.01)
+    register_tpch(0.01)
+
+
+def _equal_tables(got: pa.Table, want: pa.Table):
+    assert got.schema == want.schema
+    assert got.num_rows == want.num_rows
+    assert got.equals(want), (got.slice(0, 5).to_pylist(),
+                              want.slice(0, 5).to_pylist())
+
+
+# ---------------------------------------------------------------------------
+# ops/int128.py and ops/wide.py, elementwise
+# ---------------------------------------------------------------------------
+
+def _limbs(seed: int, n: int = 512):
+    """int128 values across the whole range as (lo, hi) int64 limbs, with
+    the edges (0, -1, +-2^63, +-2^64, extremes) included."""
+    rng = np.random.default_rng(seed)
+    vals = [0, -1, 1, 2 ** 63, -2 ** 63, 2 ** 64 - 1, -2 ** 64,
+            2 ** 127 - 1, -2 ** 127 + 5]
+    vals += [int(x) * int(y) for x, y in zip(
+        rng.integers(-2 ** 62, 2 ** 62, n), rng.integers(-2 ** 62, 2 ** 62,
+                                                         n))]
+    lo = np.array([((v % 2 ** 64) + 2 ** 63) % 2 ** 64 - 2 ** 63
+                   for v in vals], np.int64)
+    hi = np.array([v >> 64 for v in vals], np.int64)
+    return lo, hi
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+
+
+def _j(*arrays):
+    return [jnp.asarray(a) for a in arrays]
+
+
+def _eq(got, want):
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+@pytest.mark.parametrize("fn", ["add128", "neg128", "abs128",
+                                "split_parts", "combine_parts",
+                                "combine_two_parts"])
+def test_int128_matches_jax(fn):
+    alo, ahi = _limbs(1)
+    blo, bhi = _limbs(2)
+    if fn == "add128":
+        args = (alo, ahi, blo, bhi)
+    elif fn in ("neg128", "abs128", "split_parts"):
+        args = (alo, ahi)
+    elif fn == "combine_parts":
+        rng = np.random.default_rng(3)
+        args = tuple(rng.integers(0, 2 ** 62, len(alo)) for _ in range(3)) \
+            + (rng.integers(-2 ** 62, 2 ** 62, len(alo)),)
+    else:
+        rng = np.random.default_rng(4)
+        args = (rng.integers(0, 2 ** 62, len(alo)),
+                rng.integers(-2 ** 62, 2 ** 62, len(alo)))
+    got = getattr(I, fn)(*_t(*args))
+    want = getattr(JI, fn)(*_j(*args))
+    _eq(got, want)
+
+
+def test_div128_round_half_up_matches_jax():
+    lo, hi = _limbs(5, 256)
+    rng = np.random.default_rng(6)
+    d = rng.integers(1, 2 ** 40, len(lo))
+    d[:4] = [1, 2, 3, 2 ** 62]
+    _eq(I.div128_round_half_up(*_t(lo, hi, d)),
+        JI.div128_round_half_up(*_j(lo, hi, d)))
+    # the exact quotient, rounded half away from zero
+    got_lo, got_hi = I.div128_round_half_up(*_t(lo, hi, d))
+    for i in range(0, len(lo), 37):
+        v = (int(hi[i]) << 64) | (int(lo[i]) % 2 ** 64)
+        q = (abs(v) + int(d[i]) // 2) // int(d[i])
+        q = -q if v < 0 else q
+        assert (int(got_hi[i]) << 64) | (int(got_lo[i]) % 2 ** 64) == q
+
+
+def _runs(seed: int, n: int = 3000):
+    """Sorted-run structure: boundaries, gids, a trailing inactive tail."""
+    rng = np.random.default_rng(seed)
+    boundary = rng.random(n) < 0.1
+    boundary[0] = True
+    gid = np.cumsum(boundary) - 1
+    active = np.arange(n) < n - 200
+    return boundary, gid, active
+
+
+@pytest.mark.parametrize("combine", ["sum", "min", "max"])
+@pytest.mark.parametrize("dtype", [np.int64, np.int32, np.float64])
+def test_segmented_reduce_sorted_matches_jax(combine, dtype):
+    boundary, gid, active = _runs(7)
+    rng = np.random.default_rng(8)
+    data = rng.integers(-10 ** 6, 10 ** 6, len(gid)).astype(dtype)
+    n = len(gid)
+    want = np.asarray(JW.segmented_reduce_sorted(
+        *_j(data, gid, boundary, active), n, combine))
+    got = W.segmented_reduce_sorted(*_t(data, gid, boundary, active), n,
+                                    combine).numpy()
+    groups = int((boundary & active).sum())
+    np.testing.assert_array_equal(got[:groups], want[:groups])
+
+
+@pytest.mark.parametrize("combine", ["sum", "min"])
+def test_segment_scans_match_jax(combine):
+    boundary, gid, active = _runs(9, 1000)
+    n = len(gid)
+    data = np.random.default_rng(10).normal(size=n) * 1e3
+    off = W.segment_offsets(torch.from_numpy(boundary), n)
+    np.testing.assert_array_equal(
+        off.numpy(), np.asarray(JW.segment_offsets(jnp.asarray(boundary),
+                                                   n)))
+    got, gd = W.segmented_scan_values(torch.from_numpy(data), off, n,
+                                      combine)
+    want, wd = JW.segmented_scan_values(jnp.asarray(data),
+                                        jnp.asarray(off.numpy()), n,
+                                        combine)
+    assert gd == wd
+    # the same float64 additions in the same order: equal bit for bit
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    idx = np.where(active, gid, n)
+    np.testing.assert_array_equal(
+        W.scatter_unique_set(n + 1, *_t(idx, data))[:n].numpy(),
+        np.asarray(JW.scatter_unique_set(n + 1, *_j(idx, data)))[:n])
+
+
+@pytest.mark.parametrize("capacity", [4096, G._MASKED_MIN_ROWS])
+def test_reduce_array_mode_matches_numpy(capacity):
+    """Both reductions of array mode (one scatter per addend below
+    _MASKED_MIN_ROWS, masked dense reduces from there) give every group's
+    exact sum, min and max; a nullable dictionary key and a BOOLEAN key
+    make 4 x 2 groups."""
+    rng = np.random.default_rng(11)
+    flag = rng.integers(0, 3, capacity).astype(np.int32)
+    flag_null = rng.random(capacity) < 0.05
+    status = rng.random(capacity) < 0.5
+    active = rng.random(capacity) < 0.9
+    big = rng.integers(-2 ** 60, 2 ** 60, capacity)
+    small = rng.integers(-2 ** 30, 2 ** 30, capacity).astype(np.int32)
+    keys = [EvalValue(torch.from_numpy(flag), torch.from_numpy(~flag_null),
+                      T.VARCHAR, Dictionary(["A", "N", "R"])),
+            EvalValue(torch.from_numpy(status), None, T.BOOLEAN)]
+    domain = G.array_mode_domain(keys)
+    assert domain == 8
+    addends = [(torch.from_numpy(big // 8), "sum"),
+               (torch.from_numpy(big), "min"),
+               (torch.from_numpy(small), "max")]
+    gk, gs, occupied = G.reduce_array_mode(
+        keys, addends, torch.from_numpy(active), capacity, domain)
+    ids = np.where(flag_null, 3, flag) * 2 + status
+    for g in range(domain):
+        sel = active & (ids == g)
+        assert bool(occupied[g]) == bool(sel.any())
+        if not sel.any():
+            continue
+        assert int(gs[0][g]) == int((big[sel] // 8).sum())
+        assert int(gs[1][g]) == int(big[sel].min())
+        assert int(gs[2][g]) == int(small[sel].max())
+        assert bool(gk[0].validity[g]) == (g // 2 != 3)
+        assert int(gk[1].data[g]) == g % 2
+
+
+# ---------------------------------------------------------------------------
+# The operator fed the reference's batches
+# ---------------------------------------------------------------------------
+
+def test_partial_step_on_the_reference_batches():
+    """Q1's PARTIAL aggregation over the reference's own head batches,
+    carried into the port: equal state tables (array mode, the int128
+    planar parts of every decimal sum and avg)."""
+    jpartial = jax_tpch_plan(1).source.source
+    tpartial = tpch_plan(1).source.source
+    jop, top = JAggOp(jpartial), AggregationOperator(tpartial, "cpu")
+    dicts = {}
+    for jb in JTask(jpartial.source).batches():
+        jop.add_input(jb)
+        top.add_input(batch_from_reference(jb, dictionaries=dicts))
+    jop.no_more_input()
+    top.no_more_input()
+    want = pa.concat_tables([jax_to_arrow(b) for b in iter(jop.get_output,
+                                                              None)])
+    got = pa.concat_tables([to_arrow(b) for b in iter(top.get_output,
+                                                      None)])
+    assert got.num_rows == want.num_rows == 4
+    _equal_tables(got, want)
+
+
+# ---------------------------------------------------------------------------
+# Whole plans at SF 0.01
+# ---------------------------------------------------------------------------
+
+def _plan(builder, kind):
+    if kind == "sort_mode_q18_inner":
+        return (builder().table_scan("lineitem", ["l_orderkey", "l_quantity"])
+                .single_aggregation(["l_orderkey"],
+                                    ["sum(l_quantity) as quantity"])
+                .plan())
+    if kind == "sort_mode_two_keys":
+        return (builder().table_scan(
+            "lineitem", ["l_suppkey", "l_shipdate", "l_quantity", "l_tax"],
+            filter="l_quantity < 10.0")
+            .partial_aggregation(["l_suppkey", "l_shipdate"],
+                                 ["count() as n", "max(l_tax) as t",
+                                  "avg(l_quantity) as q"])
+            .final_aggregation().plan())
+    if kind == "global":
+        return (builder().table_scan(
+            "lineitem", ["l_quantity", "l_extendedprice", "l_discount",
+                         "l_linenumber"])
+            .single_aggregation([], [
+                "sum(l_quantity) as a", "avg(l_extendedprice) as b",
+                "count() as c", "min(l_linenumber) as d",
+                "max(l_linenumber) as e", "sum(l_linenumber) as f"])
+            .plan())
+    if kind == "q6_generic":
+        # the `or` defeats the filter-sum matcher in both engines
+        return (builder().table_scan("lineitem", Q6_COLS,
+                                     filter=f"({Q6_FILTER}) or "
+                                            "l_quantity < 0.0")
+                .project(["l_extendedprice * l_discount as revenue"])
+                .single_aggregation([], ["sum(revenue) as revenue"])
+                .plan())
+    raise ValueError(kind)
+
+
+def test_q1_equals_reference():
+    want = JTask(jax_tpch_plan(1)).run()
+    pos = R.radix_pos.launches
+    got = Task(tpch_plan(1), CPU).run()
+    _equal_tables(got, want)
+    assert got.num_rows == 4
+    assert R.radix_pos.launches == pos  # plain versions on the CPU
+
+
+@pytest.mark.parametrize("kind", ["sort_mode_q18_inner",
+                                  "sort_mode_two_keys", "global",
+                                  "q6_generic"])
+def test_plans_equal_reference(kind):
+    want = JTask(_plan(JPlanBuilder, kind)).run()
+    got = Task(_plan(PlanBuilder, kind), CPU).run()
+    assert got.num_rows > 0
+    _equal_tables(got, want)
+
+
+def test_rejected_batch_runs_the_generic_aggregation():
+    """A batch the filter-sum kernel cannot take (an int64 column) makes
+    the operator fall back to the generic aggregation, as the reference
+    does, and Q6's value stays exact."""
+    want = JTask(jax_tpch_plan(6)).run()
+    plan = tpch_plan(6)
+    chain = collapse_chain(plan.source)
+    conn = register_tpch(0.01)
+    stats = {c: conn.column_stats("lineitem", c) for c in Q6_COLS}
+    spec = match_filter_sum(plan, chain, stats)
+    assert spec is not None
+    op = FilterSumOperator(plan, spec, "cpu", lambda: AggregationOperator(
+        plan, "cpu", pre_fn=chain_fn(chain)))
+    src = conn.create_data_source("lineitem", Q6_COLS, CPU)
+    for split in conn.default_splits("lineitem"):
+        b = src.next(split)
+        while b is not None:
+            cols = dict(b.columns)
+            q = cols["l_quantity"]
+            cols["l_quantity"] = DeviceColumn(q.data.long(), q.validity,
+                                              q.dtype)
+            assert not op._batch_ok(DeviceBatch(cols, b.mask))
+            op.add_input(DeviceBatch(cols, b.mask))
+            b = src.next(split)
+    op.no_more_input()
+    assert op._fallback is not None
+    out = op.get_output()
+    _equal_tables(to_arrow(out), want)
+
+
+def test_storage_change_after_the_kernel_ran_raises():
+    """A batch the kernel cannot take, after the kernel has summed
+    earlier batches, raises instead of dropping the running total."""
+    plan = tpch_plan(6)
+    chain = collapse_chain(plan.source)
+    conn = register_tpch(0.01)
+    spec = match_filter_sum(plan, chain, {
+        c: conn.column_stats("lineitem", c) for c in Q6_COLS})
+    op = FilterSumOperator(plan, spec, "cpu", lambda: AggregationOperator(
+        plan, "cpu", pre_fn=chain_fn(chain)))
+    src = conn.create_data_source("lineitem", Q6_COLS, CPU)
+    b = src.next(conn.default_splits("lineitem")[0])
+    op.add_input(b)
+    cols = dict(b.columns)
+    q = cols["l_quantity"]
+    cols["l_quantity"] = DeviceColumn(q.data.long(), q.validity, q.dtype)
+    with pytest.raises(NotImplementedError, match="storage changes"):
+        op.add_input(DeviceBatch(cols, b.mask))
+
+
+@pytest.mark.parametrize("agg", ["approx_distinct(l_quantity)",
+                                 "stddev(l_quantity)"])
+def test_unported_aggregates_raise(agg):
+    with pytest.raises(NotImplementedError, match=agg.split("(")[0]):
+        (PlanBuilder().table_scan("lineitem", ["l_quantity"])
+         .single_aggregation([], [f"{agg} as x"]).plan())
+
+
+def test_global_min_max_of_a_narrowed_decimal_are_exact():
+    """l_quantity is DECIMAL(12,2) stored as int32: the min/max state
+    widens to the type's int64, so padding rows masked to the identity
+    never win. (The reference masks with an int64 identity kept in the
+    column's int32 and returns -0.01 for this min; ROADMAP.md C.)"""
+    conn = register_tpch(0.01)
+    q = conn.gen.gen_lineitem(0, conn.gen.num_rows("orders"),
+                              ["l_quantity"])["l_quantity"]
+    got = Task(PlanBuilder().table_scan("lineitem", ["l_quantity"])
+               .single_aggregation([], ["min(l_quantity) as mn",
+                                        "max(l_quantity) as mx"]).plan(),
+               CPU).run().to_pylist()[0]
+    assert int(got["mn"].scaleb(2)) == int(q.min()) == 100
+    assert int(got["mx"].scaleb(2)) == int(q.max()) == 5000

@@ -1,0 +1,132 @@
+"""Radix-pass kernels B2, B3 and B4 of the torch port against the JAX
+reference's Pallas kernels.
+
+On the CPU each port wrapper runs its plain PyTorch version; the JAX side
+runs its Pallas kernels in interpret mode, as tests/test_pallas.py does
+(n <= 3 * 4096 rows). Every comparison is exact: ranks, positions and
+counts are integers. The CUDA kernels themselves are held against the same
+plain versions on the card by chip_smoke.py.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from velox_tpu.ops import pallas_kernels as PK
+from velox_tpu_torch.ops import radix as R
+
+torch.set_num_threads(1)
+
+DISTS = ["uniform", "one_digit", "w1", "w2", "w7", "sorted", "reversed"]
+
+
+def _digits(dist: str, n: int, seed: int = 0) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    if dist == "one_digit":
+        return np.full(n, 173, np.int32)
+    if dist.startswith("w"):
+        return rng.integers(0, 1 << int(dist[1:]), n, dtype=np.int32)
+    d = rng.integers(0, 256, n, dtype=np.int32)
+    if dist == "sorted":
+        d.sort()
+    elif dist == "reversed":
+        d = np.sort(d)[::-1].copy()
+    return d
+
+
+def _stable_positions(d: np.ndarray) -> np.ndarray:
+    pos = np.empty(len(d), np.int64)
+    pos[np.argsort(d, kind="stable")] = np.arange(len(d))
+    return pos
+
+
+@pytest.mark.parametrize("dist", DISTS)
+@pytest.mark.parametrize("n", [1, 255, 3 * 4096 - 5])
+def test_pass_positions_match_pallas(n, dist):
+    d = _digits(dist, n)
+    want = np.asarray(PK.radix_pass_positions(jnp.asarray(d), n,
+                                              interpret=True))
+    want_ng = np.asarray(PK.radix_pass_positions_nogather(
+        jnp.asarray(d), n, interpret=True))
+    t = torch.from_numpy(d)
+    got = R.radix_pass_positions(t, n)
+    got_ng = R.radix_pass_positions_nogather(t, n)
+    assert got.dtype == got_ng.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got_ng.numpy(), want_ng)
+    np.testing.assert_array_equal(got.numpy(), _stable_positions(d))
+
+
+@pytest.mark.parametrize("dist", ["uniform", "one_digit", "w2"])
+@pytest.mark.parametrize("n_blocks", [1, 3])
+def test_hist_matches_pallas(n_blocks, dist):
+    d = _digits(dist, n_blocks * PK.BLOCK, seed=n_blocks)
+    want = np.asarray(PK._radix_hist_call(jnp.asarray(d), n_blocks,
+                                          interpret=True))
+    table = R.radix_hist(torch.from_numpy(d))
+    assert table.dtype == torch.int32
+    assert tuple(table.shape) == (R.RADIX, R._n_tiles(len(d)))
+    np.testing.assert_array_equal(table.sum(1).numpy(), want)
+
+
+@pytest.mark.parametrize("dist", ["uniform", "w1", "reversed"])
+def test_ranks_and_totals_match_pallas(dist):
+    n_blocks = 3
+    d = _digits(dist, n_blocks * PK.BLOCK, seed=5)
+    want_r, want_t = PK._radix_rank_call(jnp.asarray(d), n_blocks,
+                                         interpret=True)
+    ranks, totals = R.radix_ranks_totals(torch.from_numpy(d))
+    np.testing.assert_array_equal(ranks.numpy(), np.asarray(want_r))
+    np.testing.assert_array_equal(totals.numpy(), np.asarray(want_t))
+
+
+@pytest.mark.parametrize("n", [R.TILE_ROWS - 1, 3 * R.TILE_ROWS + 17])
+def test_modes_over_tiles(n):
+    """The per-tile modes, fed the scans of the histogram, give what the
+    whole-pass functions give: B2 the rank among all rows of the digit,
+    B3 the destination; over several tiles and a ragged last one."""
+    d = torch.from_numpy(_digits("uniform", n, seed=n))
+    table = R.radix_hist(d)
+    np.testing.assert_array_equal(
+        table.sum(1).numpy(), np.bincount(d.numpy(), minlength=256))
+    offset, totals = R._tile_offsets(table)
+    base = torch.cumsum(totals, 0) - totals
+    pos = R.radix_pos(d, R._destinations(table))
+    np.testing.assert_array_equal(pos.numpy(), _stable_positions(d.numpy()))
+    rank = R.radix_rank(d, offset.contiguous())
+    np.testing.assert_array_equal((rank + base[d.long()]).numpy(),
+                                  pos.numpy())
+    np.testing.assert_array_equal(
+        R.radix_pass_positions_reference(d, n).numpy(), pos.numpy())
+
+
+def test_cpu_runs_the_plain_versions():
+    d = torch.from_numpy(_digits("uniform", 5000))
+    before = (R.radix_hist.launches, R.radix_rank.launches,
+              R.radix_pos.launches)
+    R.radix_pass_positions(d, 5000)
+    R.radix_pass_positions_nogather(d, 5000)
+    assert (R.radix_hist.launches, R.radix_rank.launches,
+            R.radix_pos.launches) == before
+
+
+@pytest.mark.parametrize("bad", ["int64", "2d", "strided", "capacity",
+                                 "table", "device"])
+def test_wrappers_reject_what_the_kernel_does_not_take(bad):
+    d = torch.zeros(2048, dtype=torch.int32)
+    table = R.radix_hist(d)
+    with pytest.raises(ValueError):
+        if bad == "int64":
+            R.radix_hist(d.long())
+        elif bad == "2d":
+            R.radix_hist(d.reshape(32, 64))
+        elif bad == "strided":
+            R.radix_hist(torch.zeros(4096, dtype=torch.int32)[::2])
+        elif bad == "capacity":
+            R.radix_pass_positions(d, 1024)
+        elif bad == "table":
+            R.radix_pos(d, table[:128].contiguous())
+        else:
+            R.radix_hist(torch.zeros(2048, dtype=torch.int32,
+                                     device="meta"))

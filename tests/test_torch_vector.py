@@ -2,8 +2,10 @@
 
 A reference batch is built with ``velox_tpu.vector.device.from_arrow``,
 fetched with ``jax.device_get``, rebuilt in the port with
-``batch_from_numpy`` and converted back with each package's ``to_arrow``:
-the two Arrow tables must be equal in values and types.
+``testing.batches.batch_from_reference`` (over ``batch_from_numpy``) and
+converted back with each package's ``to_arrow``: the two Arrow tables must
+be equal in values and types. The row utilities of exec/batch_utils.py
+get the same treatment.
 """
 
 import decimal
@@ -14,8 +16,11 @@ import pyarrow as pa
 import pytest
 import torch
 
+from velox_tpu.exec import batch_utils as jbu
 from velox_tpu.vector import device as jd
 from velox_tpu_torch import types as TT
+from velox_tpu_torch.exec import batch_utils as tbu
+from velox_tpu_torch.testing.batches import batch_from_reference
 from velox_tpu_torch.vector import device as td
 
 torch.set_num_threads(1)
@@ -51,17 +56,7 @@ def _arrow_columns():
 
 def _port_batch(jbatch):
     """The port's batch over the same host arrays as a reference batch."""
-    jb = jax.device_get(jbatch)
-    columns, dtypes, dicts = {}, {}, {}
-    for name, col in jb.columns.items():
-        kids = [np.asarray(c.data) for c in col.children]
-        validity = None if col.validity is None else np.asarray(col.validity)
-        columns[name] = (np.asarray(col.data), validity, *kids)
-        dtypes[name] = TT.parse_type(str(col.dtype))
-        if col.dictionary is not None:
-            dicts[name] = td.Dictionary(col.dictionary.values)
-    return td.batch_from_numpy(columns, np.asarray(jb.mask), dtypes, dicts,
-                               device="cpu")
+    return batch_from_reference(jax.device_get(jbatch))
 
 
 @pytest.mark.parametrize("name", sorted(_arrow_columns()))
@@ -117,3 +112,34 @@ def test_types_map_to_torch_dtypes():
               TT.decimal(12, 2), TT.VARCHAR):
         assert torch.empty(0, dtype=t.torch_dtype()).numpy().dtype == \
             t.np_dtype()
+
+
+def _masked_batch():
+    """A reference batch of every column kind, with a scattered mask."""
+    jb = jd.from_arrow(pa.table(_arrow_columns()))
+    keep = np.random.default_rng(1).random(jb.capacity) < 0.6
+    return jb.with_mask(jb.mask & jax.numpy.asarray(keep))
+
+
+@pytest.mark.parametrize("op", ["concat", "compact", "take", "slice",
+                                "compact_batch"])
+def test_batch_utils_match_reference(op):
+    jb = _masked_batch()
+    tb = _port_batch(jb)
+    idx = np.random.default_rng(2).integers(0, jb.capacity, 900)
+    if op == "concat":
+        want = jbu.concat_batches([jb, jb])
+        got = tbu.concat_batches([tb, tb])
+    elif op == "compact":
+        want, got = jbu.compact(jb), tbu.compact(tb)
+    elif op == "take":
+        want = jbu.take(jb, jax.numpy.asarray(idx), jb.mask[idx])
+        got = tbu.take(tb, torch.from_numpy(idx), tb.mask[idx])
+    elif op == "slice":
+        want, got = jbu.slice_batch(jb, 100, 512), tbu.slice_batch(tb, 100,
+                                                                  512)
+    else:
+        want, got = jbu.compact_batch(jb, 512), tbu.compact_batch(tb, 512)
+    assert got.capacity == want.capacity
+    np.testing.assert_array_equal(got.mask.numpy(), np.asarray(want.mask))
+    assert td.to_arrow(got).equals(jd.to_arrow(want))

@@ -1,0 +1,128 @@
+"""Batch-level utilities: concat, compaction, row gathers and slices.
+
+Counterpart of ``velox_tpu/exec/batch_utils.py``. Compaction (moving
+active rows to the front) is done only at operator boundaries that profit
+(buffered sorts, aggregation runs), as in the reference. Every function
+keeps the batch on its device and never reads a device value on the host.
+
+A DECIMAL(19..38) column's high limb (``children[0]``) is row-aligned and
+moves with its parent. ARRAY/MAP/ROW columns and raw strings are not
+ported (vector/device.py) and raise here.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, List
+
+import torch
+
+from velox_tpu_torch.vector.device import DeviceBatch, DeviceColumn
+
+
+def _check_flat(col: DeviceColumn) -> None:
+    if col.dtype.is_complex:
+        raise NotImplementedError(
+            f"{col.dtype} columns are not ported to velox_tpu_torch")
+
+
+def concat_batches(batches: List[DeviceBatch]) -> DeviceBatch:
+    """Concatenate batches (same schema) into one larger batch."""
+    if len(batches) == 1:
+        return batches[0]
+
+    def concat_cols(parts: List[DeviceColumn]) -> DeviceColumn:
+        first = parts[0]
+        _check_flat(first)
+        data = torch.cat([p.data for p in parts])
+        if any(p.validity is not None for p in parts):
+            validity = torch.cat([
+                p.validity if p.validity is not None
+                else torch.ones((p.capacity,), dtype=torch.bool,
+                                device=p.data.device)
+                for p in parts])
+        else:
+            validity = None
+        children = first.children
+        if first.dtype.is_long_decimal:
+            # the high limb concatenates with the parent
+            children = tuple(concat_cols([p.children[i] for p in parts])
+                             for i in range(len(first.children)))
+        return DeviceColumn(data, validity, first.dtype, first.dictionary,
+                            children)
+
+    cols = {name: concat_cols([b.columns[name] for b in batches])
+            for name in batches[0].columns}
+    mask = torch.cat([b.mask for b in batches])
+    return DeviceBatch(cols, mask)
+
+
+def map_column_rows(col: DeviceColumn,
+                    f: Callable[[torch.Tensor], torch.Tensor]
+                    ) -> DeviceColumn:
+    """Apply a row-axis transform to a column and to its row-aligned
+    children (the long-decimal high limb)."""
+    _check_flat(col)
+    data = f(col.data)
+    validity = f(col.validity) if col.validity is not None else None
+    children = col.children
+    if col.dtype.is_long_decimal:
+        children = tuple(map_column_rows(c, f) for c in col.children)
+    return DeviceColumn(data, validity, col.dtype, col.dictionary, children)
+
+
+def compact(batch: DeviceBatch) -> DeviceBatch:
+    """Move active rows to the front (stable), preserving order:
+    cumsum + scatter."""
+    cap = batch.capacity
+    dense = torch.cumsum(batch.mask.to(torch.int64), 0) - 1
+    target = torch.where(batch.mask, dense, cap)
+
+    def scat(a):
+        out = torch.zeros((cap + 1,) + a.shape[1:], dtype=a.dtype,
+                          device=a.device)
+        out[target] = a
+        return out[:cap]
+
+    cols = {name: map_column_rows(col, scat)
+            for name, col in batch.columns.items()}
+    n = batch.num_active()
+    mask = torch.arange(cap, dtype=torch.int32, device=batch.device) < n
+    return DeviceBatch(cols, mask)
+
+
+def take(batch: DeviceBatch, indices, valid_rows) -> DeviceBatch:
+    """Gather rows by index; `valid_rows` becomes the new mask."""
+    cols = {name: map_column_rows(col, lambda a: a[indices])
+            for name, col in batch.columns.items()}
+    return DeviceBatch(cols, valid_rows)
+
+
+def slice_batch(batch: DeviceBatch, start: int, length: int) -> DeviceBatch:
+    """Static slice of a batch's rows (used to re-chunk large batches)."""
+    def f(a):
+        return a[start:start + length]
+    cols = {name: map_column_rows(col, f)
+            for name, col in batch.columns.items()}
+    return DeviceBatch(cols, batch.mask[start:start + length])
+
+
+def compact_batch(batch: DeviceBatch, out_cap: int) -> DeviceBatch:
+    """Gather active rows into a dense prefix of a batch of capacity
+    `out_cap` (active rows beyond it are dropped)."""
+    m = batch.mask.to(torch.int64)
+    pos = torch.cumsum(m, 0) - m
+    tgt = torch.where(batch.mask, torch.clamp(pos, max=out_cap - 1),
+                      out_cap)
+
+    def scatter(a):
+        out = torch.zeros((out_cap + 1,) + a.shape[1:], dtype=a.dtype,
+                          device=a.device)
+        out[tgt] = a
+        return out[:out_cap]
+
+    cols = {n: map_column_rows(c, scatter)
+            for n, c in batch.columns.items()}
+    n_active = m.sum()
+    mask = torch.arange(out_cap, dtype=torch.int64,
+                        device=batch.device) < n_active
+    return DeviceBatch(cols, mask)

@@ -1,0 +1,215 @@
+"""Group-by core: the dense "array mode" and sort + segment-reduce.
+
+Counterpart of ``velox_tpu/exec/groupby.py`` (velox/exec/GroupingSet.cpp +
+HashTable.cpp's kArray / kNormalizedKey modes):
+
+* **array mode** (kArray, HashTable.h:119): when every key has a small
+  known domain (dictionary strings, booleans), the group id is the
+  mixed-radix combination of the key ids, and each state reduces by id.
+* **sort mode**: rows are radix-sorted by their packed key words
+  (exec/sort.py, whose passes run the kernels of ops/radix.py), equal-key
+  runs become groups, and states reduce over the runs (ops/wide.py).
+  Groups come out as a dense prefix in key order.
+
+Not ported: the reference's payload-riding ``lax.sort`` form of sort mode
+(a TPU gather workaround; this is its gather formulation, with the same
+keys and states) and the hash mode (``reduce_hash_mode``).
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+
+from velox_tpu_torch import types as T
+from velox_tpu_torch.expression.eval import EvalValue
+
+
+def _dtype_max(dt: torch.dtype):
+    return float("inf") if dt.is_floating_point else torch.iinfo(dt).max
+
+
+def _dtype_min(dt: torch.dtype):
+    return float("-inf") if dt.is_floating_point else torch.iinfo(dt).min
+
+
+# Array mode reduces with one masked dense reduce per (group, addend) when
+# the domain is this small and the batch this large, else with one scatter
+# per addend. On an H100 with Q1's 22 int64 addends, the scatter's atomics
+# into few addresses cost ~2 ms an addend at 6.7M rows, 4.6x the masked
+# reduces at 6 groups and 1.9x at 16; at 32 groups the two tie. Below 2M
+# rows (1M at 6 groups) the masked form is bound by its 2 x groups
+# launches an addend and the scatter wins.
+_MASKED_MAX_DOMAIN = 16
+_MASKED_MIN_ROWS = 1 << 21
+
+
+def array_mode_domain(keys: List[EvalValue]) -> Optional[int]:
+    """Total combined domain if all keys are small-domain, else None.
+    Parity: kArrayHashMaxSize cutoff (velox/exec/HashTable.h:119)."""
+    total = 1
+    for v in keys:
+        if v.dtype.is_string and v.dictionary is not None:
+            total *= max(1, len(v.dictionary))
+        elif v.dtype.kind is T.TypeKind.BOOLEAN:
+            total *= 2
+        else:
+            return None
+        if v.validity is not None:
+            total += 1  # null bucket handled by +1 radix; conservative
+    return total if total <= (1 << 21) else None
+
+
+def _card(v: EvalValue) -> int:
+    card = max(1, len(v.dictionary)) if v.dtype.is_string else 2
+    return card + 1 if v.validity is not None else card
+
+
+def group_ids_array_mode(keys: List[EvalValue], capacity: int, active):
+    """Mixed-radix dense group id per row. Returns (ids, num_groups)."""
+    ids = torch.zeros((capacity,), dtype=torch.int64,
+                      device=active.device)
+    domain = 1
+    for v in keys:
+        card = _card(v)
+        data = v.full_data(capacity).to(torch.int64)
+        if v.validity is not None:
+            # nulls get their own id = card - 1 (the radix grew by 1)
+            data = torch.where(v.full_validity(capacity), data, card - 1)
+        ids = ids * card + data
+        domain *= card
+    return ids, domain
+
+
+def reduce_array_mode(keys: List[EvalValue],
+                      addends: List[Tuple[torch.Tensor, str]],
+                      active, capacity: int, domain: int):
+    """Dense reduce over the mixed-radix key domain.
+
+    Returns (group_key_values, group_addends, group_mask), tensors of
+    length `domain` (occupied groups flagged in group_mask).
+    """
+    ids, _ = group_ids_array_mode(keys, capacity, active)
+    ids = torch.where(active, ids, domain)  # inactive -> overflow bucket
+    occupied = torch.bincount(ids, minlength=domain + 1)[:domain] > 0
+    out_states = []
+    masked = domain <= _MASKED_MAX_DOMAIN and capacity >= _MASKED_MIN_ROWS
+    masks = [ids == d for d in range(domain)] if masked else None
+    for data, combine in addends:
+        if masked and data.dim() == 1:
+            if combine == "sum":
+                per = [torch.where(m, data, 0).sum(dtype=data.dtype)
+                       for m in masks]
+            elif combine == "min":
+                per = [torch.where(m, data, _dtype_max(data.dtype)).min()
+                       for m in masks]
+            else:
+                per = [torch.where(m, data, _dtype_min(data.dtype)).max()
+                       for m in masks]
+            out_states.append(torch.stack(per))
+            continue
+        if combine == "sum":
+            red = torch.zeros((domain + 1,), dtype=data.dtype,
+                              device=data.device).index_add_(0, ids, data)
+        else:
+            init = _dtype_max(data.dtype) if combine == "min" \
+                else _dtype_min(data.dtype)
+            red = torch.full((domain + 1,), init, dtype=data.dtype,
+                             device=data.device).scatter_reduce_(
+                0, ids, data, reduce="amin" if combine == "min" else "amax")
+        out_states.append(red[:domain])
+    # reconstruct key values per group from the mixed-radix id
+    gid = torch.arange(domain, dtype=torch.int64, device=active.device)
+    cards = [_card(v) for v in keys]
+    key_vals = []
+    rem = gid
+    for card in reversed(cards):
+        key_vals.append(rem % card)
+        rem = rem // card
+    key_vals.reverse()
+    out_keys = []
+    for v, kv, card in zip(keys, key_vals, cards):
+        base_card = card - 1 if v.validity is not None else card
+        is_null = (kv == base_card) if v.validity is not None else None
+        data = torch.clamp(kv, max=base_card - 1).to(
+            torch.int32 if v.dtype.is_string else v.dtype.torch_dtype())
+        validity = None if is_null is None else ~is_null
+        out_keys.append(EvalValue(data, validity, v.dtype, v.dictionary))
+    return out_keys, out_states, occupied
+
+
+def _run_boundaries(words: List[torch.Tensor], perm: torch.Tensor,
+                    capacity: int) -> torch.Tensor:
+    """True at sorted position i when its key words differ from i-1's."""
+    neq = torch.zeros((capacity,), dtype=torch.bool, device=perm.device)
+    for w in words:
+        ws = w[perm]
+        prev = torch.cat([ws[:1], ws[:-1]])
+        neq = neq | (ws != prev)
+    neq[:1] = True
+    return neq
+
+
+def sorted_group_info(keys: Sequence[EvalValue], active, capacity: int,
+                      ranges=None):
+    """Radix-sort rows by key words and segment equal-key runs.
+
+    Returns (perm, gid, boundary, active_sorted, num_groups):
+      perm[i]        = original row at sorted position i (active first)
+      gid[i]         = dense group id of sorted position i (grows with i)
+      boundary[i]    = True iff sorted position i starts a new key run
+      active_sorted  = active mask permuted
+      num_groups     = count of active groups (a 0-dim device tensor)
+    """
+    from velox_tpu_torch.exec.sort import sort_perm_key, sort_words
+
+    words, bits = sort_words(keys, None, capacity, active, ranges=ranges)
+    perm, _ = sort_perm_key(words, bits, capacity)
+    boundary = _run_boundaries(words, perm, capacity)
+    gid = torch.cumsum(boundary.to(torch.int64), 0) - 1
+    active_sorted = active[perm]
+    num_groups = (boundary & active_sorted).sum()
+    return perm, gid, boundary, active_sorted, num_groups
+
+
+def group_keys_sorted(keys: Sequence[EvalValue], perm, gid, boundary,
+                      active_sorted, num_groups, capacity: int):
+    """Dense per-group key columns (group g's key values), taken from each
+    group's first sorted row."""
+    from velox_tpu_torch.ops.wide import scatter_unique_set
+    group_mask = torch.arange(capacity, device=perm.device) < num_groups
+    target = torch.where(boundary & active_sorted, gid, capacity)
+    out_keys = []
+    for v in keys:
+        ks = v.full_data(capacity)[perm]
+        gd = scatter_unique_set(capacity + 1, target, ks)[:capacity]
+        if v.validity is not None:
+            vs = v.full_validity(capacity)[perm]
+            validity = scatter_unique_set(capacity + 1, target,
+                                          vs)[:capacity]
+            validity = validity | ~group_mask  # padding rows: non-null
+        else:
+            validity = None
+        out_keys.append(EvalValue(gd, validity, v.dtype, v.dictionary))
+    return out_keys, group_mask
+
+
+def reduce_sort_mode(keys: List[EvalValue],
+                     addends: List[Tuple[torch.Tensor, str]],
+                     active, capacity: int, ranges=None):
+    """Generic grouping: radix sort by packed key words + run reduce.
+
+    Returns (group_keys, group_states, group_mask), with groups as a
+    dense prefix of length `capacity`, in key-sorted order.
+    """
+    from velox_tpu_torch.ops.wide import segmented_reduce_sorted
+
+    perm, gid, boundary, active_sorted, num_groups = sorted_group_info(
+        keys, active, capacity, ranges)
+    out_states = [segmented_reduce_sorted(data[perm], gid, boundary,
+                                          active_sorted, capacity, combine)
+                  for data, combine in addends]
+    out_keys, group_mask = group_keys_sorted(
+        keys, perm, gid, boundary, active_sorted, num_groups, capacity)
+    return out_keys, out_states, group_mask

@@ -7,14 +7,16 @@ Filter/Project operator. Each operator's per-batch work is eager torch
 code on the batch's device; the driver loop in exec/task.py only moves
 batch handles.
 
-Not ported yet: the scan prefetch thread, the Values ingest cache, the
-Arrow stream source and Limit.
+Not ported yet: the scan prefetch thread, the Values ingest cache and the
+Arrow stream source.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Callable, Optional
+
+import torch
 
 from velox_tpu_torch.core import plan as P
 from velox_tpu_torch.vector.device import DeviceBatch, from_arrow
@@ -134,6 +136,39 @@ class FilterProjectOperator(Operator):
 
     def add_input(self, batch):
         self._out = self._fn(batch)
+
+    def get_output(self):
+        out, self._out = self._out, None
+        return out
+
+    def needs_input(self):
+        return not self._no_more_input and self._out is None
+
+    def is_finished(self):
+        return self._no_more_input and self._out is None
+
+
+class LimitOperator(Operator):
+    """Parity: velox/exec/Limit.h:20. The running row count stays on the
+    device (no host sync per batch); rows past the limit are masked off."""
+
+    def __init__(self, node: P.LimitNode):
+        super().__init__(node)
+        self._offset = node.offset
+        self._count = node.count
+        self._seen: Optional[torch.Tensor] = None  # 0-dim, on the device
+        self._out: Optional[DeviceBatch] = None
+
+    def add_input(self, batch):
+        if self._seen is None:
+            self._seen = torch.zeros((), dtype=torch.int64,
+                                     device=batch.device)
+        prefix = torch.cumsum(batch.mask.to(torch.int64), 0)
+        pos = self._seen + prefix - 1  # 0-based global position of a row
+        keep = batch.mask & (pos >= self._offset) \
+            & (pos < self._offset + self._count)
+        self._seen = self._seen + prefix[-1]
+        self._out = DeviceBatch(batch.columns, keep)
 
     def get_output(self):
         out, self._out = self._out, None

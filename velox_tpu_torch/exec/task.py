@@ -7,10 +7,11 @@ handles, and reads a device value once at the end (the error total and
 the output rows).
 
 Ported node kinds: Values, TableScan (with a pushed-down filter),
-Filter/Project chains (fused, exec/fuse.py) and the global
-``sum(a * b)`` Aggregation that runs through the filter-sum kernel
-(ops/filter_reduce.py). Every other node kind, and every other
-aggregation, raises NotImplementedError.
+Filter/Project chains (fused, exec/fuse.py), Aggregation (the filter-sum
+kernel for a Q6-shaped global ``sum(a * b)``, ops/filter_reduce.py, and
+the generic operator of exec/aggregation.py for every other plan of
+sum/count/avg/min/max), OrderBy, TopN and Limit (a Limit over an OrderBy
+runs as a TopN). Every other node kind raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -24,11 +25,13 @@ from velox_tpu_torch import types as T
 from velox_tpu_torch.common import metrics as M
 from velox_tpu_torch.connectors.connector import get_connector
 from velox_tpu_torch.core import plan as P
+from velox_tpu_torch.exec.aggregation import AggregationOperator
 from velox_tpu_torch.exec.fuse import chain_fn, collapse_chain
 from velox_tpu_torch.exec.operator import (
-    FilterProjectOperator, Operator, SourceOperator, TableScanOperator,
-    ValuesOperator,
+    FilterProjectOperator, LimitOperator, Operator, SourceOperator,
+    TableScanOperator, ValuesOperator,
 )
+from velox_tpu_torch.exec.orderby import OrderByOperator, TopNOperator
 from velox_tpu_torch.vector.device import DeviceBatch
 
 
@@ -123,21 +126,42 @@ class Task:
             yield from self._drive(chain.source, op)
         elif isinstance(node, P.AggregationNode):
             chain = collapse_chain(node.source)
-            op = self._try_filter_sum(node, chain)
+
+            def mk_agg(pre):
+                return AggregationOperator(node, self.ctx.device,
+                                           pre_fn=pre)
+            # the fused one-pass kernel for Q6-shaped global sums
+            op = self._try_filter_sum(node, chain, mk_agg)
             if op is None:
-                raise NotImplementedError(
-                    "velox_tpu_torch runs only global sum(a * b) over a "
-                    "range-filtered TPC-H scan (the filter-sum kernel); "
-                    "the generic aggregation is not ported yet")
+                op = mk_agg(None if chain.is_identity else chain_fn(chain))
             yield from self._drive(chain.source, op)
+        elif isinstance(node, P.OrderByNode):
+            yield from self._drive(node.source, OrderByOperator(node))
+        elif isinstance(node, P.TopNNode):
+            yield from self._drive(node.source, TopNOperator(node))
+        elif isinstance(node, P.LimitNode):
+            # OrderBy + Limit(offset=0) => TopN: a bounded key-only sort
+            # per batch instead of a full sort (parity: the Limit-over-
+            # OrderBy plans Presto lowers to TopNNode)
+            if (isinstance(node.source, P.OrderByNode)
+                    and node.offset == 0 and 0 < node.count <= (1 << 20)):
+                ob = node.source
+                tn = P.TopNNode(f"{node.id}-topn", source=ob.source,
+                                keys=ob.keys, orders=ob.orders,
+                                count=node.count)
+                yield from self._drive(ob.source, TopNOperator(tn))
+            else:
+                yield from self._drive(node.source, LimitOperator(node))
         else:
             raise NotImplementedError(
                 f"no operator for {type(node).__name__} in velox_tpu_torch")
 
-    def _try_filter_sum(self, node: P.AggregationNode, chain):
+    def _try_filter_sum(self, node: P.AggregationNode, chain, mk_agg):
         """Kernel pushdown: global sum(a*b) over a range-filtered scan runs
         as one fused pass (ops/filter_reduce.py). Returns the operator,
-        or None when the plan or the connector's stats don't match."""
+        or None when the plan or the connector's stats don't match; a
+        batch the kernel cannot take falls back to ``mk_agg`` with the
+        fused chain."""
         from velox_tpu_torch.ops.filter_reduce import (
             FilterSumOperator, match_filter_sum,
         )
@@ -159,7 +183,8 @@ class Task:
         if spec is None:
             return None
         M.record_counter(M.K_FILTER_SUM_KERNEL)
-        return FilterSumOperator(node, spec, self.ctx.device)
+        return FilterSumOperator(node, spec, self.ctx.device,
+                                 lambda: mk_agg(chain_fn(chain)))
 
     def _make_scan(self, node: P.TableScanNode) -> TableScanOperator:
         conn = get_connector(node.connector_id)
@@ -200,6 +225,10 @@ class Task:
             st.output_batches += 1
             st.output_bytes += out.nbytes
             yield out
+        # operators that evaluate expressions inside their own steps (the
+        # aggregation's fused chain and inputs) hand over their error
+        # counts here
+        self._error_counts.extend(getattr(op, "error_scalars", ()))
 
     def _drive_source(self, op: SourceOperator) -> Iterator[DeviceBatch]:
         self.operators.append(op)

@@ -1,15 +1,16 @@
 """Build native sources into shared libraries at first use; load with ctypes.
 
-Two libraries:
+Two kinds of library:
 
 * ``dbgen``: the TPC-H generator core, compiled with g++ from the
   reference's own source file ``velox_tpu/native/dbgen.cpp`` (read as a
   path; the ``velox_tpu`` Python package is never imported) into
   ``velox_tpu_torch/native/_build/``.
-* ``kernels``: the hand-written CUDA kernels under ``velox_tpu_torch/csrc/``,
-  compiled with ``nvcc`` for ``sm_90a`` into ``velox_tpu_torch/csrc/_build/``.
-  Each exposes a plain C entry point, so the build needs neither PyTorch's
-  headers nor ninja and takes seconds.
+* one library per CUDA source under ``velox_tpu_torch/csrc/`` (the
+  hand-written kernels), compiled with ``nvcc`` for ``sm_90a`` into
+  ``velox_tpu_torch/csrc/_build/``. Each exposes a plain C entry point, so
+  the build needs neither PyTorch's headers nor ninja and takes seconds;
+  ``load_kernels`` starts one ``nvcc`` per source, all at once.
 
 Each library is keyed by a hash of its sources and flags, built into a
 temporary file and renamed into place, so concurrent processes never load
@@ -25,6 +26,7 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence
 
@@ -34,13 +36,16 @@ CSRC = _PKG / "csrc"
 NATIVE_BUILD_DIR = _PKG / "native" / "_build"
 CUDA_BUILD_DIR = CSRC / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _LOCK = threading.Lock()
 _LOADED: Dict[str, Optional[ctypes.CDLL]] = {}
 # seconds each library's compile took in this process (0.0 when the
 # hashed library was already on disk); read by chip_smoke.py
 BUILD_SECONDS: Dict[str, float] = {}
+# the compiler's report of each library built in this process (for the
+# CUDA kernels, ptxas's registers, shared memory and spills per kernel)
+BUILD_LOG: Dict[str, str] = {}
 
 
 def _build(name: str, sources: Sequence[Path], cmd: List[str],
@@ -52,10 +57,11 @@ def _build(name: str, sources: Sequence[Path], cmd: List[str],
         h.update(s.read_bytes())
     out = build_dir / f"{name}-{h.hexdigest()[:16]}.so"
     if out.exists():
-        BUILD_SECONDS[name] = 0.0
+        BUILD_SECONDS.setdefault(name, 0.0)
         return out
     build_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".so.{os.getpid()}.tmp")
+    tmp = out.with_suffix(
+        f".so.{os.getpid()}.{threading.get_ident()}.tmp")
     t0 = time.perf_counter()
     argv = [a.replace("{out}", str(tmp)) for a in cmd] \
         + [str(s) for s in sources]
@@ -65,6 +71,7 @@ def _build(name: str, sources: Sequence[Path], cmd: List[str],
                            f"{res.stdout[-4000:]}{res.stderr[-4000:]}")
     os.replace(tmp, out)
     BUILD_SECONDS[name] = time.perf_counter() - t0
+    BUILD_LOG[name] = (res.stdout + res.stderr)[-4000:]
     return out
 
 
@@ -100,15 +107,25 @@ def _nvcc() -> str:
     return cand
 
 
-def load_kernels() -> ctypes.CDLL:
-    """Build (once per source hash) and load every CUDA kernel in csrc/."""
+def _build_kernel(name: str) -> Path:
+    return _build(name, [CSRC / f"{name}.cu"],
+                  [_nvcc()] + NVCC_FLAGS + ["-o", "{out}"], CUDA_BUILD_DIR)
+
+
+def load_kernel(name: str) -> ctypes.CDLL:
+    """Build (once per source hash) and load ``csrc/<name>.cu``."""
     with _LOCK:
-        lib = _LOADED.get("kernels")
+        lib = _LOADED.get(name)
         if lib is None:
-            sources = sorted(CSRC.glob("*.cu"))
-            path = _build("kernels", sources,
-                          [_nvcc()] + NVCC_FLAGS + ["-o", "{out}"],
-                          CUDA_BUILD_DIR)
-            lib = ctypes.CDLL(str(path))
-            _LOADED["kernels"] = lib
+            lib = ctypes.CDLL(str(_build_kernel(name)))
+            _LOADED[name] = lib
         return lib
+
+
+def load_kernels() -> Dict[str, ctypes.CDLL]:
+    """Build every CUDA source in csrc/, one ``nvcc`` per source, all
+    started together, and load them."""
+    names = sorted(p.stem for p in CSRC.glob("*.cu"))
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        list(pool.map(_build_kernel, names))
+    return {n: load_kernel(n) for n in names}

@@ -71,9 +71,8 @@ class _FilterSumArgs(ctypes.Structure):
 
 
 def _kernel_lib():
-    from velox_tpu_torch.native.build import load_kernels
-    lib = load_kernels()
-    fn = lib.vt_filter_sum
+    from velox_tpu_torch.native.build import load_kernel
+    fn = load_kernel("filter_sum").vt_filter_sum
     if fn.argtypes is None:
         fn.argtypes = [_FilterSumArgs, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_void_p]
@@ -304,17 +303,24 @@ def match_filter_sum(node: "P.AggregationNode", chain,
 
 class FilterSumOperator(Operator):
     """Runs the fused kernel per scan batch and emits one row with the
-    total. The reference falls back to its generic aggregation when a
-    batch's storage defeats the kernel; that aggregation is not ported
-    yet, so such a batch raises NotImplementedError here."""
+    total. A batch whose storage defeats the kernel (nulls, non-int32
+    columns) switches the operator to the generic aggregation that
+    ``fallback_factory`` builds, as in the reference; that batch and every
+    later one go there."""
 
-    def __init__(self, node, spec: FilterSumSpec, device):
+    def __init__(self, node, spec: FilterSumSpec, device, fallback_factory):
         super().__init__(node)
         self.spec = spec
         self._device = torch.device(device)
         self._idx = {c: i for i, c in enumerate(spec.scan_cols)}
+        self._fallback_factory = fallback_factory
+        self._fallback = None
         self._total = None
         self._done = False
+
+    @property
+    def error_scalars(self):
+        return self._fallback.error_scalars if self._fallback else []
 
     def _batch_ok(self, batch) -> bool:
         for c in self.spec.scan_cols:
@@ -325,18 +331,30 @@ class FilterSumOperator(Operator):
         return True
 
     def add_input(self, batch):
-        if not self._batch_ok(batch):
-            raise NotImplementedError(
-                "filter-sum batch with nulls or non-int32 storage needs the "
-                "generic aggregation, which is not ported to "
-                "velox_tpu_torch")
+        if self._fallback is None and not self._batch_ok(batch):
+            if self._total is not None:
+                # the reference would drop the kernel's running total here
+                raise NotImplementedError(
+                    "filter-sum input whose storage changes after the "
+                    "first batch")
+            self._fallback = self._fallback_factory()
+        if self._fallback is not None:
+            self._fallback.add_input(batch)
+            return
         cols = [batch.columns[c].data for c in self.spec.scan_cols]
         t = filtered_sum_product(
             cols, self.spec.ranges, self._idx[self.spec.a_col],
             self._idx[self.spec.b_col], batch.num_active())
         self._total = t if self._total is None else self._total + t
 
+    def no_more_input(self):
+        super().no_more_input()
+        if self._fallback is not None:
+            self._fallback.no_more_input()
+
     def get_output(self):
+        if self._fallback is not None:
+            return self._fallback.get_output()
         if self._done or not self._no_more_input:
             return None
         self._done = True
@@ -358,4 +376,6 @@ class FilterSumOperator(Operator):
         return not self._no_more_input
 
     def is_finished(self):
+        if self._fallback is not None:
+            return self._fallback.is_finished()
         return self._done
