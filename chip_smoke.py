@@ -35,6 +35,23 @@ Phases, each printing one line; any failure raises and exits non-zero:
    not fit 64 bits, so every pass runs B4 and B2.
 10. q6_generic: Q6 with a filter the kernel matcher rejects, through the
    generic aggregation: the Q6 value, and no filter-sum launch.
+11. gather_kernel: the flat-gather kernel (B5) against its plain PyTorch
+   version on the card, exact, over data lengths 1 to 60,000,001, index
+   lengths 1 to 6.7M, 4- and 8-byte data, int32 and int64 indices, and
+   uniform, sorted, reversed and constant indices; median times of the
+   kernel, its plain version and torch.index_select at 2^20 and
+   60,000,001 int32 data rows with 6.7M indices. The bound counts each
+   data sector the indices touch once.
+12. q3: TPC-H Q3 (two array-mode joins, a sort-mode group-by with a
+   DECIMAL(38) sum, a TopN on it): the 10 rows must equal a numpy oracle
+   with direct-address joins over the generator's own columns. B5 runs
+   every gather of both join probes; its launches must be the count the
+   plan gives.
+13. q18: TPC-H Q18 (threshold 300): the rows must equal a numpy oracle
+   (np.bincount of l_quantity by l_orderkey, joins, the top 100).
+
+Every number a phase prints is measured in this run, on this card; bounds
+are bytes over the H100's 3.35 TB/s.
 
 Each path phase sets every kernel's launch count to 0 just before it runs
 the query and reads the counts just after. The line before the last is a
@@ -67,10 +84,15 @@ from velox_tpu_torch.ops import radix as R
 from velox_tpu_torch.ops.filter_reduce import (
     MAX_COLS, filtered_sum_product, filtered_sum_product_reference,
 )
+from velox_tpu_torch.ops.gather import flat_gather, flat_gather_reference
 from velox_tpu_torch.testing.plan_builder import PlanBuilder
 from velox_tpu_torch.tpch import tpch_plan
+from velox_tpu_torch.tpch.queries import q18
 
-D94, D95, D980902 = 8766, 9131, 10471  # days since 1970-01-01
+D94, D95, D950315, D980902 = 8766, 9131, 9204, 10471  # days since 1970
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM spec sheet
+L2_BYTES = 50e6
+SECTOR = 32  # bytes of device memory a random read moves
 Q6_FILTER = ("l_shipdate >= date '1994-01-01' and "
              "l_shipdate < date '1995-01-01' and "
              "l_discount between 0.05 and 0.07 and "
@@ -79,6 +101,7 @@ Q6_COLS = ["l_shipdate", "l_extendedprice", "l_quantity", "l_discount"]
 Q1_COLS = ["l_returnflag", "l_linestatus", "l_quantity", "l_extendedprice",
            "l_discount", "l_tax", "l_shipdate"]
 SORT_COLS = ["l_shipdate", "l_orderkey", "l_linenumber"]
+Q18_THRESHOLD = 300  # the spec's quantity threshold
 LI_COLS = sorted(set(Q1_COLS + Q6_COLS + SORT_COLS))
 RADIX_KERNELS = (R.radix_hist, R.radix_rank, R.radix_pos)
 Q1_PROJECT = [
@@ -86,6 +109,37 @@ Q1_PROJECT = [
     "l_extendedprice * (1.0 - l_discount) as l_sum_disc_price",
     "l_extendedprice * (1.0 - l_discount) * (1.0 + l_tax) as l_sum_charge",
     "l_discount"]
+
+
+def topn_plan():
+    """The orderBy config: ORDER BY l_shipdate, l_orderkey LIMIT 1000."""
+    return (PlanBuilder().table_scan("lineitem", SORT_COLS[:2])
+            .order_by(SORT_COLS[:2]).limit(1000).plan())
+
+
+def sort_full_plan():
+    return (PlanBuilder().table_scan("lineitem", SORT_COLS)
+            .order_by(SORT_COLS).plan())
+
+
+def q6_generic_plan():
+    """Q6 with a filter the filter-sum matcher rejects."""
+    return (PlanBuilder().table_scan(
+        "lineitem", Q6_COLS, filter=f"({Q6_FILTER}) or l_quantity < 0.0")
+        .project(["l_extendedprice * l_discount as revenue"])
+        .single_aggregation([], ["sum(revenue) as revenue"]).plan())
+
+
+# the plan of each query path phase, by name (tools/profile_port_paths.py
+# profiles the same plans)
+PATH_PLANS = {
+    "q1": lambda: tpch_plan(1),
+    "topn": topn_plan,
+    "sort_full": sort_full_plan,
+    "q6_generic": q6_generic_plan,
+    "q3": lambda: tpch_plan(3),
+    "q18": lambda: q18(threshold=float(Q18_THRESHOLD)),
+}
 
 
 def phase(name: str, **fields) -> None:
@@ -198,6 +252,17 @@ def kernel_phase(rng) -> dict:
                 (), dtype=torch.int64, device="cuda")),
         }
         t["all_read_bytes_per_s"] = 16 * (n - 17) / (t["all_read_ms"] / 1e3)
+        # least bytes of the Q6 shape: each range column over the active
+        # rows, a product column outside every range only where all pass,
+        # and the 8-byte sum
+        keep = torch.ones(n - 17, dtype=torch.bool, device="cuda")
+        for c, lo, hi in ranges:
+            keep &= (cols[c][:n - 17] >= lo) & (cols[c][:n - 17] <= hi)
+        n_pass = int(keep.sum().item())
+        full = {c for c, _, _ in ranges}
+        t["bytes"] = (4 * len(full) * (n - 17)
+                      + 4 * len({ai, bi} - full) * n_pass + 8)
+        t["bound_ms"] = bound_ms(t["bytes"])
         timings[n] = t
         del cols
     phase("kernel", cases=cases, max_abs_err=max_err,
@@ -307,14 +372,21 @@ def lineitem_columns(conn):
 
 def reset_launches() -> None:
     filtered_sum_product.launches = 0
+    flat_gather.launches = 0
     for k in RADIX_KERNELS:
         k.launches = 0
 
 
 def read_launches() -> dict:
-    out = {"filter_sum": filtered_sum_product.launches}
+    out = {"filter_sum": filtered_sum_product.launches,
+           "flat_gather": flat_gather.launches}
     out.update({k.__name__: k.launches for k in RADIX_KERNELS})
     return out
+
+
+def bound_ms(nbytes: float) -> float:
+    """Least time to move `nbytes` through device memory."""
+    return nbytes / HBM_BYTES_PER_S * 1e3
 
 
 # ---------------------------------------------------------------------------
@@ -414,9 +486,23 @@ def radix_phase(seed: int, conn, li) -> dict:
         d = _digits("uniform", n, gen)
         calls = 20 if n < 10_000_000 else 5
         t = {}
+        table_bytes = 4 * R.RADIX * (-(-n // R.TILE_ROWS))
         for name, kernel, plain in _modes(d):
             t[name] = {"ms": time_ms(kernel, calls),
-                       "plain_ms": time_ms(plain, calls)}
+                       "plain_ms": time_ms(plain, calls),
+                       # digits in and the table out (B4); digits and
+                       # table in, positions out (B2, B3)
+                       "bound_ms": bound_ms(
+                           4 * n + table_bytes if name == "radix_hist"
+                           else 8 * n + table_bytes),
+                       "library_ms": None}
+        # B4's one-call equivalent: torch.bincount of the (digit, tile)
+        # cell keys, computed before the timed window
+        cells = R._cell_keys(d)
+        t["radix_hist"]["library_ms"] = time_ms(
+            lambda: torch.bincount(cells, minlength=table_bytes // 4),
+            calls)
+        del cells
         t["pass_nogather"] = {
             "ms": time_ms(lambda: R.radix_pass_positions_nogather(d, n),
                           calls),
@@ -475,7 +561,8 @@ def _host_rows(batches, names):
                 vals = [(int(h) << 64) | (int(lo) & (2 ** 64 - 1))
                         for lo, h in zip(data, hi)]
             elif col.dictionary is not None:
-                vals = list(col.dictionary.values[data])
+                # take() formats a VirtualDictionary's values (c_name)
+                vals = list(col.dictionary.take(data))
             else:
                 vals = [int(x) for x in data]
             out[n].extend(vals)
@@ -547,13 +634,14 @@ def q1_phase(ctx, li) -> dict:
     want = q1_oracle(li)
     walls, launches = [], []
     for _ in range(2):
-        out, wall, counts = _run(tpch_plan(1), ctx)
+        out, wall, counts = _run(PATH_PLANS["q1"](), ctx)
         got = _host_rows(out, list(want))
         if got != want:
             raise AssertionError(f"Q1 {got} != numpy oracle {want}")
         # the final OrderBy: 4 key bits, the scatter branch, one pass
         _expect_launches("q1", counts, {"radix_hist": 1, "radix_pos": 1,
-                                        "radix_rank": 0, "filter_sum": 0})
+                                        "radix_rank": 0, "filter_sum": 0,
+                                        "flat_gather": 0})
         walls.append(wall)
         launches.append(counts)
     phase("q1", groups=len(want["count_order"]),
@@ -574,15 +662,14 @@ def _key_bits(conn, cols) -> int:
 
 
 def topn_phase(conn, ctx, li, order) -> dict:
-    plan = (PlanBuilder().table_scan("lineitem", SORT_COLS[:2])
-            .order_by(SORT_COLS[:2]).limit(1000).plan())
+    plan = topn_plan()
     bits = _key_bits(conn, SORT_COLS[:2])
     n_batches = len(conn.default_splits("lineitem"))
     passes = -(-bits // 8)
     out, wall, counts = _run(plan, ctx)
     _expect_launches("topn", counts, {
         "radix_hist": passes * n_batches, "radix_pos": passes * n_batches,
-        "radix_rank": 0, "filter_sum": 0})
+        "radix_rank": 0, "filter_sum": 0, "flat_gather": 0})
     got = _host_rows(out, SORT_COLS[:2])
     top = order[:1000]
     for c in SORT_COLS[:2]:
@@ -595,8 +682,7 @@ def topn_phase(conn, ctx, li, order) -> dict:
 
 
 def sort_full_phase(conn, ctx, li, order) -> dict:
-    plan = (PlanBuilder().table_scan("lineitem", SORT_COLS)
-            .order_by(SORT_COLS).plan())
+    plan = sort_full_plan()
     bits = _key_bits(conn, SORT_COLS)
     out, wall, counts = _run(plan, ctx)
     cap = sum(b.capacity for b in out)
@@ -613,7 +699,8 @@ def sort_full_phase(conn, ctx, li, order) -> dict:
     else:
         passes = -(-bits // 8)
         want = {"radix_hist": passes, "radix_rank": 0, "radix_pos": passes}
-    _expect_launches("sort_full", counts, dict(want, filter_sum=0))
+    _expect_launches("sort_full", counts, dict(want, filter_sum=0,
+                                               flat_gather=0))
     rows = 0
     for b in out:
         m = b.mask
@@ -633,17 +720,15 @@ def sort_full_phase(conn, ctx, li, order) -> dict:
 
 
 def q6_generic_phase(ctx, li) -> dict:
-    plan = (PlanBuilder().table_scan(
-        "lineitem", Q6_COLS, filter=f"({Q6_FILTER}) or l_quantity < 0.0")
-        .project(["l_extendedprice * l_discount as revenue"])
-        .single_aggregation([], ["sum(revenue) as revenue"]).plan())
+    plan = q6_generic_plan()
     expect = q6_oracle(li)
     fired0 = M.reporter().snapshot()["counters"].get(M.K_FILTER_SUM_KERNEL,
                                                      0)
     out, wall, counts = _run(plan, ctx)
     fired = M.reporter().snapshot()["counters"].get(M.K_FILTER_SUM_KERNEL,
                                                     0) - fired0
-    _expect_launches("q6_generic", counts, {"filter_sum": 0})
+    _expect_launches("q6_generic", counts, {"filter_sum": 0,
+                                            "flat_gather": 0})
     if fired:
         raise AssertionError("the filter-sum matcher took the generic plan")
     got = _host_rows(out, ["revenue"])["revenue"]
@@ -652,6 +737,199 @@ def q6_generic_phase(ctx, li) -> dict:
     phase("q6_generic", revenue_scaled_e4=expect, launches=counts,
           wall_s=wall)
     return counts
+
+
+# ---------------------------------------------------------------------------
+# gather_kernel: B5 against its plain version
+# ---------------------------------------------------------------------------
+
+GATHER_DATA = (1, 129, 1 << 20, 60_000_001)
+GATHER_IDX = (1, 7, 6_700_000)
+GATHER_PATTERNS = ("uniform", "sorted", "reversed", "constant")
+# (1M-row data of the reference's gather micro-benchmark, Q3's o_orderkey
+# domain table at SF10), each with one lineitem batch of indices
+GATHER_TIMED = (1 << 20, 60_000_001)
+GATHER_M = 6_700_000
+
+
+def _gather_idx(pattern: str, n: int, m: int, dtype, gen) -> torch.Tensor:
+    if pattern == "constant":
+        return torch.full((m,), n // 2, dtype=dtype, device="cuda")
+    idx = torch.randint(0, n, (m,), generator=gen, device="cuda",
+                        dtype=torch.int64)
+    if pattern != "uniform":
+        idx = torch.sort(idx, descending=pattern == "reversed").values
+    return idx.to(dtype).contiguous()
+
+
+def distinct_sectors(data: torch.Tensor, idx: torch.Tensor) -> int:
+    """The 32-byte sectors of `data` that `idx` reads at least once (the
+    caching allocator aligns every tensor to a sector)."""
+    return int(torch.unique(idx.long() // (SECTOR // data.element_size()))
+               .numel())
+
+
+def gather_bytes(data: torch.Tensor, idx: torch.Tensor) -> dict:
+    """Least device-memory bytes of `data[idx]` on this run's indices:
+    indices in and output out once, and each data sector they touch once
+    (`bytes`); beside it, the count with one sector for every random read
+    of data past L2 (`bytes_sector_per_read`), a looser figure."""
+    m = idx.numel()
+    io = m * (idx.element_size() + data.element_size())
+    sectors = distinct_sectors(data, idx)
+    nbytes = data.numel() * data.element_size()
+    per_read = nbytes if nbytes <= L2_BYTES else m * SECTOR
+    return {"bytes": io + sectors * SECTOR, "distinct_sectors": sectors,
+            "bytes_sector_per_read": io + per_read}
+
+
+def gather_phase(seed: int) -> dict:
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    max_err, cases = 0, 0
+    for n in GATHER_DATA:
+        for dt in (torch.int32, torch.int64):
+            lim = 2 ** 31 - 1 if dt == torch.int32 else 2 ** 62
+            data = torch.randint(-lim, lim, (n,), generator=gen,
+                                 device="cuda", dtype=torch.int64).to(dt)
+            for m in GATHER_IDX:
+                for pattern in GATHER_PATTERNS:
+                    for it in (torch.int32, torch.int64):
+                        idx = _gather_idx(pattern, n, m, it, gen)
+                        got = flat_gather(data, idx)
+                        want = flat_gather_reference(data, idx)
+                        if got.dtype != want.dtype \
+                                or not torch.equal(got, want):
+                            raise AssertionError(
+                                f"flat_gather differs from its plain version"
+                                f" at n={n} m={m} {dt} idx {it} {pattern}")
+                        max_err = max(max_err, _max_err(got, want))
+                        cases += 1
+            del data
+    torch.cuda.synchronize()
+    timings = {}
+    for n in GATHER_TIMED:
+        data = torch.randint(-2 ** 31, 2 ** 31 - 1, (n,), generator=gen,
+                             device="cuda", dtype=torch.int32)
+        idx = _gather_idx("uniform", n, GATHER_M, torch.int32, gen)
+        if not torch.equal(torch.index_select(data, 0, idx),
+                           flat_gather(data, idx)):
+            raise AssertionError(f"flat_gather != index_select at n={n}")
+        nbytes = gather_bytes(data, idx)
+        timings[n] = {
+            "ms": time_ms(lambda: flat_gather(data, idx)),
+            "plain_ms": time_ms(lambda: flat_gather_reference(data, idx)),
+            "library_ms": time_ms(lambda: torch.index_select(data, 0, idx)),
+            **nbytes, "bound_ms": bound_ms(nbytes["bytes"]),
+            "bound_ms_sector_per_read": bound_ms(
+                nbytes["bytes_sector_per_read"])}
+        del data, idx
+    phase("gather_kernel", cases=cases, max_abs_err=max_err,
+          times={str(n): t for n, t in timings.items()})
+    return {"max_abs_err": max_err, "timings": timings}
+
+
+# ---------------------------------------------------------------------------
+# Joins: Q3 and Q18
+# ---------------------------------------------------------------------------
+
+def table_columns(conn, table: str, cols) -> dict:
+    n = conn.gen.num_rows(table)
+    return {k: v.astype(np.int64)
+            for k, v in conn.gen.generate(table, 0, n, cols).items()}
+
+
+def q3_oracle(conn, li) -> dict:
+    """Q3 in numpy: direct-address joins over the generator's columns,
+    exact int64 revenue at scale 4, the plan's tie order (revenue desc,
+    o_orderdate, then the group-by's l_orderkey order)."""
+    cu = table_columns(conn, "customer", ["c_custkey", "c_mktsegment"])
+    od = table_columns(conn, "orders", ["o_orderkey", "o_custkey",
+                                        "o_orderdate", "o_shippriority"])
+    seg = conn.gen.dictionaries("customer")["c_mktsegment"].id_of("BUILDING")
+    building = np.zeros(int(cu["c_custkey"].max()) + 1, bool)
+    building[cu["c_custkey"][cu["c_mktsegment"] == seg]] = True
+    om = (od["o_orderdate"] < D950315) & building[od["o_custkey"]]
+    row_of = np.full(int(od["o_orderkey"].max()) + 1, -1, np.int64)
+    row_of[od["o_orderkey"][om]] = np.nonzero(om)[0]
+    r = row_of[li["l_orderkey"]]
+    lm = (li["l_shipdate"] > D950315) & (r >= 0)
+    rev = li["l_extendedprice"][lm] * (100 - li["l_discount"][lm])
+    # float64 sums are exact: every partial sum stays below 2^53
+    if rev.sum() >= 2 ** 53:
+        raise AssertionError("Q3 oracle revenue exceeds float64's integers")
+    n_od = len(od["o_orderkey"])
+    sums = np.bincount(r[lm], weights=rev, minlength=n_od)
+    cand = np.nonzero(np.bincount(r[lm], minlength=n_od))[0]
+    rev_c = sums[cand].astype(np.int64)
+    top = cand[np.lexsort((od["o_orderkey"][cand], od["o_orderdate"][cand],
+                           -rev_c))[:10]]
+    return {"l_orderkey": [int(x) for x in od["o_orderkey"][top]],
+            "revenue": [int(x) for x in sums[top].astype(np.int64)],
+            "o_orderdate": [int(x) for x in od["o_orderdate"][top]],
+            "o_shippriority": [int(x) for x in od["o_shippriority"][top]]}
+
+
+def q18_oracle(conn, li, threshold: int) -> dict:
+    """Q18 in numpy: np.bincount of l_quantity by l_orderkey, above the
+    threshold at scale 2, joined to orders and customer, the top 100 by
+    o_totalprice desc, o_orderdate (then orders order)."""
+    qty = np.bincount(li["l_orderkey"], weights=li["l_quantity"])
+    od = table_columns(conn, "orders", ["o_orderkey", "o_custkey",
+                                        "o_orderdate", "o_totalprice"])
+    okey = od["o_orderkey"]
+    cand = np.nonzero(qty[okey] > threshold * 100)[0]
+    top = cand[np.lexsort((okey[cand], od["o_orderdate"][cand],
+                           -od["o_totalprice"][cand]))[:100]]
+    return {"c_name": [f"Customer#{int(c):09d}" for c in od["o_custkey"][top]],
+            "c_custkey": [int(x) for x in od["o_custkey"][top]],
+            "o_orderkey": [int(x) for x in okey[top]],
+            "o_orderdate": [int(x) for x in od["o_orderdate"][top]],
+            "o_totalprice": [int(x) for x in od["o_totalprice"][top]],
+            "quantity": [int(x) for x in qty[okey[top]].astype(np.int64)]}
+
+
+def _join_phase(name, plan, want, ctx, b5_launches: int) -> dict:
+    walls, launches = [], []
+    for _ in range(2):
+        out, wall, counts = _run(plan, ctx)
+        got = _host_rows(out, list(want))
+        if got != want:
+            raise AssertionError(f"{name} {got} != numpy oracle {want}")
+        _expect_launches(name, counts, {"flat_gather": b5_launches,
+                                        "filter_sum": 0})
+        for k in ("radix_hist", "radix_pos"):
+            if counts[k] == 0:
+                raise AssertionError(f"{name}: {k} never launched")
+        walls.append(wall)
+        launches.append(counts)
+    phase(name, rows=len(next(iter(want.values()))), launches=launches[-1],
+          wall_s=walls)
+    return launches[-1]
+
+
+def q3_phase(conn, ctx, li) -> dict:
+    want = q3_oracle(conn, li)
+    n_od = len(conn.default_splits("orders"))
+    n_li = len(conn.default_splits("lineitem"))
+    # B5: two gathers in each of the two builds (packed keys and key
+    # values through the permutation); one arr_row1 lookup per orders
+    # batch in the semi join; per lineitem batch one lookup and the two
+    # build columns the join outputs (o_orderdate, o_shippriority)
+    return _join_phase("q3", PATH_PLANS["q3"](), want, ctx,
+                       4 + n_od + 3 * n_li)
+
+
+def q18_phase(conn, ctx, li) -> dict:
+    """Q18 at the spec's threshold, 300."""
+    want = q18_oracle(conn, li, Q18_THRESHOLD)
+    if not want["o_orderkey"]:
+        raise AssertionError("Q18 oracle has no rows at this scale")
+    n_od = len(conn.default_splits("orders"))
+    # B5: two gathers in each build; per orders batch, in each join, one
+    # arr_row1 lookup and two 8-byte build columns (quantity's two limbs;
+    # then c_name's ids and c_custkey)
+    return _join_phase("q18", PATH_PLANS["q18"](), want, ctx, 4 + 6 * n_od)
 
 
 def main() -> None:
@@ -679,6 +957,10 @@ def main() -> None:
                 "topn": topn_phase(conn, ctx, li, order),
                 "sort_full": sort_full_phase(conn, ctx, li, order),
                 "q6_generic": q6_generic_phase(ctx, li)}
+    del order
+    gather = gather_phase(args.seed)
+    by_phase["q3"] = q3_phase(conn, ctx, li)
+    by_phase["q18"] = q18_phase(conn, ctx, li)
 
     main_shape = kernel["timings"][6_700_000]
     kernels = [{
@@ -690,9 +972,14 @@ def main() -> None:
         "max_abs_err": kernel["max_abs_err"],
         "ms": main_shape["ms"],
         "plain_ms": main_shape["plain_ms"],
+        "bound_ms": main_shape["bound_ms"],
+        "bound_by": "bytes",
+        # no one PyTorch call filters by ranges and sums products
+        "library_ms": None,
         "rows": 6_700_000,
         "ms_60m_rows": kernel["timings"][60_000_000]["ms"],
         "plain_ms_60m_rows": kernel["timings"][60_000_000]["plain_ms"],
+        "bound_ms_60m_rows": kernel["timings"][60_000_000]["bound_ms"],
         "all_read_ms_60m_rows": kernel["timings"][60_000_000]["all_read_ms"],
     }]
     # (kernel, TPU kernel it replaces, the path phase whose launches are
@@ -702,6 +989,8 @@ def main() -> None:
             ("radix_rank", 45, "sort_full", 60_000_000),
             ("radix_pos", 116, "topn", 6_700_000)):
         other = 60_000_000 if rows == 6_700_000 else 6_700_000
+        t, t_other = radix["timings"][rows][name], \
+            radix["timings"][other][name]
         kernels.append({
             "name": name,
             "route": "cuda",
@@ -710,14 +999,41 @@ def main() -> None:
             "launches": by_phase[main_phase][name],
             "launches_by_phase": {p: c[name] for p, c in by_phase.items()},
             "max_abs_err": radix["max_abs_err"][name],
-            "ms": radix["timings"][rows][name]["ms"],
-            "plain_ms": radix["timings"][rows][name]["plain_ms"],
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": "bytes",
+            # B4: torch.bincount of the (digit, tile) keys; B2/B3: no one
+            # call gives stable in-digit ranks
+            "library_ms": t["library_ms"],
             "rows": rows,
-            f"ms_{other // 1_000_000}m_rows":
-                radix["timings"][other][name]["ms"],
-            f"plain_ms_{other // 1_000_000}m_rows":
-                radix["timings"][other][name]["plain_ms"],
+            f"ms_{other // 1_000_000}m_rows": t_other["ms"],
+            f"plain_ms_{other // 1_000_000}m_rows": t_other["plain_ms"],
+            f"bound_ms_{other // 1_000_000}m_rows": t_other["bound_ms"],
         })
+    q3_shape, small = (gather["timings"][GATHER_TIMED[1]],
+                       gather["timings"][GATHER_TIMED[0]])
+    kernels.append({
+        "name": "flat_gather",
+        "route": "cuda",
+        "source": "velox_tpu_torch/csrc/flat_gather.cu",
+        "replaces": "velox_tpu/ops/pallas_kernels.py:292",
+        "launches": by_phase["q3"]["flat_gather"],
+        "launches_by_phase": {p: c["flat_gather"]
+                              for p, c in by_phase.items()},
+        "max_abs_err": gather["max_abs_err"],
+        "ms": q3_shape["ms"],
+        "plain_ms": q3_shape["plain_ms"],
+        "bound_ms": q3_shape["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": q3_shape["library_ms"],
+        "data_rows": GATHER_TIMED[1], "indices": GATHER_M,
+        "distinct_sectors": q3_shape["distinct_sectors"],
+        "bound_ms_sector_per_read": q3_shape["bound_ms_sector_per_read"],
+        "ms_1m_data": small["ms"], "plain_ms_1m_data": small["plain_ms"],
+        "bound_ms_1m_data": small["bound_ms"],
+        "library_ms_1m_data": small["library_ms"],
+    })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -196,3 +196,121 @@ def test_unported_function_raises_naming_it():
                TT.row(["l_comment"], [TT.VARCHAR]))
     with pytest.raises(NotImplementedError, match="divide"):
         tparse("k / 2", trt)
+
+
+# ---------------------------------------------------------------------------
+# Dictionary string and long-decimal comparisons
+# ---------------------------------------------------------------------------
+
+WORDS = sorted(["cherry", "apple", "fig", "banana", "date", "elder",
+                "grape"])
+OTHER_WORDS = sorted(["fig", "kiwi", "apple", "lime"])  # a second dictionary
+CMP_SCHEMA = [  # name, type, nullable
+    ("s", "varchar", True), ("t", "varchar", False),
+    ("q", "decimal(38,2)", True), ("r", "decimal(38,4)", False),
+    ("p", "decimal(12,2)", True),
+]
+CMP_EXPRESSIONS = [
+    "s = 'fig'", "s <> 'fig'", "s < 'date'", "s >= 'cherry'",
+    "'elder' > s", "s = 'zzz'", "s <> 'zzz'", "s in ('apple', 'grape')",
+    "s between 'banana' and 'fig'", "s = t", "s <> t",
+    "q > 300.0", "q = q", "q < r", "q >= 1.5", "q <> p", "q = p",
+    "p <= q",
+    "q between -100000.00 and 100000.00", "r > 0",
+]
+
+
+def _limbs_np(vals):
+    lo = np.array([((v & (2 ** 64 - 1)) ^ 2 ** 63) - 2 ** 63 for v in vals],
+                  dtype=np.int64)
+    hi = np.array([v >> 64 for v in vals], dtype=np.int64)
+    return lo, hi
+
+
+def _cmp_batches(seed: int):
+    rng = np.random.default_rng(seed)
+    big = [int(x) * 10 ** 12 + int(y) for x, y in zip(
+        rng.integers(-10 ** 15, 10 ** 15, CAP),
+        rng.integers(0, 10 ** 12, CAP))]
+    small = [int(x) for x in rng.integers(-10 ** 7, 10 ** 7, CAP)]
+    # q: huge and small values, and values equal to r's at the wider scale
+    q = [b if i % 3 == 0 else s for i, (b, s) in enumerate(zip(big, small))]
+    r = [v * 100 if i % 4 == 0 else int(rng.integers(-10 ** 9, 10 ** 9))
+         for i, v in enumerate(q)]
+    arrays = {
+        "s": (rng.integers(0, len(WORDS), CAP).astype(np.int32),
+              rng.random(CAP) > 0.15),
+        "t": (rng.integers(0, len(OTHER_WORDS), CAP).astype(np.int32), None),
+        "q": (*_limbs_np(q),),
+        "r": (*_limbs_np(r),),
+        "p": (np.where(np.arange(CAP) % 3 != 0, np.array(q[:], dtype=object),
+                       rng.integers(-10 ** 9, 10 ** 9, CAP)).astype(np.int64),
+              rng.random(CAP) > 0.15),
+    }
+    qvalid = rng.random(CAP) > 0.15
+    arrays["q"] = (arrays["q"][0], qvalid, arrays["q"][1])
+    arrays["r"] = (arrays["r"][0], None, arrays["r"][1])
+    mask = np.arange(CAP) < N_ACTIVE
+    jdicts = {"s": jd.Dictionary(WORDS), "t": jd.Dictionary(OTHER_WORDS)}
+    tdicts = {"s": td.Dictionary(WORDS), "t": td.Dictionary(OTHER_WORDS)}
+    jcols, tdt = {}, {}
+    for name, typ, _ in CMP_SCHEMA:
+        data, validity, *kids = arrays[name]
+        jt = JT.parse_type(typ)
+        jcols[name] = jd.DeviceColumn(
+            jnp.asarray(data),
+            None if validity is None else jnp.asarray(validity), jt,
+            jdicts.get(name),
+            tuple(jd.DeviceColumn(jnp.asarray(k), None, JT.BIGINT, None)
+                  for k in kids))
+        tdt[name] = TT.parse_type(typ)
+    jbatch = jd.DeviceBatch(jcols, jnp.asarray(mask))
+    tbatch = td.batch_from_numpy(arrays, mask, tdt, tdicts, device="cpu")
+    return jbatch, tbatch, arrays
+
+
+def _cmp_row_types():
+    names = [s[0] for s in CMP_SCHEMA]
+    return (JT.row(names, [JT.parse_type(s[1]) for s in CMP_SCHEMA]),
+            TT.row(names, [TT.parse_type(s[1]) for s in CMP_SCHEMA]))
+
+
+@pytest.mark.parametrize("text", CMP_EXPRESSIONS)
+def test_string_and_long_decimal_compares_match_reference(text):
+    jrt, trt = _cmp_row_types()
+    jbatch, tbatch, _ = _cmp_batches(5)
+    jv = JExprSet([jparse(text, jrt)], jrt).eval_batch(jbatch)[0]
+    tv = TExprSet([tparse(text, trt)], trt).eval_batch(tbatch)[0]
+    tcol, jcol = tv.to_column(CAP), jv.to_column(CAP)
+    _assert_same_column(tcol, jcol, text)
+    hits = tcol.data.numpy()
+    assert 0 < hits.sum() < CAP or text in ("s = 'zzz'", "s <> 'zzz'",
+                                            "q = q"), text
+
+
+@pytest.mark.parametrize("text,op,const", [
+    ("s < 'coconut'", "lt", "coconut"), ("s <= 'coconut'", "lte", "coconut"),
+    ("s > 'coconut'", "gt", "coconut"), ("s >= 'coconut'", "gte", "coconut"),
+    ("'coconut' < s", "gt", "coconut"), ("s < 'aardvark'", "lt", "aardvark"),
+    ("s >= 'zebra'", "gte", "zebra"),
+])
+def test_ordered_compare_with_an_absent_constant(text, op, const):
+    """A constant the sorted dictionary lacks orders by its insertion
+    point (the reference binds it to id -1, which orders below every
+    value; ROADMAP C)."""
+    _, trt = _cmp_row_types()
+    _, tbatch, arrays = _cmp_batches(6)
+    tv = TExprSet([tparse(text, trt)], trt).eval_batch(tbatch)[0]
+    words = np.array(WORDS, dtype=object)[arrays["s"][0]]
+    want = {"lt": words < const, "lte": words <= const,
+            "gt": words > const, "gte": words >= const}[op]
+    np.testing.assert_array_equal(tv.data.numpy(), want)
+    np.testing.assert_array_equal(tv.validity.numpy(), arrays["s"][1])
+
+
+def test_raw_string_compare_raises_naming_the_roadmap():
+    _, trt = _cmp_row_types()
+    _, tbatch, _ = _cmp_batches(7)
+    tbatch.columns["s"].dictionary = None
+    with pytest.raises(NotImplementedError, match="A.11"):
+        TExprSet([tparse("s = 'fig'", trt)], trt).eval_batch(tbatch)

@@ -214,17 +214,106 @@ def test_sort_permutation_orders_active_rows_first(case):
     assert not active[perm.numpy()][N_ACTIVE:].any()
 
 
-@pytest.mark.parametrize("key", ["raw_string", "long_decimal"])
-def test_unported_key_words_raise(key):
-    if key == "raw_string":
-        v = EvalValue(torch.zeros(8, dtype=torch.int32), None, T.VARCHAR)
-        match = "raw"
-    else:
-        v = EvalValue(torch.zeros(8, dtype=torch.int64), None,
-                      T.decimal(30, 2))
-        match = "long-decimal"
-    with pytest.raises(NotImplementedError, match=match):
+def test_unported_key_words_raise():
+    v = EvalValue(torch.zeros(8, dtype=torch.int32), None, T.VARCHAR)
+    with pytest.raises(NotImplementedError, match="raw"):
         S.value_words(v, 8)
+
+
+def _long_decimal_values(seed: int, nullable: bool):
+    """(jax EvalValue, port EvalValue) of a DECIMAL(30,2) key whose values
+    use both limbs, both signs and ties."""
+    rng = np.random.default_rng(seed)
+    vals = [int(x) * 2 ** 64 + int(y) for x, y in zip(
+        rng.integers(-5, 5, CAP), rng.integers(-2 ** 63, 2 ** 63 - 1, CAP,
+                                               dtype=np.int64))]
+    vals[::7] = vals[1::7][:len(vals[::7])]  # ties
+    lo = np.array([((v & (2 ** 64 - 1)) ^ 2 ** 63) - 2 ** 63 for v in vals],
+                  np.int64)
+    hi = np.array([v >> 64 for v in vals], np.int64)
+    valid = rng.random(CAP) > 0.2 if nullable else None
+    from velox_tpu.vector.device import DeviceColumn as JDeviceColumn
+    from velox_tpu_torch.vector.device import DeviceColumn
+    jv = JEvalValue(jnp.asarray(lo),
+                    None if valid is None else jnp.asarray(valid),
+                    JT.decimal(30, 2),
+                    children=(JDeviceColumn(jnp.asarray(hi), None,
+                                            JT.BIGINT, None),))
+    tv = EvalValue(torch.from_numpy(lo),
+                   None if valid is None else torch.from_numpy(valid),
+                   T.decimal(30, 2),
+                   children=(DeviceColumn(torch.from_numpy(hi), None,
+                                          T.BIGINT),))
+    return jv, tv, vals
+
+
+@pytest.mark.parametrize("order", ["asc_nulls_last", "desc_nulls_first",
+                                   "desc_nulls_last"])
+def test_long_decimal_key_words_match_reference(order):
+    jv, tv, vals = _long_decimal_values(4, nullable=True)
+    for a, b in zip(_np_words(JS.value_words(jv, CAP)),
+                    S.value_words(tv, CAP)):
+        np.testing.assert_array_equal(b.numpy(), a)
+    active = np.arange(CAP) < N_ACTIVE
+    jw, jb, jl = JS.sort_words_layout([jv], [JSortOrder(order)], CAP,
+                                      jnp.asarray(active))
+    tw, tb, tl = S.sort_words_layout([tv], [SortOrder(order)], CAP,
+                                     torch.from_numpy(active))
+    assert tb == list(jb) and sum(tb) == 1 + 1 + 128
+    assert [_layout_key(f) for f in tl] == [_layout_key(f) for f in jl]
+    assert tl[0].kind == "opaque" and not tl[0].decodable
+    jperm = JS.radix_sort_perm(jw, jb, CAP)
+    tperm = S.radix_sort_perm(tw, tb, CAP)
+    np.testing.assert_array_equal(tperm.numpy(), np.asarray(jperm))
+    # the active non-null rows come out in value order
+    valid = np.asarray(jv.validity)
+    keep = [i for i in tperm.numpy() if active[i] and valid[i]]
+    got = [vals[i] for i in keep]
+    assert got == sorted(got, reverse=order.startswith("desc"))
+
+
+@pytest.mark.parametrize("types", [
+    ["bigint"], ["integer", "date"], ["decimal(12,2)"], ["varchar"],
+    ["bigint", "integer"], ["decimal(38,2)"], ["double", "bigint"],
+    ["bigint"] * 3, ["bigint"] * 4, ["boolean", "real"],
+])
+def test_join_key_word_counts_match_reference(types):
+    jt = [JT.parse_type(t) for t in types]
+    tt = [T.parse_type(t) for t in types]
+    assert [S.num_value_words(t) for t in tt] \
+        == [JS.num_value_words(t) for t in jt]
+    assert S.packable_words(tt) == JS.packable_words(jt)
+    assert S.sortable_words(tt) == JS.sortable_words(jt)
+
+
+@pytest.mark.parametrize("case", ["int32_narrow", "int64", "date_int32",
+                                  "decimal_narrowed", "varchar"])
+def test_pack_key_u64_matches_reference(case):
+    """One packed 64-bit key per row, as an int64 with the reference's
+    uint64 bits; a narrower stored column packs like the canonical one."""
+    rng = np.random.default_rng(9)
+    if case == "int64":
+        cols = [("bigint", rng.integers(-2 ** 62, 2 ** 62, CAP), np.int64)]
+    elif case == "date_int32":
+        cols = [("date", rng.integers(8035, 10592, CAP), np.int32),
+                ("integer", rng.integers(-9, 9, CAP), np.int32)]
+    elif case == "decimal_narrowed":  # DECIMAL(12,2) stored as int32
+        cols = [("decimal(12,2)", rng.integers(-999, 999, CAP), np.int32)]
+    elif case == "varchar":
+        cols = [("varchar", rng.integers(0, len(WORDS), CAP), np.int32)]
+    else:
+        cols = [("integer", rng.integers(-50, 50, CAP), np.int32)]
+    jd_, td_ = JDictionary(sorted(WORDS)), Dictionary(sorted(WORDS))
+    jvals = [JEvalValue(jnp.asarray(d.astype(st)), None, JT.parse_type(t),
+                        jd_ if t == "varchar" else None)
+             for t, d, st in cols]
+    tvals = [EvalValue(torch.from_numpy(d.astype(st)), None, T.parse_type(t),
+                       td_ if t == "varchar" else None)
+             for t, d, st in cols]
+    want = np.asarray(JS.pack_key_u64(jvals, CAP)).view(np.int64)
+    got = S.pack_key_u64(tvals, CAP)
+    assert got.dtype == torch.int64
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 # ---------------------------------------------------------------------------
@@ -250,6 +339,15 @@ def _sort_plan(builder, kind):
     if kind == "limit":
         return (scan("lineitem", ["l_orderkey", "l_quantity"])
                 .limit(7, offset=3).plan())
+    if kind == "top_n_long_decimal":  # Q3's TopN: a DECIMAL(38,4) sum
+        return (scan("lineitem", ["l_orderkey", "l_extendedprice",
+                                  "l_discount", "l_shipdate"])
+                .project(["l_orderkey", "l_shipdate",
+                          "l_extendedprice * (1.0 - l_discount) as rev"])
+                .single_aggregation(["l_orderkey", "l_shipdate"],
+                                    ["sum(rev) as revenue"])
+                .top_n(["revenue DESC", "l_shipdate", "l_orderkey"], 25)
+                .plan())
     raise ValueError(kind)
 
 
@@ -262,7 +360,8 @@ def _tpch():
 
 
 @pytest.mark.parametrize("kind", ["orderby_limit", "full_order_by",
-                                  "top_n_desc", "limit"])
+                                  "top_n_desc", "limit",
+                                  "top_n_long_decimal"])
 def test_sort_plans_equal_reference(kind, _tpch):
     from velox_tpu.exec.task import Task as JTask
     from velox_tpu.testing.plan_builder import PlanBuilder as JPlanBuilder

@@ -3,8 +3,9 @@
 TPC-H Q6 (through the filter-sum operator) and the scan+filter+project
 heads of Q6 and Q1 must give Arrow tables equal in value and type. Also:
 the filter-sum counter fires, unported nodes raise, and importing the
-whole port never imports jax. (Q1, the sorts and the generic aggregation
-have their own files: test_torch_aggregation.py, test_torch_sort.py.)
+whole port never imports jax. (Q1, the sorts and the generic aggregation,
+and Q3, Q18 and the join have their own files: test_torch_aggregation.py,
+test_torch_sort.py, test_torch_join.py.)
 """
 
 import subprocess
@@ -130,13 +131,24 @@ def test_checked_overflow_raises_in_both():
 
 
 def _needs_unported(query: int):
-    """Q3 and Q18 need the join, which is not ported; for 1, Q1's
-    grouping with an aggregate the port lacks."""
-    if query != 1:
-        return tpch_plan(query)
-    return (PlanBuilder().table_scan("lineitem", ["l_returnflag",
-                                                  "l_linestatus",
-                                                  "l_quantity"])
+    """A plan shaped like TPC-H `query` that needs something the port
+    lacks: for 1, Q1's grouping with an aggregate it does not have; for 3,
+    Q3's lineitem-orders join as a merge join; for 18, Q18's
+    orders-customer join as a nested-loop join. (The hash-join plans of
+    Q3 and Q18 run: tests/test_torch_join.py.)"""
+    b = PlanBuilder()
+    if query == 3:
+        orders = b.new_builder().table_scan("orders", ["o_orderkey"])
+        return (b.table_scan("lineitem", ["l_orderkey"])
+                .merge_join(["l_orderkey"], ["o_orderkey"], orders,
+                            output=["l_orderkey"]).plan())
+    if query == 18:
+        customers = b.new_builder().table_scan("customer", ["c_custkey"])
+        return (b.table_scan("orders", ["o_orderkey", "o_custkey"])
+                .nested_loop_join(customers, output=["o_orderkey"],
+                                  filter="o_custkey = c_custkey").plan())
+    return (b.table_scan("lineitem", ["l_returnflag", "l_linestatus",
+                                      "l_quantity"])
             .partial_aggregation(["l_returnflag", "l_linestatus"],
                                  ["stddev(l_quantity) as s"])
             .final_aggregation().plan())
@@ -149,12 +161,10 @@ def test_unported_plan_raises(query):
 
 
 def test_unported_node_kinds_raise():
-    orders = PlanBuilder().table_scan("orders", ["o_orderkey"])
-    plan = (PlanBuilder().table_scan("lineitem", ["l_orderkey"])
-            .hash_join(["l_orderkey"], ["o_orderkey"], orders,
-                       output=["l_orderkey"]).plan())
-    with pytest.raises(NotImplementedError, match="HashJoinNode"):
-        Task(plan, CPU).run()
+    with pytest.raises(NotImplementedError, match="MergeJoinNode"):
+        Task(_needs_unported(3), CPU).run()
+    with pytest.raises(NotImplementedError, match="NestedLoopJoinNode"):
+        Task(_needs_unported(18), CPU).run()
     plan = (PlanBuilder().table_scan("lineitem", ["l_orderkey"])
             .mark_distinct("first", ["l_orderkey"]).plan())
     with pytest.raises(NotImplementedError, match="MarkDistinctNode"):
@@ -185,6 +195,8 @@ def test_port_never_imports_jax():
         bad = sorted(k for k in sys.modules
                      if k.split(".")[0] in ("jax", "jaxlib", "velox_tpu"))
         assert not bad, bad
+        for m in ("velox_tpu_torch.exec.join", "velox_tpu_torch.ops.gather"):
+            assert m in sys.modules, m
         print("ok", len([k for k in sys.modules
                          if k.startswith("velox_tpu_torch")]))
     """)

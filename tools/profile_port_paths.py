@@ -1,0 +1,92 @@
+#!/usr/bin/env python3
+"""Device-time breakdown of velox_tpu_torch query paths on one CUDA card.
+
+Usage: python3 tools/profile_port_paths.py [--sf N] [--paths q3,q18,...]
+                                           [--table-dir DIR]
+
+For each path (q1, q3, q18, topn, sort_full, q6_generic; default q3,q18)
+it runs the plan of chip_smoke.py's phase of that name twice to warm up,
+then once under torch.profiler with CPU and CUDA activities, and prints
+one JSON line: the card's name and power limit, the three walls, the
+device-busy time (the summed self device time of the CUDA-side rows
+only, kernels and memcpys: some torch versions give an aten op its
+kernels' time again), its share of the profiled wall, and the largest
+device items with their call counts. With --table-dir, the full tables
+go to DIR/profile_<path>.txt. Needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+REPO = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(REPO))
+
+from chip_smoke import PATH_PLANS  # noqa: E402
+from velox_tpu_torch.connectors.tpch import register_tpch  # noqa: E402
+from velox_tpu_torch.exec.task import QueryCtx, Task  # noqa: E402
+
+
+def run(plan, ctx) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    task = Task(plan, ctx)
+    for _ in task.batches():
+        pass
+    task.check_errors()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--sf", type=float, default=10.0)
+    ap.add_argument("--paths", default="q3,q18")
+    ap.add_argument("--top", type=int, default=8)
+    ap.add_argument("--table-dir", default=None,
+                    help="write each path's full profiler table here")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_port_paths: no CUDA card")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    register_tpch(args.sf)
+    ctx = QueryCtx(device="cuda")
+    if args.table_dir:
+        os.makedirs(args.table_dir, exist_ok=True)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for name in args.paths.split(","):
+        plan = PATH_PLANS[name]()
+        walls = [run(plan, ctx), run(plan, ctx)]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            walls.append(run(plan, ctx))
+        rows = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        busy_us = sum(e.self_device_time_total for e in rows)
+        top = sorted(rows, key=lambda e: -e.self_device_time_total)
+        if args.table_dir:
+            Path(args.table_dir, f"profile_{name}.txt").write_text(
+                prof.key_averages().table(sort_by="self_device_time_total",
+                                          row_limit=60))
+        print(json.dumps({
+            "path": name, "sf": args.sf, "card": smi, "wall_s": walls,
+            "device_busy_ms": busy_us / 1e3,
+            "busy_share_of_profiled_wall": busy_us / 1e6 / walls[-1],
+            "top": [{"name": e.key[:90], "ms": e.self_device_time_total / 1e3,
+                     "count": e.count} for e in top[:args.top]],
+        }), flush=True)
+
+
+if __name__ == "__main__":
+    main()

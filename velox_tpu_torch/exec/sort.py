@@ -22,6 +22,8 @@ Key encoding (the reference's):
 * f32          -> monotone u32 via an int32 view + sign fold
 * f64          -> three f32 words (hi = f32(x), lo = f32(x - hi),
                   lo2 = f32(x - hi - lo))
+* long decimal -> four words: the hi limb biased, then the lo limb's
+                  halves
 * strings      -> sorted-dictionary ids
 * descending   -> every value word inverted
 * nulls        -> a leading 1-bit field per nullable key
@@ -72,11 +74,12 @@ def value_words(v: EvalValue, capacity: int) -> List[torch.Tensor]:
         raise NotImplementedError(
             "raw (non-dictionary) string sort keys are not ported to "
             "velox_tpu_torch")
-    if dt.is_long_decimal:
-        raise NotImplementedError(
-            "long-decimal (DECIMAL(19..38)) sort keys are not ported to "
-            "velox_tpu_torch")
     data = v.full_data(capacity)
+    if dt.is_long_decimal:
+        # int128 limbs: the signed hi limb biased like an int64, then the
+        # unsigned lo limb's two halves (ops/int128.py)
+        return _signed_words(v.full_hi(capacity)) + [(data >> 32) & _M32,
+                                                      data & _M32]
     if dt.kind is T.TypeKind.DOUBLE:
         d64 = data.to(torch.float64)
         hi = d64.to(torch.float32)
@@ -124,7 +127,7 @@ class KeyFieldLayout:
 
     kind: 'const' (no bits; value == base), 'narrow' (value = base +
     bits), 'words' (full-width order-preserving words), 'opaque' (not
-    invertible: DOUBLE's three-f32 split)."""
+    invertible: DOUBLE's three-f32 split, int128 limbs)."""
 
     __slots__ = ("kind", "off", "nb", "base", "desc", "null_off",
                  "null_is_one", "dtype", "arr_dtype", "dictionary")
@@ -219,7 +222,9 @@ def sort_words_layout(keys: Sequence[EvalValue], orders, capacity: int,
         if desc:
             vw = [x ^ _M32 for x in vw]
         fields.extend((x, 32) for x in vw)
-        kind = "opaque" if v.dtype.kind is T.TypeKind.DOUBLE else "words"
+        # DOUBLE's three-f32 split and int128 limbs are not invertible
+        kind = ("opaque" if v.dtype.kind is T.TypeKind.DOUBLE
+                or v.dtype.is_long_decimal else "words")
         layout.append(KeyFieldLayout(
             kind, off, 32 * len(vw), 0, desc, null_off, null_is_one,
             v.dtype, arr_dt, v.dictionary))
@@ -456,3 +461,56 @@ def sort_permutation(keys, orders, capacity: int, active) -> torch.Tensor:
     """Permutation putting active rows first, ordered by keys (stable)."""
     words, bits = sort_words(keys, orders, capacity, active)
     return radix_sort_perm(words, bits, capacity)
+
+
+# ---------------------------------------------------------------------------
+# Join keys (exec/join.py)
+# ---------------------------------------------------------------------------
+
+def num_value_words(dt: T.DataType) -> int:
+    """Static word count of value_words() over a column stored at the
+    type's canonical dtype; pack_key_u64 casts to it first, so both join
+    sides pack identically even when one is stored narrower."""
+    if dt.is_long_decimal:
+        return 4
+    if dt.kind is T.TypeKind.DOUBLE:
+        return 3
+    if dt.kind in (T.TypeKind.REAL, T.TypeKind.BOOLEAN):
+        return 1
+    if dt.is_string or dt.is_complex:
+        return 1
+    return 2 if dt.torch_dtype() == torch.int64 else 1
+
+
+def packable_words(dtypes: Sequence[T.DataType]) -> bool:
+    """True if the key tuple's order-preserving words fit one 64-bit lane:
+    the precondition of the packed sorted-key build (exec/join.py)."""
+    return sum(num_value_words(dt) for dt in dtypes) <= 2
+
+
+def sortable_words(dtypes: Sequence[T.DataType]) -> bool:
+    """True if the key tuple has at most seven value words: the wide-key
+    sorted build, probed through the merge-rank sort (exec/join.py). The
+    reference's bound, kept so both engines pick the same join mode;
+    wider tuples take its scatter-probe hash table, not ported."""
+    return sum(num_value_words(dt) for dt in dtypes) <= 7
+
+
+def pack_key_u64(keys: Sequence[EvalValue], capacity: int) -> torch.Tensor:
+    """One order-preserving 64-bit key per row from at most two value
+    words, as an int64 holding the reference's uint64 bits: compare it
+    unsigned (flip the sign bit) where order matters; equality needs
+    nothing. Null rows are not canonicalized: callers exclude them."""
+    words: List[torch.Tensor] = []
+    for v in keys:
+        canon = v
+        want = v.dtype.torch_dtype()
+        if not v.dtype.is_string and v.data.dtype != want:
+            canon = EvalValue(v.full_data(capacity).to(want), v.validity,
+                              v.dtype, v.dictionary)
+        words.extend(value_words(canon, capacity))
+    if len(words) > 2:
+        raise ValueError(f"{len(words)} key words exceed one packed lane")
+    if len(words) == 1:
+        return words[0]
+    return (words[0] << 32) | words[1]

@@ -11,7 +11,9 @@ Filter/Project chains (fused, exec/fuse.py), Aggregation (the filter-sum
 kernel for a Q6-shaped global ``sum(a * b)``, ops/filter_reduce.py, and
 the generic operator of exec/aggregation.py for every other plan of
 sum/count/avg/min/max), OrderBy, TopN and Limit (a Limit over an OrderBy
-runs as a TopN). Every other node kind raises NotImplementedError.
+runs as a TopN), and HashJoin (exec/join.py: the build pipeline runs to
+completion, then the probe pipeline streams). Every other node kind,
+merge and nested-loop joins included, raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -27,6 +29,9 @@ from velox_tpu_torch.connectors.connector import get_connector
 from velox_tpu_torch.core import plan as P
 from velox_tpu_torch.exec.aggregation import AggregationOperator
 from velox_tpu_torch.exec.fuse import chain_fn, collapse_chain
+from velox_tpu_torch.exec.join import (
+    HashBuildStage, HashJoinOperator, array_join_range, build_key_ranges,
+)
 from velox_tpu_torch.exec.operator import (
     FilterProjectOperator, LimitOperator, Operator, SourceOperator,
     TableScanOperator, ValuesOperator,
@@ -139,6 +144,8 @@ class Task:
             yield from self._drive(node.source, OrderByOperator(node))
         elif isinstance(node, P.TopNNode):
             yield from self._drive(node.source, TopNOperator(node))
+        elif isinstance(node, P.HashJoinNode):
+            yield from self._run_join(node)
         elif isinstance(node, P.LimitNode):
             # OrderBy + Limit(offset=0) => TopN: a bounded key-only sort
             # per batch instead of a full sort (parity: the Limit-over-
@@ -155,6 +162,18 @@ class Task:
         else:
             raise NotImplementedError(
                 f"no operator for {type(node).__name__} in velox_tpu_torch")
+
+    def _run_join(self, node: P.HashJoinNode) -> Iterator[DeviceBatch]:
+        """The build pipeline runs to completion (JoinBridge parity), then
+        the probe pipeline streams through the join."""
+        build = HashBuildStage(node.right_keys,
+                               array_range=array_join_range(node),
+                               key_ranges=build_key_ranges(node))
+        for batch in self._run_node(node.right):
+            build.add_input(self._strip_errors(batch))
+        probe = HashJoinOperator(node)
+        probe.set_built_table(build.finish())
+        yield from self._drive(node.left, probe)
 
     def _try_filter_sum(self, node: P.AggregationNode, chain, mk_agg):
         """Kernel pushdown: global sum(a*b) over a range-filtered scan runs

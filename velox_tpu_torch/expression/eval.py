@@ -33,6 +33,7 @@ import torch
 
 from velox_tpu_torch import types as T
 from velox_tpu_torch.core import expressions as ex
+from velox_tpu_torch.ops.int128 import from_python_int
 from velox_tpu_torch.vector.device import DeviceBatch, DeviceColumn, Dictionary
 
 
@@ -70,6 +71,15 @@ class EvalValue:
         if self.validity.dim() == 0:
             return self.validity.expand(capacity)
         return self.validity
+
+    def full_hi(self, capacity: int):
+        """The high limb of a long decimal, row-aligned (zeros when the
+        value carries none)."""
+        if not self.children:
+            return torch.zeros((capacity,), dtype=torch.int64,
+                               device=self.data.device)
+        hi = self.children[0].data
+        return hi.expand(capacity) if hi.dim() == 0 else hi
 
     def to_column(self, capacity: int) -> DeviceColumn:
         v = self.validity
@@ -206,12 +216,9 @@ def _eval_constant(expr: ex.Constant, ctx: EvalCtx) -> EvalValue:
                 .to_integral_value(rounding=pydec.ROUND_HALF_UP))
     if dt.is_long_decimal:
         v = int(v)
-        lo = v & 0xFFFFFFFFFFFFFFFF
-        if lo >= 1 << 63:
-            lo -= 1 << 64
+        lo, hi = from_python_int(v)
         hi_col = DeviceColumn(
-            torch.tensor(v >> 64, dtype=torch.int64, device=dev), None,
-            T.BIGINT)
+            torch.tensor(hi, dtype=torch.int64, device=dev), None, T.BIGINT)
         return EvalValue(torch.tensor(lo, dtype=torch.int64, device=dev),
                          None, dt, children=(hi_col,), py_value=v)
     if dt.kind is T.TypeKind.DATE and isinstance(v, str):
@@ -334,3 +341,21 @@ def _between(expr, ctx, cache):
     le = compare_value(ctx, x, hi, "lte")
     return EvalValue(ge.data & le.data, merge_validity(x, lo, hi),
                      T.BOOLEAN)
+
+
+def _align_strings(a: EvalValue, b: EvalValue):
+    """Bind an unresolved string constant on either side to the other
+    side's dictionary: its id there, or -1 when the dictionary lacks the
+    value (an id no row holds, so it equals nothing)."""
+    if a.data is None and b.dictionary is not None:
+        a = _bind_string(a, b.dictionary, b.data.device)
+    if b.data is None and a.dictionary is not None:
+        b = _bind_string(b, a.dictionary, a.data.device)
+    return a, b
+
+
+def _bind_string(const: EvalValue, dictionary: Dictionary,
+                 device) -> EvalValue:
+    return EvalValue(torch.tensor(dictionary.id_of(const.py_value),
+                                  dtype=torch.int32, device=device),
+                     None, const.dtype, dictionary, py_value=const.py_value)

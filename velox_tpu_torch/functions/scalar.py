@@ -1,25 +1,32 @@
 """Presto-semantics scalar functions: the subset of the ported slice.
 
 Counterpart of ``velox_tpu/functions/scalar.py``, reduced to what the
-filter and projection heads of TPC-H Q6 and Q1 evaluate:
+filters and projections of TPC-H Q6, Q1, Q3 and Q18 evaluate:
 
 * comparisons (eq, neq, lt, lte, gt, gte) over integers, DATE and short
-  DECIMAL, with decimal constants rescaled to the common scale;
+  DECIMAL, with decimal constants rescaled to the common scale; over long
+  decimals (DECIMAL(19..38), int128 limbs); and over dictionary strings
+  (ids; ordered compares need a sorted dictionary);
 * plus, minus and multiply over integers and short decimals, with the
   reference's checked-overflow flags for integer results.
 
 Type resolution (promotion, result types) is the reference's, copied, so
-plans type identically in both engines. Long decimals (DECIMAL(19..38),
-int128 limbs) and string comparisons are not ported yet and raise.
+plans type identically in both engines. Long-decimal arithmetic and raw
+(dictionary-less) strings are not ported yet and raise.
 """
 
 from __future__ import annotations
 
+import bisect
+
 import torch
 
 from velox_tpu_torch import types as T
-from velox_tpu_torch.expression.eval import EvalValue, merge_validity, promote
+from velox_tpu_torch.expression.eval import (
+    EvalValue, _align_strings, merge_validity, promote,
+)
 from velox_tpu_torch.functions.registry import register
+from velox_tpu_torch.ops import int128 as I
 
 # ---------------------------------------------------------------------------
 # Type promotion (copied from the reference)
@@ -220,12 +227,37 @@ _CMP_OPS = {
 }
 
 
+def _limbs(v: EvalValue, to_scale: int, ctx):
+    """(lo, hi) int128 limbs of a decimal or integer value, rescaled to
+    `to_scale`; short values widen first, so the rescale cannot wrap."""
+    cap = ctx.capacity
+    if v.dtype.is_long_decimal:
+        lo, hi = v.full_data(cap), v.full_hi(cap)
+    else:
+        lo, hi = I.from_i64(v.full_data(cap))
+    return I.rescale_up(lo, hi, to_scale - _scale(v))
+
+
+def _is_long(*vals) -> bool:
+    return any(v.dtype.is_long_decimal for v in vals)
+
+
+def _scale(v: EvalValue) -> int:
+    return v.dtype.scale if v.dtype.kind is T.TypeKind.DECIMAL else 0
+
+
 def compare_value(ctx, a: EvalValue, b: EvalValue, op: str) -> EvalValue:
-    """Comparison over numerics, dates and booleans."""
+    """Comparison over numerics, dates, booleans and dictionary strings."""
     if a.dtype.is_string or b.dtype.is_string:
-        raise NotImplementedError(
-            "string comparison is not ported to velox_tpu_torch")
-    _no_long(a, b)
+        return _compare_strings(a, b, op)
+    if _is_long(a, b):
+        s = max(_scale(a), _scale(b))
+        alo, ahi = _limbs(a, s, ctx)
+        blo, bhi = _limbs(b, s, ctx)
+        lt, eq = I.lt128(alo, ahi, blo, bhi), I.eq128(alo, ahi, blo, bhi)
+        res = {"eq": eq, "neq": ~eq, "lt": lt, "lte": lt | eq,
+               "gt": ~(lt | eq), "gte": ~lt}[op]
+        return EvalValue(res, merge_validity(a, b), T.BOOLEAN)
     if a.dtype.is_numeric and b.dtype.is_numeric:
         common = promote_numeric(a.dtype, b.dtype)
         da = _numeric_data(a, common)
@@ -240,6 +272,68 @@ def compare_value(ctx, a: EvalValue, b: EvalValue, op: str) -> EvalValue:
                 db = db.to(torch.int64) * 86400_000_000
     da, db = promote(da, db)
     return EvalValue(_CMP_OPS[op](da, db), merge_validity(a, b), T.BOOLEAN)
+
+
+def _is_raw(v: EvalValue) -> bool:
+    return v.data is not None and v.dictionary is None
+
+
+def _require_sorted(d) -> None:
+    if not d.is_sorted:
+        vals = d.values
+        if any(vals[i] > vals[i + 1] for i in range(len(vals) - 1)):
+            raise ValueError(
+                "ordered string comparison requires a sorted dictionary")
+        d.is_sorted = True
+
+
+def _ordered_constant(col: EvalValue, const: EvalValue, op: str):
+    """Ordered compare of a column against a string constant the column's
+    sorted dictionary lacks: the constant falls between two ids, at the
+    insertion point ``pos``, so rows below ``pos`` are less than it and
+    the rest greater."""
+    pos = bisect.bisect_left(list(col.dictionary.values), const.py_value)
+    below = col.data < pos
+    return below if op in ("lt", "lte") else ~below
+
+
+def _compare_strings(a: EvalValue, b: EvalValue, op: str) -> EvalValue:
+    """Comparison of dictionary ids: eq/neq across any dictionaries (a
+    second dictionary's ids translate into the first's through a host
+    table), ordered compares within one sorted dictionary. Connectors and
+    the Arrow bridge build sorted dictionaries (vector/device.py)."""
+    if _is_raw(a) or _is_raw(b):
+        raise NotImplementedError(
+            "raw (dictionary-less) string comparison is not ported to "
+            "velox_tpu_torch (ROADMAP A.11)")
+    validity = merge_validity(a, b)
+    if op not in ("eq", "neq"):
+        # a constant absent from the dictionary has no id to order by
+        for col, const, flip in ((a, b, False), (b, a, True)):
+            if const.data is None and col.dictionary is not None \
+                    and col.dictionary.id_of(const.py_value) < 0:
+                _require_sorted(col.dictionary)
+                if flip:
+                    op = {"lt": "gt", "lte": "gte", "gt": "lt",
+                          "gte": "lte"}[op]
+                return EvalValue(_ordered_constant(col, const, op),
+                                 validity, T.BOOLEAN)
+    a, b = _align_strings(a, b)
+    if a.data is None or b.data is None:
+        raise ValueError("string comparison needs at least one dictionary-"
+                         "backed side")
+    da, db = a.data, b.data
+    if a.dictionary is not b.dictionary:
+        if op not in ("eq", "neq"):
+            raise NotImplementedError(
+                "ordered comparison across distinct dictionaries")
+        table = torch.tensor([a.dictionary.id_of(v)
+                              for v in b.dictionary.values],
+                             dtype=torch.int32, device=db.device)
+        db = table[db.long()]
+    elif op not in ("eq", "neq"):
+        _require_sorted(a.dictionary)
+    return EvalValue(_CMP_OPS[op](da, db), validity, T.BOOLEAN)
 
 
 for _op in _CMP_OPS:

@@ -1,8 +1,8 @@
 """int128 limb arithmetic for long decimals (DECIMAL(19..38)).
 
 Counterpart of ``velox_tpu/ops/int128.py`` (velox/type/HugeInt.h +
-type/DecimalUtil.h), reduced to what the decimal ``sum``/``avg`` states and
-their extraction reach. A value is two int64 limbs: ``lo`` holds the low
+type/DecimalUtil.h), reduced to what the decimal ``sum``/``avg`` states,
+their extraction, and long-decimal comparisons and sort keys reach. A value is two int64 limbs: ``lo`` holds the low
 64 bits (an unsigned pattern stored in int64), ``hi`` the signed high 64
 bits. Columns keep lo as the data and hi as a child column
 (vector/device.py).
@@ -32,6 +32,12 @@ def _shr(x: torch.Tensor, k: int) -> torch.Tensor:
     return (x >> k) & ((1 << (64 - k)) - 1)
 
 
+def from_i64(x: torch.Tensor):
+    """Sign-extend int64 -> (lo, hi) limbs."""
+    x = x.to(torch.int64)
+    return x, x >> 63
+
+
 def add128(alo, ahi, blo, bhi):
     lo = alo + blo
     carry = _ult(lo, alo).to(torch.int64)
@@ -42,6 +48,53 @@ def neg128(lo, hi):
     nlo = ~lo + 1
     borrow = (nlo == 0).to(torch.int64)
     return nlo, ~hi + borrow
+
+
+def sub128(alo, ahi, blo, bhi):
+    nlo, nhi = neg128(blo, bhi)
+    return add128(alo, ahi, nlo, nhi)
+
+
+def eq128(alo, ahi, blo, bhi):
+    return (alo == blo) & (ahi == bhi)
+
+
+def lt128(alo, ahi, blo, bhi):
+    """Signed a < b."""
+    return (ahi < bhi) | ((ahi == bhi) & _ult(alo, blo))
+
+
+def mul128_u64(lo, hi, c: int):
+    """(lo, hi) * c for a Python int 0 <= c < 2^63 (e.g. 10^k), modulo
+    2^128. The 32-bit partial products of the low limb wrap in int64 as
+    their uint64 counterparts do; only masked or logically shifted bits of
+    them are kept."""
+    l0, l1 = lo & _M32, _shr(lo, 32)
+    c0, c1 = c & _M32, c >> 32
+    p00 = l0 * c0
+    p01 = l0 * c1
+    p10 = l1 * c0
+    mid = _shr(p00, 32) + (p01 & _M32) + (p10 & _M32)
+    new_lo = (p00 & _M32) | (mid << 32)
+    carry = l1 * c1 + _shr(p01, 32) + _shr(p10, 32) + _shr(mid, 32)
+    return new_lo, hi * c + carry
+
+
+def rescale_up(lo, hi, k: int):
+    """Multiply by 10^k (k >= 0): decimal scale alignment."""
+    while k > 0:
+        step = min(k, 18)
+        lo, hi = mul128_u64(lo, hi, 10 ** step)
+        k -= step
+    return lo, hi
+
+
+def from_python_int(v: int):
+    """Host: Python int -> (lo, hi) two's-complement int64 limbs."""
+    lo = v & 0xFFFFFFFFFFFFFFFF
+    if lo >= 1 << 63:
+        lo -= 1 << 64
+    return lo, v >> 64  # Python's >> is arithmetic
 
 
 def abs128(lo, hi):
