@@ -18,11 +18,16 @@ Phases, each printing one line; any failure raises and exits non-zero:
 5. heads: the scan+filter+project heads of Q6 and Q1 without their
    aggregations; active-row counts and column sums, reduced on the card,
    must equal numpy exactly.
-6. radix_kernels: the counting-sort pass kernels (histogram B4, rank B2,
-   position B3) against their plain PyTorch versions on the card, exact,
-   over row counts from 1 to 60M and skewed, narrow, sorted and reversed
-   digits; median times of each mode and of its plain version at 6.7M
-   and 60M rows, and of whole radix_sort_perm calls on the orderBy and
+6. radix_kernels: the counting-sort pass kernels (histogram B4 from int32
+   digits and from the int64 sort state at every digit width 1-8, rank
+   B2, B3's positions and scatter forms with both tile loads) against
+   their plain PyTorch versions on the card, exact, over row counts from
+   1 to 60M, skewed, narrow, sorted and reversed digits, and states whose
+   upper bits (row id and key) fill all 64 bits; median times of each
+   mode, its plain version and its bound at 6.7M and 60M rows, uniform
+   and one-digit; one whole scatter-branch pass over a 39-bit state in
+   its fused form (two launches and a scan) and its earlier glue form,
+   back to back; and whole radix_sort_perm calls on the orderBy and
    full-sort keys against a stable torch.sort of the same packed lane.
 7. q1: TPC-H Q1 twice (array-mode partial/final aggregation, DECIMAL(38)
    sums, half-up avgs, the final OrderBy); every output value must equal
@@ -186,9 +191,16 @@ def build_phase() -> None:
         raise RuntimeError("no C++ compiler: the native TPC-H generator "
                            "did not build")
     ptxas = {name: [ln.strip() for ln in log.splitlines()
-                    if "registers" in ln or "spill" in ln]
+                    if "registers" in ln or "spill" in ln
+                    or "entry function" in ln]
              for name, log in build.BUILD_LOG.items() if name != "dbgen"}
-    phase("build", seconds=dict(build.BUILD_SECONDS), ptxas=ptxas)
+    # B3's kernels take their shared memory dynamically, which ptxas does
+    # not report: resident blocks per SM and bytes from the occupancy API
+    occupancy = {form: dict(zip(("blocks_per_sm", "dynamic_smem_bytes"),
+                                R.place_occupancy(form == "scatter")))
+                 for form in ("positions", "scatter")}
+    phase("build", seconds=dict(build.BUILD_SECONDS), ptxas=ptxas,
+          place_occupancy=occupancy)
 
 
 def _case(rng, n: int, k: int, n_active: int, empty: bool):
@@ -397,6 +409,8 @@ RADIX_SIZES = (1, 255, 4097, 131089, 6_700_000, 60_000_000)
 TIMED_SIZES = (6_700_000, 60_000_000)  # one SF10 batch, all of lineitem
 RADIX_DISTS = ("uniform", "one_digit", "w1", "w2", "w7", "sorted",
                "reversed")
+TIMED_DISTS = ("uniform", "one_digit")
+ORDERBY_KEY_BITS = 39  # the orderBy key's width at SF10 (1 + 12 + 26)
 
 
 def _digits(dist: str, n: int, gen) -> torch.Tensor:
@@ -412,9 +426,25 @@ def _digits(dist: str, n: int, gen) -> torch.Tensor:
     return d.contiguous()
 
 
+def _states(d: torch.Tensor, gen):
+    """Int64 sort states whose low 8 bits are the digits `d`: (name,
+    state) with random upper bits, the sign bit included, and a packed one
+    as the scatter branch builds it, row id high and key low, the two
+    filling all 64 bits."""
+    n = d.shape[0]
+    hi = torch.randint(-2 ** 63, 2 ** 63 - 1, (n,), generator=gen,
+                       device="cuda", dtype=torch.int64)
+    yield "random_high", (hi & ~255) | d.long()
+    key_bits = 64 - max(1, n - 1).bit_length()
+    key = (hi & ((1 << key_bits) - 1)) & ~255 | d.long()
+    yield "row_id_and_key_64", (torch.arange(n, device="cuda")
+                                << key_bits) | key
+
+
 def _modes(d: torch.Tensor):
-    """(name, kernel call, plain call) of each mode, on one digit tensor;
-    the tables B2 and B3 read come from the kernel histogram's scan."""
+    """(name, kernel call, plain call) of each digit mode, on one digit
+    tensor; the tables B2 and B3 read come from the kernel histogram's
+    scan."""
     table = R.radix_hist(d)
     offset = R._tile_offsets(table)[0].contiguous()
     tile_base = R._destinations(table)
@@ -428,13 +458,46 @@ def _modes(d: torch.Tensor):
     )
 
 
+def _state_modes(state: torch.Tensor, width: int):
+    """(name, kernel call, plain call) of the histogram and B3's scatter
+    form over an int64 state at one digit width."""
+    dest = R._destinations(R.radix_hist_reference(state, width))
+    return (
+        ("radix_hist_state", lambda: R.radix_hist(state, width),
+         lambda: R.radix_hist_reference(state, width)),
+        ("radix_scatter_pass",
+         lambda: R.radix_scatter_pass(state, width, dest),
+         lambda: R.radix_scatter_pass_reference(state, width, dest)),
+    )
+
+
+def fused_pass(state: torch.Tensor, width: int) -> torch.Tensor:
+    """One scatter-branch pass as exec/sort.py runs it: two launches and
+    a scan."""
+    table = R.radix_hist(state, width)
+    return R.radix_scatter_pass(state, width, R._destinations(table))
+
+
+def glue_pass(state: torch.Tensor, width: int) -> torch.Tensor:
+    """The same pass in its earlier form: digit extraction, the
+    histogram, the scan, B2's place kernel given the destinations (the
+    kernel B3 used to launch), the shift, and an index_put."""
+    d = R.low_digits(state, width)
+    pos = R.radix_rank(d, R._destinations(R.radix_hist(d)))
+    nxt = torch.empty_like(state)
+    nxt[pos] = (state >> width) & ((1 << (64 - width)) - 1)
+    return nxt
+
+
 def _max_err(a: torch.Tensor, b: torch.Tensor) -> int:
     if a.shape != b.shape or a.dtype != b.dtype:
         raise AssertionError(f"kernel {a.dtype} {tuple(a.shape)} vs plain "
                              f"{b.dtype} {tuple(b.shape)}")
-    if a.numel() == 0:
+    if torch.equal(a, b):
         return 0
-    return int((a.long() - b.long()).abs().max().item())
+    # int64 states differ by more than an int64 holds: a difference
+    # counts at least 1
+    return max(1, int((a.long() - b.long()).abs().max().item()))
 
 
 def _sort_keys(li, n: int, cols, conn):
@@ -455,22 +518,50 @@ def _sort_keys(li, n: int, cols, conn):
     return words, bits, cap
 
 
+def _check_modes(modes, max_err, what: str) -> None:
+    for name, kernel, plain in modes:
+        err = _max_err(kernel(), plain())
+        max_err[name] = max(max_err.get(name, 0), err)
+        if err:
+            raise AssertionError(f"{name} differs from its plain version by "
+                                 f"{err} at {what}")
+
+
+def _time_modes(modes, calls: int, bytes_per_row: dict, n: int,
+                table_bytes: int) -> dict:
+    """ms, plain_ms and bound_ms of each mode: the bound moves each row's
+    bytes once, and the table once."""
+    return {name: {"ms": time_ms(kernel, calls),
+                   "plain_ms": time_ms(plain, calls),
+                   "bound_ms": bound_ms(bytes_per_row[name] * n
+                                        + table_bytes),
+                   "library_ms": None}
+            for name, kernel, plain in modes}
+
+
+# bytes a row each kernel must move: B4 reads digits (4) or the state (8);
+# B2 and B3's positions read digits and write positions; B3's scatter
+# reads the state and writes the next one
+ROW_BYTES = {"radix_hist": 4, "radix_hist_state": 8, "radix_rank": 8,
+             "radix_pos": 8, "radix_scatter_pass": 16}
+
+
 def radix_phase(seed: int, conn, li) -> dict:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
-    max_err = {name: 0 for name in ("radix_hist", "radix_rank",
-                                    "radix_pos")}
+    max_err = {}
     cases = 0
     for n in RADIX_SIZES:
         for dist in RADIX_DISTS:
             d = _digits(dist, n, gen)
-            for name, kernel, plain in _modes(d):
-                err = _max_err(kernel(), plain())
-                max_err[name] = max(max_err[name], err)
-                if err:
-                    raise AssertionError(f"{name} differs from its plain "
-                                         f"version by {err} at n={n} "
-                                         f"digits={dist}")
+            _check_modes(_modes(d), max_err, f"n={n} digits={dist}")
+            for kind, state in _states(d, gen):
+                for width in range(1, 9):
+                    _check_modes(_state_modes(state, width), max_err,
+                                 f"n={n} digits={dist} state={kind} "
+                                 f"width={width}")
+                    cases += 1
+                del state
             want = R.radix_pass_positions_reference(d, n)
             for fn in (R.radix_pass_positions,
                        R.radix_pass_positions_nogather):
@@ -483,33 +574,55 @@ def radix_phase(seed: int, conn, li) -> dict:
     torch.cuda.synchronize()
     timings = {}
     for n in TIMED_SIZES:
-        d = _digits("uniform", n, gen)
         calls = 20 if n < 10_000_000 else 5
-        t = {}
         table_bytes = 4 * R.RADIX * (-(-n // R.TILE_ROWS))
-        for name, kernel, plain in _modes(d):
-            t[name] = {"ms": time_ms(kernel, calls),
-                       "plain_ms": time_ms(plain, calls),
-                       # digits in and the table out (B4); digits and
-                       # table in, positions out (B2, B3)
-                       "bound_ms": bound_ms(
-                           4 * n + table_bytes if name == "radix_hist"
-                           else 8 * n + table_bytes),
-                       "library_ms": None}
-        # B4's one-call equivalent: torch.bincount of the (digit, tile)
-        # cell keys, computed before the timed window
-        cells = R._cell_keys(d)
-        t["radix_hist"]["library_ms"] = time_ms(
-            lambda: torch.bincount(cells, minlength=table_bytes // 4),
-            calls)
-        del cells
+        t = {}
+        for dist in TIMED_DISTS:
+            d = _digits(dist, n, gen)
+            state = next(_states(d, gen))[1]
+            modes = _modes(d) + _state_modes(state, 8)
+            t[dist] = _time_modes(modes, calls, ROW_BYTES, n, table_bytes)
+            # a plain copy of the bytes B2 and B3 read and write (digits in
+            # and positions out; the state in and out): what a streaming
+            # pass over them takes on this card
+            copies = {}
+            for src_ in (d, state):
+                dst = torch.empty_like(src_)
+                copies[2 * src_.element_size()] = time_ms(
+                    lambda: dst.copy_(src_), calls)
+                del dst
+            for name, v in t[dist].items():
+                if name != "radix_hist" and name != "radix_hist_state":
+                    v["copy_ms"] = copies[ROW_BYTES[name]]
+            # B4's one-call equivalent: torch.bincount of the (digit, tile)
+            # cell keys, computed before the timed window
+            cells = R._cell_keys(d)
+            lib = time_ms(lambda: torch.bincount(
+                cells, minlength=table_bytes // 4), calls)
+            t[dist]["radix_hist"]["library_ms"] = lib
+            t[dist]["radix_hist_state"]["library_ms"] = lib
+            del d, state, cells, modes
+        # one whole scatter-branch pass over the orderBy key's state, in
+        # both forms, back to back (fused, glue, glue, fused)
+        key = torch.randint(0, 1 << ORDERBY_KEY_BITS, (n,), generator=gen,
+                            device="cuda", dtype=torch.int64)
+        state = (torch.arange(n, device="cuda") << ORDERBY_KEY_BITS) | key
+        if _max_err(fused_pass(state, 8), glue_pass(state, 8)):
+            raise AssertionError(f"the fused pass differs from the glue "
+                                 f"pass at n={n}")
+        fused = [time_ms(lambda: fused_pass(state, 8), calls)]
+        glue = [time_ms(lambda: glue_pass(state, 8), calls)]
+        glue.append(time_ms(lambda: glue_pass(state, 8), calls))
+        fused.append(time_ms(lambda: fused_pass(state, 8), calls))
+        t["pass_39_bit_state"] = {"fused_ms": fused, "glue_ms": glue}
+        d = R.low_digits(state, 8)
         t["pass_nogather"] = {
             "ms": time_ms(lambda: R.radix_pass_positions_nogather(d, n),
                           calls),
             "plain_ms": time_ms(
                 lambda: R.radix_pass_positions_reference(d, n), calls)}
         timings[n] = t
-        del d
+        del key, state, d
     # whole sorts: the orderBy key over one batch and the full-sort key
     # over the table, against a stable torch.sort of the packed lane
     sorts = {}
@@ -983,22 +1096,33 @@ def main() -> None:
         "all_read_ms_60m_rows": kernel["timings"][60_000_000]["all_read_ms"],
     }]
     # (kernel, TPU kernel it replaces, the path phase whose launches are
-    # reported, rows of the timed shape that phase gives it)
-    for name, line, main_phase, rows in (
-            ("radix_hist", 85, "topn", 6_700_000),
-            ("radix_rank", 45, "sort_full", 60_000_000),
-            ("radix_pos", 116, "topn", 6_700_000)):
-        other = 60_000_000 if rows == 6_700_000 else 6_700_000
-        t, t_other = radix["timings"][rows][name], \
-            radix["timings"][other][name]
-        kernels.append({
+    # reported, rows of the timed shape that phase gives it, the timed
+    # mode that path launches, the other timed modes of the kernel, its
+    # CUDA kernels and what changed in their design, if anything)
+    for name, line, main_phase, rows, mode, extra, cuda, design in (
+            ("radix_hist", 85, "topn", 6_700_000, "radix_hist_state",
+             ("radix_hist",), ["radix_hist_kernel<int64_t>",
+                               "radix_hist_kernel<int32_t>"],
+             "digit taken in the kernel from the int64 state or int32 "
+             "digits; 16-byte loads; per-warp shared-atomic histograms"),
+            ("radix_rank", 45, "sort_full", 60_000_000, "radix_rank", (),
+             ["radix_rank_kernel"], None),
+            ("radix_pos", 116, "topn", 6_700_000, "radix_scatter_pass",
+             ("radix_pos",),
+             ["radix_place_kernel<int64_t, kScatter>",
+              "radix_place_kernel<int32_t, kPositions>"],
+             "whole tile in shared memory, ballot multi-split ranks, "
+             "positions or the scattered next state")):
+        t = radix["timings"][rows]["uniform"][mode]
+        modes = (mode,) + extra
+        row = {
             "name": name,
             "route": "cuda",
             "source": "velox_tpu_torch/csrc/radix_pass.cu",
             "replaces": f"velox_tpu/ops/pallas_kernels.py:{line}",
             "launches": by_phase[main_phase][name],
             "launches_by_phase": {p: c[name] for p, c in by_phase.items()},
-            "max_abs_err": radix["max_abs_err"][name],
+            "max_abs_err": max(radix["max_abs_err"][m] for m in modes),
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"],
@@ -1006,11 +1130,15 @@ def main() -> None:
             # B4: torch.bincount of the (digit, tile) keys; B2/B3: no one
             # call gives stable in-digit ranks
             "library_ms": t["library_ms"],
-            "rows": rows,
-            f"ms_{other // 1_000_000}m_rows": t_other["ms"],
-            f"plain_ms_{other // 1_000_000}m_rows": t_other["plain_ms"],
-            f"bound_ms_{other // 1_000_000}m_rows": t_other["bound_ms"],
-        })
+            "rows": rows, "timed_mode": mode, "cuda_kernels": cuda,
+            # every timed mode at every timed size and digit distribution
+            "times": {m: {str(n): {dist: radix["timings"][n][dist][m]
+                                   for dist in TIMED_DISTS}
+                          for n in TIMED_SIZES} for m in modes},
+        }
+        if design:
+            row["redesigned"] = design
+        kernels.append(row)
     q3_shape, small = (gather["timings"][GATHER_TIMED[1]],
                        gather["timings"][GATHER_TIMED[0]])
     kernels.append({

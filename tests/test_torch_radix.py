@@ -2,8 +2,8 @@
 reference's Pallas kernels.
 
 On the CPU each port wrapper runs its plain PyTorch version; the JAX side
-runs its Pallas kernels in interpret mode, as tests/test_pallas.py does
-(n <= 3 * 4096 rows). Every comparison is exact: ranks, positions and
+runs its Pallas kernels in interpret mode, as tests/test_pallas.py does,
+at up to a few tiles of rows. Every comparison is exact: ranks, positions and
 counts are integers. The CUDA kernels themselves are held against the same
 plain versions on the card by chip_smoke.py.
 """
@@ -130,3 +130,98 @@ def test_wrappers_reject_what_the_kernel_does_not_take(bad):
         else:
             R.radix_hist(torch.zeros(2048, dtype=torch.int32,
                                      device="meta"))
+
+
+# ---------------------------------------------------------------------------
+# The int64 sort state: B4 over its low digit, B3's scatter form
+# ---------------------------------------------------------------------------
+
+def _state(n: int, width: int, seed: int) -> np.ndarray:
+    """An int64 sort state: a random low digit of `width` bits under
+    random upper bits that use all 64, the sign bit included."""
+    rng = np.random.default_rng(seed)
+    hi = rng.integers(-2 ** 63, 2 ** 63 - 1, n, dtype=np.int64)
+    return (hi & ~np.int64((1 << width) - 1)) \
+        | rng.integers(0, 1 << width, n, dtype=np.int64)
+
+
+@pytest.mark.parametrize("width", range(1, 9))
+@pytest.mark.parametrize("n", [1, 255, 3 * 4096 - 5, 2 * 8192 + 3])
+def test_hist_of_the_state_matches_numpy_and_pallas(n, width):
+    state = _state(n, width, seed=n + width)
+    table = R.radix_hist(torch.from_numpy(state), width)
+    assert table.dtype == torch.int32
+    assert tuple(table.shape) == (R.RADIX, R._n_tiles(n))
+    digits = (state & ((1 << width) - 1)).astype(np.int32)
+    want = np.zeros((R.RADIX, R._n_tiles(n)), np.int64)
+    np.add.at(want, (digits, np.arange(n) // R.TILE_ROWS), 1)
+    np.testing.assert_array_equal(table.numpy(), want)
+    # the reference's histogram kernel over the extracted digits, padded
+    # to its blocks with digit 255 as the reference pads
+    n_blocks = -(-n // PK.BLOCK)
+    padded = np.full(n_blocks * PK.BLOCK, R.RADIX - 1, np.int32)
+    padded[:n] = digits
+    totals = np.array(PK._radix_hist_call(jnp.asarray(padded), n_blocks,
+                                          interpret=True))
+    totals[R.RADIX - 1] -= len(padded) - n
+    np.testing.assert_array_equal(table.sum(1).numpy(), totals)
+
+
+def _numpy_scatter(state: np.ndarray, width: int, pos) -> np.ndarray:
+    nxt = np.empty_like(state)
+    nxt[np.asarray(pos)] = (state.view(np.uint64)
+                            >> np.uint64(width)).view(np.int64)
+    return nxt
+
+
+@pytest.mark.parametrize("width", [1, 3, 8])
+@pytest.mark.parametrize("n", [255, 3 * 4096 - 5, 3 * R.TILE_ROWS + 17])
+def test_scatter_pass_matches_pallas_positions(n, width):
+    """B3's scatter form: the reference's no-gather destinations of the
+    low digits, then the logically shifted state scattered there; the
+    same order as a stable argsort of the digits. The largest n spans
+    several tiles and a ragged last one."""
+    state = _state(n, width, seed=7 * n + width)
+    t = torch.from_numpy(state)
+    got = R.radix_scatter_pass(t, width, R._destinations(
+        R.radix_hist(t, width)))
+    assert got.dtype == torch.int64
+    digits = (state & ((1 << width) - 1)).astype(np.int32)
+    pos = PK.radix_pass_positions_nogather(jnp.asarray(digits), n,
+                                           interpret=True)
+    np.testing.assert_array_equal(got.numpy(),
+                                  _numpy_scatter(state, width, pos))
+    order = np.argsort(digits, kind="stable")
+    np.testing.assert_array_equal(
+        got.numpy(),
+        (state[order].view(np.uint64) >> np.uint64(width)).view(np.int64))
+
+
+def test_state_wrappers_run_the_plain_versions_on_the_cpu():
+    t = torch.from_numpy(_state(5000, 8, seed=1))
+    before = (R.radix_hist.launches, R.radix_rank.launches,
+              R.radix_pos.launches)
+    table = R.radix_hist(t, 8)
+    R.radix_scatter_pass(t, 8, R._destinations(table))
+    assert (R.radix_hist.launches, R.radix_rank.launches,
+            R.radix_pos.launches) == before
+
+
+@pytest.mark.parametrize("bad", ["meta", "width0", "width9", "int32",
+                                 "table", "strided"])
+def test_scatter_wrapper_rejects_what_the_kernel_does_not_take(bad):
+    t = torch.from_numpy(_state(2048, 8, seed=2))
+    dest = R._destinations(R.radix_hist(t, 8))
+    with pytest.raises(ValueError):
+        if bad == "meta":
+            R.radix_scatter_pass(t.to("meta"), 8, dest.to("meta"))
+        elif bad == "width0":
+            R.radix_scatter_pass(t, 0, dest)
+        elif bad == "width9":
+            R.radix_hist(t, 9)
+        elif bad == "int32":
+            R.radix_scatter_pass(t.to(torch.int32), 8, dest)
+        elif bad == "table":
+            R.radix_scatter_pass(t, 8, dest[:, :0].contiguous())
+        else:
+            R.radix_hist(torch.from_numpy(_state(4096, 8, seed=3))[::2], 8)

@@ -399,3 +399,29 @@ def test_column_stats_resolve_as_in_the_reference(query, _tpch):
             assert got == jresolve(jn, name), (type(tn).__name__, name)
             seen += got is not None
     assert seen > 0
+
+
+# (key bits, capacity): 1 to 6 passes of the scatter branch; the last
+# fills all 64 bits of the state with key (48) and row id (16)
+SCATTER_KEYS = [(5, CAP), (12, CAP), (20, CAP), (27, CAP), (39, CAP),
+                (45, CAP), (48, 1 << 16)]
+
+
+@pytest.mark.parametrize("total,capacity", SCATTER_KEYS)
+def test_scatter_sort_perm_matches_reference(total, capacity):
+    """The scatter branch (B4 over the state, then B3's scatter form, a
+    pass) gives the reference's permutation, ties included."""
+    rng = np.random.default_rng(total)
+    bits = [32] * (total // 32) + ([total % 32] if total % 32 else [])
+    # few distinct values per word: ties in every pass
+    words = [rng.integers(0, 1 << b, 97, dtype=np.int64)[
+        rng.integers(0, 97, capacity)] for b in bits]
+    assert total + (capacity - 1).bit_length() <= 64
+    jperm = JS._scatter_sort_perm(
+        [jnp.asarray(w.astype(np.uint32)) for w in words], bits, capacity)
+    tperm = S._scatter_sort_perm([torch.from_numpy(w) for w in words], bits,
+                                 capacity)
+    assert tperm.dtype == torch.int64
+    np.testing.assert_array_equal(tperm.numpy(), np.asarray(jperm))
+    np.testing.assert_array_equal(
+        tperm.numpy(), np.lexsort([w for w in reversed(words)]))

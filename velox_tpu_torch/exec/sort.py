@@ -7,7 +7,8 @@ the permutation comes from the module's own counting radix sort, whose
 every 8-bit pass runs the hand-written kernels of ``ops/radix.py``:
 
 * keys + row id within 64 bits: ``_scatter_sort_perm``, one histogram
-  (B4) and one position (B3) launch a pass, one scatter, no row gather;
+  (B4) and one place-and-scatter (B3) launch a pass over the 64-bit
+  state, no row gather;
 * otherwise the classic loop: each pass gathers its digits through the
   permutation, then one histogram (B4) and one rank (B2) launch.
 
@@ -45,8 +46,9 @@ import torch
 
 from velox_tpu_torch import types as T
 from velox_tpu_torch.expression.eval import EvalValue
-from velox_tpu_torch.ops.radix import (RADIX, radix_pass_positions,
-                                       radix_pass_positions_nogather)
+from velox_tpu_torch.ops.radix import (RADIX, _destinations, radix_hist,
+                                       radix_pass_positions,
+                                       radix_scatter_pass)
 
 _M32 = 0xFFFFFFFF
 _DIGIT_BITS = RADIX.bit_length() - 1  # bits a radix pass consumes
@@ -397,13 +399,14 @@ def _scatter_sort_perm(words: List[torch.Tensor], bits: List[int],
     """Stable radix sort with one scatter per pass and no row gather.
 
     Key bits and row id pack into one 64-bit state per row (row id high,
-    key low, consumed least significant first): a pass takes the low
-    digit of the state, which is already in pass order, gets destinations
-    from B4 + B3 (``radix_pass_positions_nogather``), and scatters
-    ``state >> width``. Consumed key bits fall away; after the last pass
-    the state is the permutation. (The reference splits the state into
-    two u32 halves because 64-bit shifts are emulated on a TPU; Hopper
-    shifts int64 natively.)
+    key low, consumed least significant first): a pass counts the low
+    digit of the state, which is already in pass order (B4 over the
+    state), scans the table, and moves ``state >> width`` to each row's
+    destination (B3's scatter form): two launches and a scan, with the
+    digit taken inside both kernels. Consumed key bits fall away; after
+    the last pass the state is the permutation. (The reference splits the
+    state into two u32 halves because 64-bit shifts are emulated on a
+    TPU; Hopper shifts int64 natively.)
     """
     total = int(sum(bits))
     dev = words[0].device
@@ -415,14 +418,9 @@ def _scatter_sort_perm(words: List[torch.Tensor], bits: List[int],
     rem = total
     while rem > 0:
         width = min(_DIGIT_BITS, rem)
-        digits = (state & ((1 << width) - 1)).to(torch.int32)
-        pos = radix_pass_positions_nogather(digits, capacity)
+        table = radix_hist(state, width)
+        state = radix_scatter_pass(state, width, _destinations(table))
         rem -= width
-        # the mask drops the sign bits the arithmetic shift copies in
-        # when row id and key fill all 64 bits
-        moved = (state >> width) & ((1 << (64 - width)) - 1)
-        state = torch.empty_like(state)
-        state[pos] = moved
     return state
 
 

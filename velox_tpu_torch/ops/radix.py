@@ -1,19 +1,36 @@
-"""One 8-bit counting-sort pass: histogram (B4), rank (B2), position (B3).
+"""One 8-bit counting-sort pass: histogram (B4), rank (B2), position and
+scatter (B3).
 
 Counterpart of ``velox_tpu/ops/pallas_kernels.py``'s radix kernels. The
 pass splits rows into tiles of ``TILE_ROWS`` consecutive rows and runs in
-three steps (``csrc/radix_pass.cu`` explains the kernel):
+three steps (``csrc/radix_pass.cu`` explains the kernels):
 
-1. ``radix_hist`` (B4): the (256, n_tiles) int32 table of per-tile digit
-   counts, digit-major;
+1. ``radix_hist`` (B4, ``_radix_hist_kernel``): the (256, n_tiles) int32
+   table of per-tile digit counts, digit-major. Its source is int32 digits,
+   or the int64 sort state and a digit width, whose digit is the state's
+   low ``width`` bits, taken in the kernel. Bound by bytes: 4 a row from
+   digits, 8 from the state, plus the table. Each thread loads its rows
+   with 16-byte loads before counting them with shared-memory atomics into
+   its warp's histogram, one atomic per run of equal digits.
 2. glue here, in PyTorch (the reference's XLA glue): one exclusive scan of
    the flattened table, which in digit-major order gives each (digit,
-   tile) its first destination;
-3. ``radix_rank`` (B2) or ``radix_pos`` (B3): every row's stable rank
-   inside its tile plus the (digit, tile) entry of the table they are
-   given. B2 gets each tile's offset within its digit and so returns the
-   stable rank among all rows of that digit; B3 gets that offset plus the
-   digit's base and so returns the final counting-sort destination.
+   tile) its first destination.
+3. one of:
+   - ``radix_rank`` (B2, ``_radix_rank_kernel``): every row's stable rank
+     inside its tile plus the tile's offset within the digit, which is the
+     row's rank among all rows of its digit;
+   - ``radix_pos`` (B3, ``_radix_pos_kernel``): the same rank plus the
+     (digit, tile)'s destination, the row's counting-sort destination.
+     Bound by bytes: 8 a row plus the table;
+   - ``radix_scatter_pass`` (B3's scatter form): with the int64 sort state
+     of ``exec/sort.py``'s scatter branch, the state's remaining bits,
+     ``(uint64)state >> width``, written to that destination: the next
+     pass's state. Bound by bytes: 16 a row plus the table. So one pass of
+     that branch is two launches and a scan, with no row-sized digit or
+     position tensor.
+   B3's kernel brings its tile into shared memory first, by one bulk
+   asynchronous copy, and ranks it with a ballot multi-split; B2 keeps
+   its first form.
 
 ``radix_pass_positions`` (B4, B2, then a 256-entry gather) and
 ``radix_pass_positions_nogather`` (B4 then B3) keep the reference's names
@@ -21,85 +38,124 @@ and give the stable counting-sort destinations of one pass: row i goes to
 ``#{rows with a smaller digit} + #{earlier rows with the same digit}``.
 
 Each wrapper dispatches on its tensors' device: a CUDA tensor launches the
-kernel and adds one to the wrapper's ``launches``; a CPU tensor runs the
-plain PyTorch version beside it (``*_reference``); any other device
-raises. Digits are int32 in [0, 256) (the kernel masks them to 8 bits
-only to stay inside its tables); positions are int32, so a pass takes
-fewer than 2^31 rows.
+kernel and adds one to the wrapper's ``launches`` (``radix_scatter_pass``
+adds to ``radix_pos.launches``: both are B3); a CPU tensor runs the plain
+PyTorch version beside it (``*_reference``); any other device raises.
+Digits are int32 in [0, 256) (the kernels mask them to 8 bits only to stay
+inside their tables); positions are int32, so a pass takes fewer than 2^31
+rows. On the card the histogram and B3 read their source 16 bytes at a
+time, so it must start on a 16-byte boundary, as PyTorch's allocations do.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
 RADIX = 256
 TILE_ROWS = 8192   # rows per tile: kTile in csrc/radix_pass.cu
-_HIST, _PLACE = 0, 1  # the kernel's modes (kHist, kPlace)
+
+_LIB = None
+_P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_SIGNATURES = {
+    "vt_radix_hist": [_P, _I, _I, _I64, _P, _P],
+    "vt_radix_rank": [_P, _I64, _P, _P, _P],
+    "vt_radix_pos": [_P, _I64, _P, _P, _P],
+    "vt_radix_scatter": [_P, _I, _I64, _P, _P, _P],
+    "vt_radix_place_occupancy": [_I, _P, _P],
+}
 
 
 def _n_tiles(n: int) -> int:
     return -(-n // TILE_ROWS)
 
 
-def _check_digits(digits: torch.Tensor) -> None:
-    if digits.dtype != torch.int32 or digits.dim() != 1 \
-            or not digits.is_contiguous():
-        raise ValueError("radix pass digits must be a contiguous 1-D int32 "
-                         f"tensor; got {digits.dtype} {tuple(digits.shape)}")
-    if digits.shape[0] >= 2 ** 31:
+def _check_source(src: torch.Tensor, width: Optional[int]) -> None:
+    """int32 digits (``width`` None) or the int64 state with a width in
+    1..8; 1-D, contiguous, fewer than 2^31 rows."""
+    if src.dim() != 1 or not src.is_contiguous():
+        raise ValueError("a radix pass takes a contiguous 1-D tensor; got "
+                         f"{src.dtype} {tuple(src.shape)}")
+    if width is None and src.dtype != torch.int32:
+        raise ValueError(f"radix pass digits must be int32, got {src.dtype} "
+                         "(an int64 sort state needs its digit width)")
+    if width is not None and (src.dtype != torch.int64
+                              or not 1 <= width <= 8):
+        raise ValueError("a radix pass over the sort state takes int64 and a "
+                         f"width in 1..8; got {src.dtype}, width {width}")
+    if src.shape[0] >= 2 ** 31:
         raise ValueError(f"a radix pass takes fewer than 2^31 rows, got "
-                         f"{digits.shape[0]}")
+                         f"{src.shape[0]}")
 
 
-def _check_table(digits: torch.Tensor, table: torch.Tensor) -> None:
-    want = (RADIX, _n_tiles(digits.shape[0]))
+def _check_table(src: torch.Tensor, table: torch.Tensor) -> None:
+    want = (RADIX, _n_tiles(src.shape[0]))
     if table.dtype != torch.int32 or tuple(table.shape) != want \
-            or table.device != digits.device or not table.is_contiguous():
+            or table.device != src.device or not table.is_contiguous():
         raise ValueError(
             f"radix pass table must be a contiguous int32 {want} tensor on "
-            f"{digits.device}; got {table.dtype} {tuple(table.shape)} on "
+            f"{src.device}; got {table.dtype} {tuple(table.shape)} on "
             f"{table.device}")
 
 
 def _kernel_lib():
-    from velox_tpu_torch.native.build import load_kernel
-    lib = load_kernel("radix_pass")
-    fn = lib.vt_radix_pass
-    if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
-                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+    global _LIB
+    if _LIB is None:
+        from velox_tpu_torch.native.build import load_kernel
+        lib = load_kernel("radix_pass")
+        for name, args in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = args
+            fn.restype = ctypes.c_int
         tile = lib.vt_radix_tile_rows()
         if tile != TILE_ROWS:
             raise RuntimeError(f"csrc/radix_pass.cu tiles {tile} rows, "
                                f"ops/radix.py expects {TILE_ROWS}")
-    return fn
+        _LIB = lib
+    return _LIB
 
 
-def _launch(mode: int, digits: torch.Tensor, table: torch.Tensor,
-            out) -> None:
-    dev = digits.device
+def _launch(name: str, src: torch.Tensor, *args) -> None:
+    """Call entry point ``name`` on ``src``'s device and current stream
+    with (src, *args); tensors in ``args`` pass as pointers."""
+    if src.data_ptr() % 16:
+        raise ValueError(f"{name}: the source must start on a 16-byte "
+                         "boundary")
+    dev = src.device
+    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
-        err = _kernel_lib()(mode, digits.data_ptr(), digits.shape[0],
-                            table.data_ptr(),
-                            out.data_ptr() if out is not None else None,
-                            stream)
+        err = getattr(_kernel_lib(), name)(src.data_ptr(), *ptrs, stream)
     if err != 0:
-        name = "histogram" if mode == _HIST else "place"
-        raise RuntimeError(f"radix {name} kernel launch failed: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
 def _no_kernel(fn_name: str, dev: torch.device) -> ValueError:
     return ValueError(f"{fn_name} has no kernel for {dev}")
 
 
+def place_occupancy(scatter: bool):
+    """(resident blocks per SM, dynamic shared memory bytes) of B3's
+    kernel, from the CUDA occupancy calculator on the current card."""
+    blocks, smem = ctypes.c_int(0), ctypes.c_int(0)
+    err = _kernel_lib().vt_radix_place_occupancy(
+        int(scatter), ctypes.addressof(blocks), ctypes.addressof(smem))
+    if err != 0:
+        raise RuntimeError(f"occupancy query failed: CUDA error {err}")
+    return blocks.value, smem.value
+
+
 # ---------------------------------------------------------------------------
 # Plain PyTorch versions (CPU queries, tests, and the card's comparisons).
 # ---------------------------------------------------------------------------
+
+def low_digits(state: torch.Tensor, width: int) -> torch.Tensor:
+    """The int32 digit of each row of an int64 sort state: its low
+    ``width`` bits."""
+    return (state & ((1 << width) - 1)).to(torch.int32)
+
 
 def _cell_keys(digits: torch.Tensor) -> torch.Tensor:
     """Each row's (digit, tile) cell of the digit-major table."""
@@ -107,8 +163,10 @@ def _cell_keys(digits: torch.Tensor) -> torch.Tensor:
     return digits.long() * _n_tiles(digits.shape[0]) + tile
 
 
-def radix_hist_reference(digits: torch.Tensor) -> torch.Tensor:
+def radix_hist_reference(src: torch.Tensor,
+                         width: Optional[int] = None) -> torch.Tensor:
     """Plain B4: ``torch.bincount`` of (digit, tile)."""
+    digits = src if width is None else low_digits(src, width)
     n_tiles = _n_tiles(digits.shape[0])
     counts = torch.bincount(_cell_keys(digits), minlength=RADIX * n_tiles)
     return counts.to(torch.int32).reshape(RADIX, n_tiles)
@@ -140,22 +198,36 @@ def radix_pos_reference(digits: torch.Tensor,
     return _place_reference(digits, tile_base)
 
 
+def radix_scatter_pass_reference(state: torch.Tensor, width: int,
+                                 dest: torch.Tensor) -> torch.Tensor:
+    """Plain B3 scatter: the destinations of the state's low digits, then
+    ``next[pos] = state >> width`` (logical: the mask drops the sign bits
+    the arithmetic shift copies in when row id and key fill 64 bits)."""
+    pos = radix_pos_reference(low_digits(state, width), dest)
+    nxt = torch.empty_like(state)
+    nxt[pos] = (state >> width) & ((1 << (64 - width)) - 1)
+    return nxt
+
+
 # ---------------------------------------------------------------------------
-# The three modes.
+# The kernels' wrappers.
 # ---------------------------------------------------------------------------
 
-def radix_hist(digits: torch.Tensor) -> torch.Tensor:
-    """B4: the (256, n_tiles) int32 per-tile digit counts, digit-major."""
-    _check_digits(digits)
-    dev = digits.device
+def radix_hist(src: torch.Tensor,
+               width: Optional[int] = None) -> torch.Tensor:
+    """B4: the (256, n_tiles) int32 per-tile digit counts, digit-major, of
+    int32 digits, or of the low ``width`` bits of an int64 sort state."""
+    _check_source(src, width)
+    dev = src.device
     if dev.type == "cuda":
-        table = torch.empty((RADIX, _n_tiles(digits.shape[0])),
+        table = torch.empty((RADIX, _n_tiles(src.shape[0])),
                             dtype=torch.int32, device=dev)
-        _launch(_HIST, digits, table, None)
+        _launch("vt_radix_hist", src, src.element_size(), width or 8,
+                src.shape[0], table)
         radix_hist.launches += 1
         return table
     if dev.type == "cpu":
-        return radix_hist_reference(digits)
+        return radix_hist_reference(src, width)
     raise _no_kernel("radix_hist", dev)
 
 
@@ -165,12 +237,12 @@ def radix_rank(digits: torch.Tensor,
     tile's rows of digit d. With ``tile_offset`` the exclusive scan of
     ``radix_hist`` over tiles, that is the row's stable rank among all
     rows of its digit."""
-    _check_digits(digits)
+    _check_source(digits, None)
     _check_table(digits, tile_offset)
     dev = digits.device
     if dev.type == "cuda":
         out = torch.empty_like(digits)
-        _launch(_PLACE, digits, tile_offset, out)
+        _launch("vt_radix_rank", digits, digits.shape[0], tile_offset, out)
         radix_rank.launches += 1
         return out
     if dev.type == "cpu":
@@ -182,17 +254,38 @@ def radix_pos(digits: torch.Tensor, tile_base: torch.Tensor) -> torch.Tensor:
     """B3: ``tile_base[d, tile]`` + the row's stable rank among its tile's
     rows of digit d: with the digit's base added to the tile offsets, the
     counting-sort destination."""
-    _check_digits(digits)
+    _check_source(digits, None)
     _check_table(digits, tile_base)
     dev = digits.device
     if dev.type == "cuda":
         out = torch.empty_like(digits)
-        _launch(_PLACE, digits, tile_base, out)
+        _launch("vt_radix_pos", digits, digits.shape[0], tile_base, out)
         radix_pos.launches += 1
         return out
     if dev.type == "cpu":
         return radix_pos_reference(digits, tile_base)
     raise _no_kernel("radix_pos", dev)
+
+
+def radix_scatter_pass(state: torch.Tensor, width: int,
+                       dest: torch.Tensor) -> torch.Tensor:
+    """B3's scatter form, one pass of the scatter branch: the next state,
+    ``next[destination of row i] = (uint64)state[i] >> width``, where the
+    destination is ``dest[d, tile]`` + the row's stable rank among its
+    tile's rows of digit d = ``state & (2^width - 1)``, and ``dest`` is
+    ``_destinations(radix_hist(state, width))``. Counts in
+    ``radix_pos.launches``."""
+    _check_source(state, width)
+    _check_table(state, dest)
+    dev = state.device
+    if dev.type == "cuda":
+        out = torch.empty_like(state)
+        _launch("vt_radix_scatter", state, width, state.shape[0], dest, out)
+        radix_pos.launches += 1
+        return out
+    if dev.type == "cpu":
+        return radix_scatter_pass_reference(state, width, dest)
+    raise _no_kernel("radix_scatter_pass", dev)
 
 
 radix_hist.launches = 0
@@ -227,7 +320,7 @@ def _as_digits(digits: torch.Tensor, capacity: int) -> torch.Tensor:
 def radix_ranks_totals(digits: torch.Tensor):
     """(ranks, totals) of one pass: each row's stable rank among the rows
     of its digit, and each digit's count (B4 then B2)."""
-    _check_digits(digits)
+    _check_source(digits, None)
     tile_offset, totals = _tile_offsets(radix_hist(digits))
     return radix_rank(digits, tile_offset.contiguous()), totals
 
