@@ -19,16 +19,19 @@ Phases, each printing one line; any failure raises and exits non-zero:
    aggregations; active-row counts and column sums, reduced on the card,
    must equal numpy exactly.
 6. radix_kernels: the counting-sort pass kernels (histogram B4 from int32
-   digits and from the int64 sort state at every digit width 1-8, rank
-   B2, B3's positions and scatter forms with both tile loads) against
-   their plain PyTorch versions on the card, exact, over row counts from
-   1 to 60M, skewed, narrow, sorted and reversed digits, and states whose
-   upper bits (row id and key) fill all 64 bits; median times of each
-   mode, its plain version and its bound at 6.7M and 60M rows, uniform
-   and one-digit; one whole scatter-branch pass over a 39-bit state in
-   its fused form (two launches and a scan) and its earlier glue form,
-   back to back; and whole radix_sort_perm calls on the orderBy and
-   full-sort keys against a stable torch.sort of the same packed lane.
+   digits, from the int64 sort state and from an int32 sort word at every
+   digit width 1-8; B2's rank form and its rank-and-scatter form, with and
+   without the word lane; B3's positions and scatter forms) through the
+   wrappers the paths call, against their plain PyTorch versions on the
+   card, exact, over row counts from 1 to 60M, skewed, narrow, sorted and
+   reversed digits, states whose upper bits (row id and key) fill all 64
+   bits, and words with bit 31 set; median times of each mode, its plain
+   version and its bound at 6.7M and 60M rows, uniform and one-digit, and
+   at 6.7M rows also from a captured CUDA graph of the same calls (the
+   host's launch rate out of the window); one whole pass of each sort
+   branch in its two-launch form and its earlier glue form, in turns; and
+   whole radix_sort_perm calls on the orderBy and full-sort keys against
+   a stable torch.sort of the same packed lane.
 7. q1: TPC-H Q1 twice (array-mode partial/final aggregation, DECIMAL(38)
    sums, half-up avgs, the final OrderBy); every output value must equal
    a numpy oracle exactly.
@@ -37,7 +40,8 @@ Phases, each printing one line; any failure raises and exits non-zero:
    launch once per radix pass per batch, B2 never.
 9. sort_full: ORDER BY l_shipdate, l_orderkey, l_linenumber over all of
    lineitem: the row order must be np.lexsort's; the key and row ids do
-   not fit 64 bits, so every pass runs B4 and B2.
+   not fit 64 bits, so the classic loop runs: B4 and B2's rank-and-scatter
+   form once a pass, B5 once for each key word after the first.
 10. q6_generic: Q6 with a filter the kernel matcher rejects, through the
    generic aggregation: the Q6 value, and no filter-sum launch.
 11. gather_kernel: the flat-gather kernel (B5) against its plain PyTorch
@@ -50,10 +54,12 @@ Phases, each printing one line; any failure raises and exits non-zero:
 12. q3: TPC-H Q3 (two array-mode joins, a sort-mode group-by with a
    DECIMAL(38) sum, a TopN on it): the 10 rows must equal a numpy oracle
    with direct-address joins over the generator's own columns. B5 runs
-   every gather of both join probes; its launches must be the count the
-   plan gives.
+   every gather of both join probes and the TopN's word gathers; B2 runs
+   every pass of the TopN's classic loop; both launch counts must be the
+   ones the plan gives.
 13. q18: TPC-H Q18 (threshold 300): the rows must equal a numpy oracle
-   (np.bincount of l_quantity by l_orderkey, joins, the top 100).
+   (np.bincount of l_quantity by l_orderkey, joins, the top 100), with
+   B5's and B2's launch counts derived from the plan as in q3.
 
 Every number a phase prints is measured in this run, on this card; bounds
 are bytes over the H100's 3.35 TB/s.
@@ -78,9 +84,11 @@ import torch
 from velox_tpu_torch import types as T
 from velox_tpu_torch.common import metrics as M
 from velox_tpu_torch.connectors.tpch import register_tpch
+from velox_tpu_torch.core import plan as P
 from velox_tpu_torch.core.plan import SortOrder
+from velox_tpu_torch.core.stats import resolve_column_stats
 from velox_tpu_torch.exec.sort import (
-    pack_words_u64, radix_sort_perm, sort_words,
+    _word_bits, num_value_words, pack_words_u64, radix_sort_perm, sort_words,
 )
 from velox_tpu_torch.exec.task import QueryCtx, Task
 from velox_tpu_torch.expression.eval import EvalValue
@@ -171,6 +179,33 @@ def time_ms(fn, calls: int = 20, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def graph_ms(fn, calls: int = 20, reps: int = 5) -> float:
+    """Device time per call with the host out of the window: `calls`
+    calls captured into one CUDA graph (the wrappers launch on the current
+    stream, which is the capture stream), each replay timed by CUDA
+    events, divided by `calls`; the median of `reps` replays."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    del graph
+    return statistics.median(times)
+
+
 def device_phase() -> str:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
@@ -194,11 +229,12 @@ def build_phase() -> None:
                     if "registers" in ln or "spill" in ln
                     or "entry function" in ln]
              for name, log in build.BUILD_LOG.items() if name != "dbgen"}
-    # B3's kernels take their shared memory dynamically, which ptxas does
-    # not report: resident blocks per SM and bytes from the occupancy API
+    # the place kernel (B2, B3) takes its shared memory dynamically, which
+    # ptxas does not report: resident blocks per SM and bytes of each
+    # instance from the occupancy API
     occupancy = {form: dict(zip(("blocks_per_sm", "dynamic_smem_bytes"),
-                                R.place_occupancy(form == "scatter")))
-                 for form in ("positions", "scatter")}
+                                R.place_occupancy(form)))
+                 for form in R.PLACE_FORMS}
     phase("build", seconds=dict(build.BUILD_SECONDS), ptxas=ptxas,
           place_occupancy=occupancy)
 
@@ -441,6 +477,16 @@ def _states(d: torch.Tensor, gen):
                                 << key_bits) | key
 
 
+def _words(d: torch.Tensor, gen):
+    """An int32 sort word whose low 8 bits are the digits `d` under random
+    upper bits, bit 31 included, and a random int32 permutation."""
+    n = d.shape[0]
+    hi = torch.randint(-2 ** 31, 2 ** 31 - 1, (n,), generator=gen,
+                       device="cuda", dtype=torch.int32)
+    perm = torch.randperm(n, generator=gen, device="cuda")
+    return ((hi & ~255) | d).contiguous(), perm.to(torch.int32)
+
+
 def _modes(d: torch.Tensor):
     """(name, kernel call, plain call) of each digit mode, on one digit
     tensor; the tables B2 and B3 read come from the kernel histogram's
@@ -471,6 +517,44 @@ def _state_modes(state: torch.Tensor, width: int):
     )
 
 
+def _word_modes(word: torch.Tensor, perm: torch.Tensor, width: int):
+    """(name, kernel call, plain call) of the histogram and B2's
+    rank-and-scatter form over an int32 word and permutation at one digit
+    width, with the word lane and without it (a word's last pass)."""
+    dest = R._destinations(R.radix_hist_reference(word, width))
+    return (
+        ("radix_hist_word", lambda: R.radix_hist(word, width),
+         lambda: R.radix_hist_reference(word, width)),
+        ("radix_rank_scatter",
+         lambda: R.radix_rank_scatter(word, width, perm, dest),
+         lambda: R.radix_rank_scatter_reference(word, width, perm, dest)),
+        ("radix_rank_scatter_last",
+         lambda: R.radix_rank_scatter(word, width, perm, dest, False),
+         lambda: R.radix_rank_scatter_reference(word, width, perm, dest,
+                                                False)),
+    )
+
+
+def classic_pass(word: torch.Tensor, perm: torch.Tensor, width: int):
+    """One pass of the classic loop as exec/sort.py runs it: two launches
+    and a scan, the word carried beside the permutation."""
+    table = R.radix_hist(word, width)
+    return R.radix_rank_scatter(word, width, perm, R._destinations(table))
+
+
+def classic_glue_pass(word: torch.Tensor, perm: torch.Tensor,
+                      width: int) -> torch.Tensor:
+    """The same pass in its earlier form, over the int64 word in row order
+    and the int64 permutation: the word gathered through the permutation,
+    the digit extracted, B4, the per-digit scan, B2's rank form, the
+    256-entry gather, and an index_put of the permutation."""
+    d = (word[perm] & ((1 << width) - 1)).to(torch.int32)
+    pos = R.radix_pass_positions(d, d.shape[0])
+    nxt = torch.empty_like(perm)
+    nxt[pos] = perm
+    return nxt
+
+
 def fused_pass(state: torch.Tensor, width: int) -> torch.Tensor:
     """One scatter-branch pass as exec/sort.py runs it: two launches and
     a scan."""
@@ -489,7 +573,12 @@ def glue_pass(state: torch.Tensor, width: int) -> torch.Tensor:
     return nxt
 
 
-def _max_err(a: torch.Tensor, b: torch.Tensor) -> int:
+def _max_err(a, b) -> int:
+    if isinstance(a, tuple):  # B2's rank-and-scatter: (word or None, perm)
+        if len(a) != len(b) or any((x is None) != (y is None)
+                                   for x, y in zip(a, b)):
+            raise AssertionError(f"kernel lanes {a} vs plain lanes {b}")
+        return max(_max_err(x, y) for x, y in zip(a, b) if x is not None)
     if a.shape != b.shape or a.dtype != b.dtype:
         raise AssertionError(f"kernel {a.dtype} {tuple(a.shape)} vs plain "
                              f"{b.dtype} {tuple(b.shape)}")
@@ -528,22 +617,31 @@ def _check_modes(modes, max_err, what: str) -> None:
 
 
 def _time_modes(modes, calls: int, bytes_per_row: dict, n: int,
-                table_bytes: int) -> dict:
+                table_bytes: int, hostless: bool) -> dict:
     """ms, plain_ms and bound_ms of each mode: the bound moves each row's
-    bytes once, and the table once."""
-    return {name: {"ms": time_ms(kernel, calls),
-                   "plain_ms": time_ms(plain, calls),
-                   "bound_ms": bound_ms(bytes_per_row[name] * n
-                                        + table_bytes),
-                   "library_ms": None}
-            for name, kernel, plain in modes}
+    bytes once, and the table once. With `hostless`, also the kernel's
+    time from a captured CUDA graph (graph_ms) beside the event
+    window's."""
+    out = {}
+    for name, kernel, plain in modes:
+        out[name] = {"ms": time_ms(kernel, calls),
+                     "plain_ms": time_ms(plain, calls),
+                     "bound_ms": bound_ms(bytes_per_row[name] * n
+                                          + table_bytes),
+                     "library_ms": None}
+        if hostless:
+            out[name]["graph_ms"] = graph_ms(kernel, calls)
+    return out
 
 
-# bytes a row each kernel must move: B4 reads digits (4) or the state (8);
-# B2 and B3's positions read digits and write positions; B3's scatter
-# reads the state and writes the next one
-ROW_BYTES = {"radix_hist": 4, "radix_hist_state": 8, "radix_rank": 8,
-             "radix_pos": 8, "radix_scatter_pass": 16}
+# bytes a row each kernel must move: B4 reads digits or a word (4) or the
+# state (8); B2's rank form and B3's positions read digits and write
+# positions; B3's scatter reads the state and writes the next one; B2's
+# rank-and-scatter reads the word and the permutation and writes both
+# (the permutation alone on a word's last pass)
+ROW_BYTES = {"radix_hist": 4, "radix_hist_state": 8, "radix_hist_word": 4,
+             "radix_rank": 8, "radix_pos": 8, "radix_scatter_pass": 16,
+             "radix_rank_scatter": 16, "radix_rank_scatter_last": 12}
 
 
 def radix_phase(seed: int, conn, li) -> dict:
@@ -562,6 +660,12 @@ def radix_phase(seed: int, conn, li) -> dict:
                                  f"width={width}")
                     cases += 1
                 del state
+            word, perm = _words(d, gen)
+            for width in range(1, 9):
+                _check_modes(_word_modes(word, perm, width), max_err,
+                             f"n={n} digits={dist} word width={width}")
+                cases += 1
+            del word, perm
             want = R.radix_pass_positions_reference(d, n)
             for fn in (R.radix_pass_positions,
                        R.radix_pass_positions_nogather):
@@ -580,11 +684,14 @@ def radix_phase(seed: int, conn, li) -> dict:
         for dist in TIMED_DISTS:
             d = _digits(dist, n, gen)
             state = next(_states(d, gen))[1]
-            modes = _modes(d) + _state_modes(state, 8)
-            t[dist] = _time_modes(modes, calls, ROW_BYTES, n, table_bytes)
+            word, perm = _words(d, gen)
+            modes = (_modes(d) + _state_modes(state, 8)
+                     + _word_modes(word, perm, 8))
+            t[dist] = _time_modes(modes, calls, ROW_BYTES, n, table_bytes,
+                                  hostless=n < 10_000_000)
             # a plain copy of the bytes B2 and B3 read and write (digits in
-            # and positions out; the state in and out): what a streaming
-            # pass over them takes on this card
+            # and positions out; the state, or the word and permutation, in
+            # and out): what a streaming pass over them takes on this card
             copies = {}
             for src_ in (d, state):
                 dst = torch.empty_like(src_)
@@ -592,16 +699,18 @@ def radix_phase(seed: int, conn, li) -> dict:
                     lambda: dst.copy_(src_), calls)
                 del dst
             for name, v in t[dist].items():
-                if name != "radix_hist" and name != "radix_hist_state":
+                if not name.startswith("radix_hist") \
+                        and ROW_BYTES[name] in copies:
                     v["copy_ms"] = copies[ROW_BYTES[name]]
             # B4's one-call equivalent: torch.bincount of the (digit, tile)
             # cell keys, computed before the timed window
             cells = R._cell_keys(d)
             lib = time_ms(lambda: torch.bincount(
                 cells, minlength=table_bytes // 4), calls)
-            t[dist]["radix_hist"]["library_ms"] = lib
-            t[dist]["radix_hist_state"]["library_ms"] = lib
-            del d, state, cells, modes
+            for name in ("radix_hist", "radix_hist_state",
+                         "radix_hist_word"):
+                t[dist][name]["library_ms"] = lib
+            del d, state, word, perm, cells, modes
         # one whole scatter-branch pass over the orderBy key's state, in
         # both forms, back to back (fused, glue, glue, fused)
         key = torch.randint(0, 1 << ORDERBY_KEY_BITS, (n,), generator=gen,
@@ -615,6 +724,24 @@ def radix_phase(seed: int, conn, li) -> dict:
         glue.append(time_ms(lambda: glue_pass(state, 8), calls))
         fused.append(time_ms(lambda: fused_pass(state, 8), calls))
         t["pass_39_bit_state"] = {"fused_ms": fused, "glue_ms": glue}
+        # one whole classic-loop pass over a 32-bit word, in both forms,
+        # in turns (new, old, old, new); the new form's word is the int32
+        # bits of the old form's, already in the permutation's order
+        word64 = torch.randint(0, 1 << 32, (n,), generator=gen,
+                               device="cuda", dtype=torch.int64)
+        perm64 = torch.randperm(n, generator=gen, device="cuda")
+        word, perm = _word_bits(word64)[perm64], perm64.to(torch.int32)
+        if _max_err(classic_pass(word, perm, 8)[1].long(),
+                    classic_glue_pass(word64, perm64, 8)):
+            raise AssertionError(f"the classic pass differs from its glue "
+                                 f"form at n={n}")
+        new = [time_ms(lambda: classic_pass(word, perm, 8), calls)]
+        old = [time_ms(lambda: classic_glue_pass(word64, perm64, 8), calls)]
+        old.append(time_ms(lambda: classic_glue_pass(word64, perm64, 8),
+                           calls))
+        new.append(time_ms(lambda: classic_pass(word, perm, 8), calls))
+        t["classic_pass"] = {"ms": new, "glue_ms": old}
+        del word64, perm64, word, perm
         d = R.low_digits(state, 8)
         t["pass_nogather"] = {
             "ms": time_ms(lambda: R.radix_pass_positions_nogather(d, n),
@@ -764,6 +891,37 @@ def q1_phase(ctx, li) -> dict:
     return launches[-1]
 
 
+def _words_of(bits: int) -> list:
+    """Bit widths of the 32-bit words sort_words packs `bits` key bits
+    into."""
+    return [32] * (bits // 32) + ([bits % 32] if bits % 32 else [])
+
+
+def _passes(words) -> int:
+    """8-bit radix passes over those words, least significant first."""
+    return sum(-(-w // 8) for w in words)
+
+
+def _topn_words(plan, nullable=()) -> list:
+    """Bit widths of the words of the plan's TopN key (the plan's root),
+    derived from the plan as sort_words derives them: the active bit, a
+    null bit for each key in `nullable` (an aggregate's output), and each
+    key's width: the span of the stats the plan resolves for it, else 32
+    for each of its value words."""
+    if not isinstance(plan, P.TopNNode):
+        raise AssertionError(f"{type(plan).__name__} is not a TopN")
+    row = plan.source.output_type()
+    bits = 1
+    for k in plan.keys:
+        dt = row.children[row.names.index(k.name)]
+        rng = resolve_column_stats(plan.source, k.name)
+        bits += k.name in nullable
+        bits += ((int(rng[1]) - int(rng[0])).bit_length()
+                 if rng is not None and not dt.is_long_decimal
+                 else 32 * num_value_words(dt))
+    return _words_of(bits)
+
+
 def _key_bits(conn, cols) -> int:
     """1 active bit + each column's width, narrowed by the connector's
     stats."""
@@ -799,21 +957,23 @@ def sort_full_phase(conn, ctx, li, order) -> dict:
     bits = _key_bits(conn, SORT_COLS)
     out, wall, counts = _run(plan, ctx)
     cap = sum(b.capacity for b in out)
-    # key + row-id bits past 64: the classic loop, B4 + B2 a pass over
-    # the key's 32-bit words; at SF10, 42 key bits + 26 row-id bits
+    # key + row-id bits past 64: the classic loop, B4 + B2's
+    # rank-and-scatter form a pass over the key's 32-bit words, B5 once
+    # for each word after the first; at SF10, 42 key bits + 26 row-id bits
     classic = bits + max(1, cap - 1).bit_length() > 64
     if conn.scale_factor >= 10 and not classic:
         raise AssertionError(f"full sort of {cap} rows and {bits} key bits "
                              "would not take the classic loop")
     if classic:
-        words = [32] * (bits // 32) + ([bits % 32] if bits % 32 else [])
-        passes = sum(-(-w // 8) for w in words)
-        want = {"radix_hist": passes, "radix_rank": passes, "radix_pos": 0}
+        words = _words_of(bits)
+        passes = _passes(words)
+        want = {"radix_hist": passes, "radix_rank": passes, "radix_pos": 0,
+                "flat_gather": len(words) - 1}
     else:
         passes = -(-bits // 8)
-        want = {"radix_hist": passes, "radix_rank": 0, "radix_pos": passes}
-    _expect_launches("sort_full", counts, dict(want, filter_sum=0,
-                                               flat_gather=0))
+        want = {"radix_hist": passes, "radix_rank": 0, "radix_pos": passes,
+                "flat_gather": 0}
+    _expect_launches("sort_full", counts, dict(want, filter_sum=0))
     rows = 0
     for b in out:
         m = b.mask
@@ -1002,7 +1162,8 @@ def q18_oracle(conn, li, threshold: int) -> dict:
             "quantity": [int(x) for x in qty[okey[top]].astype(np.int64)]}
 
 
-def _join_phase(name, plan, want, ctx, b5_launches: int) -> dict:
+def _join_phase(name, plan, want, ctx, b5_launches: int,
+                b2_launches: int) -> dict:
     walls, launches = [], []
     for _ in range(2):
         out, wall, counts = _run(plan, ctx)
@@ -1010,6 +1171,7 @@ def _join_phase(name, plan, want, ctx, b5_launches: int) -> dict:
         if got != want:
             raise AssertionError(f"{name} {got} != numpy oracle {want}")
         _expect_launches(name, counts, {"flat_gather": b5_launches,
+                                        "radix_rank": b2_launches,
                                         "filter_sum": 0})
         for k in ("radix_hist", "radix_pos"):
             if counts[k] == 0:
@@ -1025,12 +1187,17 @@ def q3_phase(conn, ctx, li) -> dict:
     want = q3_oracle(conn, li)
     n_od = len(conn.default_splits("orders"))
     n_li = len(conn.default_splits("lineitem"))
+    # the TopN sorts the group-by's one output batch by revenue (a sum,
+    # nullable) and o_orderdate: the classic loop, B2 once a pass, B5 once
+    # for each key word after the first
+    plan = PATH_PLANS["q3"]()
+    words = _topn_words(plan, nullable=("revenue",))
     # B5: two gathers in each of the two builds (packed keys and key
     # values through the permutation); one arr_row1 lookup per orders
     # batch in the semi join; per lineitem batch one lookup and the two
     # build columns the join outputs (o_orderdate, o_shippriority)
-    return _join_phase("q3", PATH_PLANS["q3"](), want, ctx,
-                       4 + n_od + 3 * n_li)
+    return _join_phase("q3", plan, want, ctx,
+                       4 + n_od + 3 * n_li + len(words) - 1, _passes(words))
 
 
 def q18_phase(conn, ctx, li) -> dict:
@@ -1039,10 +1206,15 @@ def q18_phase(conn, ctx, li) -> dict:
     if not want["o_orderkey"]:
         raise AssertionError("Q18 oracle has no rows at this scale")
     n_od = len(conn.default_splits("orders"))
+    # the TopN merges each joined orders batch: one classic-loop sort each
+    plan = PATH_PLANS["q18"]()
+    words = _topn_words(plan)
     # B5: two gathers in each build; per orders batch, in each join, one
     # arr_row1 lookup and two 8-byte build columns (quantity's two limbs;
-    # then c_name's ids and c_custkey)
-    return _join_phase("q18", PATH_PLANS["q18"](), want, ctx, 4 + 6 * n_od)
+    # then c_name's ids and c_custkey), and the TopN's word gathers
+    return _join_phase("q18", plan, want, ctx,
+                       4 + n_od * (6 + len(words) - 1),
+                       n_od * _passes(words))
 
 
 def main() -> None:
@@ -1101,12 +1273,19 @@ def main() -> None:
     # CUDA kernels and what changed in their design, if anything)
     for name, line, main_phase, rows, mode, extra, cuda, design in (
             ("radix_hist", 85, "topn", 6_700_000, "radix_hist_state",
-             ("radix_hist",), ["radix_hist_kernel<int64_t>",
+             ("radix_hist", "radix_hist_word"), ["radix_hist_kernel<int64_t>",
                                "radix_hist_kernel<int32_t>"],
-             "digit taken in the kernel from the int64 state or int32 "
-             "digits; 16-byte loads; per-warp shared-atomic histograms"),
-            ("radix_rank", 45, "sort_full", 60_000_000, "radix_rank", (),
-             ["radix_rank_kernel"], None),
+             "digit taken in the kernel from the int64 state, an int32 word "
+             "or int32 digits; 16-byte loads; per-warp shared-atomic "
+             "histograms"),
+            ("radix_rank", 45, "sort_full", 60_000_000, "radix_rank_scatter",
+             ("radix_rank_scatter_last", "radix_rank"),
+             ["radix_place_kernel<int32_t, kRankScatter>",
+              "radix_place_kernel<int32_t, kPositions>"],
+             "B3's kernel: whole tile (and the permutation's) in shared "
+             "memory, ballot multi-split ranks; the classic loop's pass "
+             "scatters the shifted word and the permutation; the rank form "
+             "is B3's positions given each tile's offset in its digit"),
             ("radix_pos", 116, "topn", 6_700_000, "radix_scatter_pass",
              ("radix_pos",),
              ["radix_place_kernel<int64_t, kScatter>",

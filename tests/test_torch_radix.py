@@ -225,3 +225,110 @@ def test_scatter_wrapper_rejects_what_the_kernel_does_not_take(bad):
             R.radix_scatter_pass(t, 8, dest[:, :0].contiguous())
         else:
             R.radix_hist(torch.from_numpy(_state(4096, 8, seed=3))[::2], 8)
+
+
+# ---------------------------------------------------------------------------
+# The int32 sort word of the classic loop: B4 over its low digit, B2's
+# rank-and-scatter form
+# ---------------------------------------------------------------------------
+
+def _word(kind: str, n: int, width: int, seed: int) -> np.ndarray:
+    """An int32 sort word (the bits of a uint32): random over all 32 bits,
+    so about half have bit 31 set; one digit under random upper bits; or
+    sorted as unsigned words."""
+    rng = np.random.default_rng(seed)
+    w = rng.integers(-2 ** 31, 2 ** 31, n, dtype=np.int64).astype(np.int32)
+    if kind == "one_digit":
+        w = (w & ~np.int32((1 << width) - 1)) | np.int32(5 % (1 << width))
+    elif kind == "sorted":
+        w = np.sort(w.view(np.uint32)).view(np.int32)
+    return w
+
+
+def _scatter_lanes(word: np.ndarray, perm: np.ndarray, width: int, pos):
+    """numpy scatter of ((uint32)word >> width, perm) to `pos`."""
+    pos = np.asarray(pos)
+    nword, nperm = np.empty_like(word), np.empty_like(perm)
+    nword[pos] = (word.view(np.uint32) >> np.uint32(width)).view(np.int32)
+    nperm[pos] = perm
+    return nword, nperm
+
+
+@pytest.mark.parametrize("kind", ["bit31", "one_digit", "sorted"])
+@pytest.mark.parametrize("width", range(1, 9))
+@pytest.mark.parametrize("n", [1, 255, 8193, 3 * 8192 + 5])
+def test_rank_scatter_matches_pallas_positions(n, width, kind):
+    """B2's rank-and-scatter form: the reference's no-gather destinations
+    of the word's low digits, then the logically shifted word and the
+    permutation scattered there; without the word lane, the permutation
+    alone."""
+    word = _word(kind, n, width, seed=31 * n + width)
+    perm = np.random.default_rng(n + width).permutation(n).astype(np.int32)
+    tw, tp = torch.from_numpy(word), torch.from_numpy(perm)
+    dest = R._destinations(R.radix_hist(tw, width))
+    digits = (word & ((1 << width) - 1)).astype(np.int32)
+    pos = PK.radix_pass_positions_nogather(jnp.asarray(digits), n,
+                                           interpret=True)
+    want_word, want_perm = _scatter_lanes(word, perm, width, pos)
+    got_word, got_perm = R.radix_rank_scatter(tw, width, tp, dest)
+    assert got_word.dtype == got_perm.dtype == torch.int32
+    np.testing.assert_array_equal(got_word.numpy(), want_word)
+    np.testing.assert_array_equal(got_perm.numpy(), want_perm)
+    spent, last_perm = R.radix_rank_scatter(tw, width, tp, dest,
+                                            keep_word=False)
+    assert spent is None
+    np.testing.assert_array_equal(last_perm.numpy(), want_perm)
+
+
+@pytest.mark.parametrize("width", range(1, 9))
+def test_hist_of_a_word_matches_numpy(width):
+    n = 3 * R.TILE_ROWS + 5
+    word = _word("bit31", n, width, seed=width)
+    table = R.radix_hist(torch.from_numpy(word), width)
+    assert table.dtype == torch.int32
+    want = np.zeros((R.RADIX, R._n_tiles(n)), np.int64)
+    np.add.at(want, (word & ((1 << width) - 1), np.arange(n) // R.TILE_ROWS),
+              1)
+    np.testing.assert_array_equal(table.numpy(), want)
+
+
+def test_word_wrappers_run_the_plain_versions_on_the_cpu():
+    t = torch.from_numpy(_word("bit31", 5000, 8, seed=1))
+    perm = torch.arange(5000, dtype=torch.int32)
+    before = (R.radix_hist.launches, R.radix_rank.launches,
+              R.radix_pos.launches)
+    R.radix_rank_scatter(t, 8, perm, R._destinations(R.radix_hist(t, 8)))
+    assert (R.radix_hist.launches, R.radix_rank.launches,
+            R.radix_pos.launches) == before
+
+
+@pytest.mark.parametrize("bad", ["int64", "width0", "width9", "perm_int64",
+                                 "perm_short", "strided_word",
+                                 "strided_perm", "table", "meta"])
+def test_rank_scatter_wrapper_rejects_what_the_kernel_does_not_take(bad):
+    t = torch.from_numpy(_word("bit31", 2048, 8, seed=2))
+    perm = torch.arange(2048, dtype=torch.int32)
+    dest = R._destinations(R.radix_hist(t, 8))
+    with pytest.raises(ValueError):
+        if bad == "int64":
+            R.radix_rank_scatter(t.long(), 8, perm, dest)
+        elif bad == "width0":
+            R.radix_rank_scatter(t, 0, perm, dest)
+        elif bad == "width9":
+            R.radix_rank_scatter(t, 9, perm, dest)
+        elif bad == "perm_int64":
+            R.radix_rank_scatter(t, 8, perm.long(), dest)
+        elif bad == "perm_short":
+            R.radix_rank_scatter(t, 8, perm[:2047], dest)
+        elif bad == "strided_word":
+            R.radix_rank_scatter(
+                torch.from_numpy(_word("bit31", 4096, 8, seed=3))[::2], 8,
+                perm, dest)
+        elif bad == "strided_perm":
+            R.radix_rank_scatter(
+                t, 8, torch.arange(4096, dtype=torch.int32)[::2], dest)
+        elif bad == "table":
+            R.radix_rank_scatter(t, 8, perm, dest[:, :0].contiguous())
+        else:
+            R.radix_rank_scatter(t.to("meta"), 8, perm.to("meta"),
+                                 dest.to("meta"))

@@ -425,3 +425,66 @@ def test_scatter_sort_perm_matches_reference(total, capacity):
     np.testing.assert_array_equal(tperm.numpy(), np.asarray(jperm))
     np.testing.assert_array_equal(
         tperm.numpy(), np.lexsort([w for w in reversed(words)]))
+
+
+# (word bits, most significant first; capacity): full 32-bit words and a
+# narrow word, over several tiles and a ragged last one
+CLASSIC_KEYS = [([32, 32, 5], 3 * 8192 + 5), ([7, 32, 32], 2 * 8192 + 1)]
+
+
+def _classic_words(bits, capacity, seed):
+    rng = np.random.default_rng(seed)
+    # few distinct values per word: ties in every pass; values from 2^31
+    # up included
+    return [rng.integers(0, 1 << b, 97, dtype=np.int64)[
+        rng.integers(0, 97, capacity)] for b in bits]
+
+
+@pytest.mark.parametrize("bits,capacity", CLASSIC_KEYS)
+def test_classic_sort_perm_matches_reference(bits, capacity):
+    """The classic loop (each word gathered once, B4 and B2's
+    rank-and-scatter form a pass) gives the reference's permutation."""
+    words = _classic_words(bits, capacity, seed=capacity)
+    assert sum(bits) + (capacity - 1).bit_length() > 64
+    jperm = JS._radix_fallback_perm(
+        [jnp.asarray(w.astype(np.uint32)) for w in words], bits, capacity)
+    tperm = S._radix_fallback_perm([torch.from_numpy(w) for w in words],
+                                   bits, capacity)
+    assert tperm.dtype == torch.int64
+    np.testing.assert_array_equal(tperm.numpy(), np.asarray(jperm))
+    np.testing.assert_array_equal(
+        tperm.numpy(), np.lexsort([w for w in reversed(words)]))
+
+
+def test_classic_loop_calls_each_kernel_as_planned(monkeypatch):
+    """One rank-and-scatter and one histogram a pass; one gather for each
+    word after the first; the word lane dropped on each word's last
+    pass."""
+    calls = {"hist": 0, "rank_scatter": 0, "gather": 0, "spent": 0}
+
+    def counted(name, fn):
+        def call(*args, **kwargs):
+            calls[name] += 1
+            if name == "rank_scatter" and not kwargs.get("keep_word", True):
+                calls["spent"] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    monkeypatch.setattr(S, "radix_hist", counted("hist", S.radix_hist))
+    monkeypatch.setattr(S, "radix_rank_scatter",
+                        counted("rank_scatter", S.radix_rank_scatter))
+    monkeypatch.setattr(S, "flat_gather", counted("gather", S.flat_gather))
+    bits = [32, 32, 5]
+    words = _classic_words(bits, CAP, seed=1)
+    perm = S.radix_sort_perm([torch.from_numpy(w) for w in words], bits, CAP)
+    np.testing.assert_array_equal(perm.numpy(),
+                                  np.lexsort([w for w in reversed(words)]))
+    assert calls == {"hist": 9, "rank_scatter": 9, "gather": 2, "spent": 3}
+
+
+def test_word_bits_keep_the_bits_of_words_past_2_31():
+    w = np.array([0, 1, 2 ** 31 - 1, 2 ** 31, 2 ** 32 - 1], np.int64)
+    got = S._word_bits(torch.from_numpy(w))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(),
+                                  w.astype(np.uint32).view(np.int32))

@@ -4,10 +4,13 @@
 // Replaces three Pallas kernels of velox_tpu/ops/pallas_kernels.py:
 //
 //   B4 _radix_hist_kernel (:85, pallas_call :106) -> radix_hist_kernel<T>
-//   B2 _radix_rank_kernel (:45)                   -> radix_rank_kernel
 //   B3 _radix_pos_kernel  (:116, pallas_call :158) -> radix_place_kernel
 //      with the positions epilogue, and the scatter epilogue that also
-//      moves the sort state
+//      moves the int64 sort state
+//   B2 _radix_rank_kernel (:45, pallas_call :207) -> radix_place_kernel
+//      too: with the positions epilogue (the rank form), and the
+//      rank-and-scatter epilogue that moves a 32-bit sort word and the
+//      permutation (the classic loop's pass)
 //
 // The TPU kernels run one grid-free program that walks the rows in order,
 // builds a (4096, 256) f32 one-hot per block and prefix-sums it with
@@ -20,22 +23,30 @@
 //      of an int32 (256, n_tiles) table, digit-major.
 //   2. glue, in PyTorch (ops/radix.py): one exclusive scan of the
 //      flattened table gives every (digit, tile) its first destination
-//      (or, scanned per digit, its offset within the digit, for B2).
-//   3. radix_place_kernel (B3) or radix_rank_kernel (B2) gives every row
-//      its stable rank among the tile's rows of its digit and adds the
-//      table entry of (digit, tile).
+//      (or, scanned per digit, its offset within the digit, for B2's rank
+//      form).
+//   3. radix_place_kernel gives every row its stable rank among the
+//      tile's rows of its digit and adds the table entry of (digit, tile).
+//      B2 is B3's function over another table, so both run on this one
+//      kernel: the positions epilogue is B3's positions and B2's rank
+//      form alike, with the table each is given.
 //
-// A digit comes either from an int32 digit array (the classic loop and
-// the reference's whole-pass functions) or from the int64 sort state of
-// the scatter branch, whose digit is its low `bits` bits: the kernel takes
-// it there, so the scatter branch has no row-sized digit tensor. The
-// scatter epilogue writes the state's remaining bits, (uint64)state >>
-// bits, to the row's destination, so one pass of that branch is two
-// launches (histogram, place-and-scatter) and the 256 x n_tiles scan.
+// A digit comes from an int32 digit array (the reference's whole-pass
+// functions), from the int64 sort state of the scatter branch, or from
+// the int32 sort word of the classic loop; in the last two it is the low
+// `bits` bits, taken in the kernel, so neither branch has a row-sized
+// digit tensor. The scatter epilogue writes the state's remaining bits,
+// (uint64)state >> bits, to the row's destination; the rank-and-scatter
+// epilogue writes (uint32)word >> bits and the row's permutation entry
+// there (or the permutation alone, once the word is spent). So one pass
+// of either branch is two launches (histogram, place-and-scatter) and
+// the 256 x n_tiles scan.
 //
 // What bounds them: device memory. Per row, the histogram reads 8 bytes
-// of state (4 of digits); place-and-scatter reads 8 and writes 8;
-// positions read 4 and write 4; plus the table. The design follows:
+// of state (4 of digits or a word); place-and-scatter reads 8 and writes
+// 8, rank-and-scatter reads 8 (word, permutation) and writes 8 (4 on a
+// word's last pass); positions read 4 and write 4; plus the table. The
+// design follows:
 //
 // * radix_hist_kernel: each of 512 threads loads its 16 rows of the tile
 //   with 16-byte loads, all issued before the first is used (the digits
@@ -44,27 +55,30 @@
 //   A thread adds a run of equal digits once, so a tile of one digit (32
 //   lanes on one address) costs one atomic a thread, not one a row.
 // * radix_place_kernel: one block of 512 threads takes the whole tile into
-//   shared memory first (64 KB of state: dynamic shared memory), by one
-//   cp.async.bulk copy completed on an mbarrier (on an H100 80GB HBM3 at
-//   700 W it beat 16-byte vector loads of the same tile by 1-6% in each
-//   of eight timed cells: scatter and positions, 6.7M and 60M rows,
-//   uniform and one-digit tiles). Then warp w ranks rows
-//   [512 w, 512 w + 512) in 16 steps of 32 rows: the lanes holding the same digit are found by a multi-split over the
-//   digit's bits (one __ballot_sync per bit, as CUB's block radix rank
-//   does), a row's rank among them is the popcount of the lower lanes,
-//   and the lowest of them adds the group's size to the warp's counter of
-//   that digit. The steps of a warp depend on each other only through
-//   that counter in shared memory; no load from device memory sits inside
-//   the chain (B2's form loads a digit in every step, which leaves few
-//   loads in flight: its time is latency, not bytes, see PERF.md), and
+//   shared memory first (dynamic shared memory: 64 KB of state, or 32 KB
+//   of words and 32 KB of the permutation), by cp.async.bulk copies
+//   completed on one mbarrier (on an H100 80GB HBM3 at 700 W the copy
+//   beat 16-byte vector loads of the same tile by 1-6% in each of eight
+//   timed cells: scatter and positions, 6.7M and 60M rows, uniform and
+//   one-digit tiles). Then warp w ranks rows [512 w, 512 w + 512) in 16
+//   steps of 32 rows: the lanes holding the same digit are found by a
+//   multi-split over the digit's bits (one __ballot_sync per bit, as
+//   CUB's block radix rank does), a row's rank among them is the popcount
+//   of the lower lanes, and the lowest of them adds the group's size to
+//   the warp's counter of that digit. The steps of a warp depend on each
+//   other only through that counter in shared memory; no load from device
+//   memory sits inside the chain (B2's first form, 8 warps with
+//   __match_any_sync ranks, loaded a digit in every step, which left few
+//   loads in flight: its time was latency, not bytes, see PERF.md), and
 //   the 32 warps of two resident blocks hide the rest. Warp counters
 //   become offsets in warp order and a 256-digit scan gives each digit's
 //   first slot in the tile.
 //   - positions epilogue: out[row] = table[d, tile] + rank in tile, with
 //     each warp storing 32 consecutive rows.
-//   - scatter epilogue: every row's slot in the tile (digit order, stable)
-//     receives its row number in shared memory; then thread t walks slots
-//     t, t + 512, ... and writes the slot's shifted state to
+//   - scatter and rank-and-scatter epilogues: every row's slot in the
+//     tile (digit order, stable) receives its row number in shared
+//     memory; then thread t walks slots t, t + 512, ... and writes the
+//     slot's shifted state, or its shifted word and permutation entry, to
 //     table[d, tile] + (slot - first slot of d): neighbouring threads
 //     store to neighbouring addresses inside each digit's run.
 //   Tried on the H100 and slower: __match_any_sync instead of the ballots
@@ -72,8 +86,6 @@
 //   a third resident block, and one persistent 1024-thread block per SM
 //   that copies the next tile while it ranks the current one: the rank
 //   and write phases, not the loads, set the time of a tile.
-// * radix_rank_kernel (B2) keeps its first form: 8 warps of 1024 rows,
-//   __match_any_sync ranks, digits read inside the rank loop.
 //
 // Rows at or past n do not exist for the kernels: the reference pads with
 // digit 255, which sorts after every real row and so moves none of them.
@@ -199,96 +211,32 @@ radix_hist_kernel(const T* __restrict__ src, int64_t n, unsigned mask,
 }
 
 // ---------------------------------------------------------------------------
-// B2: ranks within the digit (first form)
-// ---------------------------------------------------------------------------
-
-constexpr int kRankThreads = 256;  // one thread per digit in the offset step
-constexpr int kRankWarps = kRankThreads / 32;
-constexpr int kRowsPerWarp = kTile / kRankWarps;  // ranks fit uint16_t
-constexpr int kRankSteps = kRowsPerWarp / 32;
-static_assert(kRankThreads == kRadix, "the offset step maps a thread to a digit");
-
-__global__ void __launch_bounds__(kRankThreads)
-radix_rank_kernel(const int32_t* __restrict__ digits, int64_t n,
-                  const int32_t* __restrict__ table,
-                  int32_t* __restrict__ out) {
-  __shared__ int hist[kRankWarps][kRadix];
-  __shared__ uint8_t dig[kTile];
-  __shared__ uint16_t rank[kTile];
-  for (int i = threadIdx.x; i < kRankWarps * kRadix; i += kRankThreads) {
-    hist[i / kRadix][i % kRadix] = 0;
-  }
-  __syncthreads();
-  const int64_t tile_start = static_cast<int64_t>(blockIdx.x) * kTile;
-  // warp `warp` walks its rows; hist[warp][d] ends as the number of its
-  // rows with digit d, dig/rank receive each row's digit and its rank
-  // among the warp's earlier rows of that digit
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const unsigned lower = (1u << lane) - 1u;
-  int* h = hist[warp];
-  for (int step = 0; step < kRankSteps; ++step) {
-    const int first = warp * kRowsPerWarp + step * 32;
-    if (tile_start + first >= n) break;  // uniform across the warp
-    const int local = first + lane;
-    const int64_t row = tile_start + local;
-    const bool valid = row < n;
-    // the mask only keeps a bad digit inside the table; callers pass
-    // digits in [0, 256)
-    const int d = valid ? (digits[row] & (kRadix - 1)) : kRadix;
-    const unsigned peers = __match_any_sync(kFull, d);
-    const int before = __popc(peers & lower);
-    const int seen = valid ? h[d] : 0;
-    __syncwarp();
-    if (valid && before == 0) h[d] = seen + __popc(peers);
-    __syncwarp();
-    if (valid) {
-      dig[local] = static_cast<uint8_t>(d);
-      rank[local] = static_cast<uint16_t>(seen + before);
-    }
-  }
-  __syncthreads();
-  // warp histograms -> exclusive offsets in warp order, from the table
-  const int d = threadIdx.x;
-  int acc = table[static_cast<int64_t>(d) * gridDim.x + blockIdx.x];
-#pragma unroll
-  for (int w = 0; w < kRankWarps; ++w) {
-    const int c = hist[w][d];
-    hist[w][d] = acc;
-    acc += c;
-  }
-  __syncthreads();
-  for (int local = threadIdx.x; local < kTile; local += kRankThreads) {
-    const int64_t row = tile_start + local;
-    if (row >= n) break;
-    out[row] = hist[local / kRowsPerWarp][dig[local]] + rank[local];
-  }
-}
-
-// ---------------------------------------------------------------------------
-// B3: place (positions or scatter)
+// B3 and B2: place (positions, scatter, or rank-and-scatter)
 // ---------------------------------------------------------------------------
 
 constexpr int kPlaceThreads = 512;
 constexpr int kPlaceWarps = kPlaceThreads / 32;
 constexpr int kPlaceWarpRows = kTile / kPlaceWarps;
 constexpr int kPlaceSteps = kPlaceWarpRows / 32;  // rows a lane ranks
-constexpr int kPositions = 0;
-constexpr int kScatter = 1;
+constexpr int kPositions = 0;    // B3's positions, B2's rank form
+constexpr int kScatter = 1;      // B3: the int64 sort state
+constexpr int kRankScatter = 2;  // B2: the int32 word and permutation
 static_assert(kPlaceThreads >= kRadix, "the scan maps a thread to a digit");
 
 template <typename T, int kEpilogue>
 struct PlaceSmem {
-  T src[kTile];  // the tile's digits or state
-  // slot -> row of the tile (the scatter epilogue only)
-  uint16_t slot_row[kEpilogue == kScatter ? kTile : 1];
+  T src[kTile];  // the tile's digits, state or word
+  // the tile's permutation entries (the rank-and-scatter epilogue only)
+  int32_t perm[kEpilogue == kRankScatter ? kTile : 1];
+  // slot -> row of the tile (the scatter epilogues only)
+  uint16_t slot_row[kEpilogue == kPositions ? 1 : kTile];
   // each warp's count of every digit, then its offset within the tile's
   // rows of that digit
   uint16_t warp_off[kPlaceWarps][kRadix];
   int start[kRadix];  // the tile's first slot of each digit
   int base[kRadix];   // table[d, tile]
   int scan[kRadix / 32];
-  unsigned long long bar;  // the bulk copy's mbarrier
+  unsigned long long bar;  // the bulk copies' mbarrier
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -310,53 +258,88 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   } while (!done);
 }
 
-// Brings the tile's `rows` rows into s.src, visible to every thread on
-// return: one thread copies the 16-byte multiple by cp.async.bulk; plain
-// loads take the at most 3 int32 or 1 int64 past it.
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          int bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// The rows of a tile that a bulk copy moves: the 16-byte multiple.
+template <typename T>
+__device__ __forceinline__ int bulk_rows(int rows) {
+  return rows & ~(16 / static_cast<int>(sizeof(T)) - 1);
+}
+
+// Brings the tile's `rows` rows of src (and of perm, for the
+// rank-and-scatter epilogue) into shared memory, visible to every thread
+// on return: one thread starts a cp.async.bulk copy of each array's
+// 16-byte multiple, both completing on one mbarrier; plain loads take the
+// at most 3 int32 or 1 int64 rows past it.
 template <typename T, int kEpilogue>
 __device__ __forceinline__ void load_tile(PlaceSmem<T, kEpilogue>& s,
-                                          const T* tile, int rows) {
+                                          const T* tile, const int32_t* perm,
+                                          int rows) {
+  constexpr bool kPerm = kEpilogue == kRankScatter;
   const int tid = threadIdx.x;
-  const int bulk = (rows * static_cast<int>(sizeof(T))) & ~15;
+  const int src_rows = bulk_rows<T>(rows);
+  const int perm_rows = kPerm ? bulk_rows<int32_t>(rows) : rows;
+  const int bytes = src_rows * static_cast<int>(sizeof(T)) +
+                    (kPerm ? perm_rows * 4 : 0);
   const uint32_t bar = smem_addr(&s.bar);
   if (tid == 0) {
     asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(bar)
                  : "memory");
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    if (bulk > 0) {
+    if (bytes > 0) {
       asm volatile(
           "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
               bar),
-          "r"(bulk)
+          "r"(bytes)
           : "memory");
-      asm volatile(
-          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-          " [%0], [%1], %2, [%3];\n" ::"r"(smem_addr(s.src)),
-          "l"(tile), "r"(bulk), "r"(bar)
-          : "memory");
+      if (src_rows > 0) {
+        bulk_copy(s.src, tile, src_rows * static_cast<int>(sizeof(T)), bar);
+      }
+      if (kPerm && perm_rows > 0) bulk_copy(s.perm, perm, perm_rows * 4, bar);
     } else {
       asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
                    : "memory");
     }
   }
-  for (int r = bulk / static_cast<int>(sizeof(T)) + tid; r < rows;
-       r += kPlaceThreads) {
+  for (int r = src_rows + tid; r < rows; r += kPlaceThreads) {
     s.src[r] = tile[r];
   }
-  __syncthreads();  // the barrier is initialised, the tail stored
+  if constexpr (kPerm) {
+    for (int r = perm_rows + tid; r < rows; r += kPlaceThreads) {
+      s.perm[r] = perm[r];
+    }
+  }
+  __syncthreads();  // the barrier is initialised, the tails stored
   mbar_wait(bar, 0);
 }
 
-// bits: the digit's width (8 for int32 digits). kPositions: out is (n,)
-// int32, table[d, tile] + the row's stable rank among the tile's rows of
-// digit d. kScatter: out is (n,) int64; the row's (uint64)state >> bits
-// goes to that position.
+// bits: the digit's width (8 for int32 digits); the table holds each
+// (digit, tile)'s first destination (or offset within the digit).
+// - kPositions: src is (n,) int32 digits; out is (n,) int32, table[d,
+//   tile] + the row's stable rank among the tile's rows of digit d.
+// - kScatter: src is the (n,) int64 state; out is (n,) int64, and the
+//   row's (uint64)state >> bits goes to that position.
+// - kRankScatter: src is the (n,) int32 word, perm the (n,) int32
+//   permutation; the row's (uint32)word >> bits goes to that position of
+//   out (unless out is null: the word is spent) and perm[row] to that
+//   position of perm_out.
 template <typename T, int kEpilogue>
 __global__ void __launch_bounds__(kPlaceThreads, 2)
-radix_place_kernel(const T* __restrict__ src, int64_t n, int bits,
-                   const int32_t* __restrict__ table, void* __restrict__ out) {
-  static_assert(kEpilogue == kPositions || sizeof(T) == 8,
+radix_place_kernel(const T* __restrict__ src,
+                   const int32_t* __restrict__ perm, int64_t n, int bits,
+                   const int32_t* __restrict__ table, void* __restrict__ out,
+                   int32_t* __restrict__ perm_out) {
+  static_assert(kEpilogue != kScatter || sizeof(T) == 8,
                 "the scatter epilogue moves the int64 sort state");
+  static_assert(kEpilogue != kRankScatter || sizeof(T) == 4,
+                "the rank-and-scatter epilogue moves a 32-bit word");
   extern __shared__ __align__(128) unsigned char smem_raw[];
   auto& s = *reinterpret_cast<PlaceSmem<T, kEpilogue>*>(smem_raw);
   const int tid = threadIdx.x;
@@ -370,7 +353,10 @@ radix_place_kernel(const T* __restrict__ src, int64_t n, int bits,
   if (tid < kRadix) {
     s.base[tid] = table[static_cast<int64_t>(tid) * gridDim.x + blockIdx.x];
   }
-  load_tile<T, kEpilogue>(s, src + tile_start, rows);
+  load_tile<T, kEpilogue>(s, src + tile_start,
+                          kEpilogue == kRankScatter ? perm + tile_start
+                                                    : nullptr,
+                          rows);
 
   // rank: (rank among the warp's rows of the digit) | digit << 16 per step
   const unsigned mask = (1u << bits) - 1u;
@@ -449,16 +435,26 @@ radix_place_kernel(const T* __restrict__ src, int64_t n, int bits,
       }
     }
     __syncthreads();
-    uint64_t* next = static_cast<uint64_t*>(out);
     for (int slot = tid; slot < rows; slot += kPlaceThreads) {
-      const uint64_t v = static_cast<uint64_t>(s.src[s.slot_row[slot]]);
-      const unsigned d = static_cast<unsigned>(v) & mask;
-      next[static_cast<int64_t>(s.base[d]) + (slot - s.start[d])] = v >> bits;
+      const int r = s.slot_row[slot];
+      if constexpr (kEpilogue == kScatter) {
+        const uint64_t v = static_cast<uint64_t>(s.src[r]);
+        const unsigned d = static_cast<unsigned>(v) & mask;
+        static_cast<uint64_t*>(out)[static_cast<int64_t>(s.base[d]) +
+                                    (slot - s.start[d])] = v >> bits;
+      } else {
+        const uint32_t v = static_cast<uint32_t>(s.src[r]);
+        const unsigned d = v & mask;
+        const int64_t dst = static_cast<int64_t>(s.base[d]) +
+                            (slot - s.start[d]);
+        if (out != nullptr) static_cast<uint32_t*>(out)[dst] = v >> bits;
+        perm_out[dst] = s.perm[r];
+      }
     }
   }
 }
 
-// Lets one B3 kernel take its shared memory, once per device.
+// Lets one place kernel take its shared memory, once per device.
 template <typename T, int kEpilogue>
 cudaError_t place_setup() {
   static bool ready[64] = {};
@@ -476,14 +472,15 @@ cudaError_t place_setup() {
 }
 
 template <typename T, int kEpilogue>
-cudaError_t place(const T* src, int bits, int64_t n, const int32_t* table,
-                  void* out, cudaStream_t stream) {
+cudaError_t place(const T* src, const int32_t* perm, int bits, int64_t n,
+                  const int32_t* table, void* out, int32_t* perm_out,
+                  cudaStream_t stream) {
   const cudaError_t err = place_setup<T, kEpilogue>();
   if (err != cudaSuccess) return err;
   const unsigned tiles = static_cast<unsigned>((n + kTile - 1) / kTile);
   radix_place_kernel<T, kEpilogue>
       <<<tiles, kPlaceThreads, sizeof(PlaceSmem<T, kEpilogue>), stream>>>(
-          src, n, bits, table, out);
+          src, perm, n, bits, table, out, perm_out);
   return cudaGetLastError();
 }
 
@@ -503,9 +500,9 @@ extern "C" {
 // Rows per tile: the wrapper sizes the (256, n_tiles) table with it.
 int vt_radix_tile_rows() { return kTile; }
 
-// B4. src: (n,) int32 digits (src_bytes 4, bits 8) or the int64 sort state
-// (src_bytes 8), whose digit is its low `bits` bits (1..8). table: (256,
-// n_tiles) int32, written. n < 2^31; src 16-byte aligned.
+// B4. src: (n,) int32 digits or word (src_bytes 4) or the int64 sort state
+// (src_bytes 8), whose digit is its low `bits` bits (1..8; 8 for digits).
+// table: (256, n_tiles) int32, written. n < 2^31; src 16-byte aligned.
 int vt_radix_hist(const void* src, int src_bytes, int bits, int64_t n,
                   int32_t* table, void* stream) {
   if (n <= 0) return static_cast<int>(cudaSuccess);
@@ -525,26 +522,22 @@ int vt_radix_hist(const void* src, int src_bytes, int bits, int64_t n,
   return static_cast<int>(cudaGetLastError());
 }
 
-// B2. digits: (n,) int32 in [0, 256); table: each (digit, tile)'s offset
-// within its digit; out: (n,) int32, each row's stable rank among all rows
-// of its digit.
-int vt_radix_rank(const int32_t* digits, int64_t n, const int32_t* table,
-                  int32_t* out, void* stream) {
-  if (n <= 0) return static_cast<int>(cudaSuccess);
-  const unsigned tiles = static_cast<unsigned>((n + kTile - 1) / kTile);
-  radix_rank_kernel<<<tiles, kRankThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(digits, n, table,
-                                                           out);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // B3, positions. digits: (n,) int32 in [0, 256), 16-byte aligned; table:
 // each (digit, tile)'s first destination; out: (n,) int32.
 int vt_radix_pos(const int32_t* digits, int64_t n, const int32_t* table,
                  int32_t* out, void* stream) {
   if (n <= 0) return static_cast<int>(cudaSuccess);
-  return static_cast<int>(place<int32_t, kPositions>(
-      digits, 8, n, table, out, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(
+      place<int32_t, kPositions>(digits, nullptr, 8, n, table, out, nullptr,
+                                 static_cast<cudaStream_t>(stream)));
+}
+
+// B2, rank form: the same kernel given each (digit, tile)'s offset within
+// its digit, so out (n,) int32 is each row's stable rank among all rows
+// of its digit.
+int vt_radix_rank(const int32_t* digits, int64_t n, const int32_t* table,
+                  int32_t* out, void* stream) {
+  return vt_radix_pos(digits, n, table, out, stream);
 }
 
 // B3, scatter. state: (n,) int64 sort state, 16-byte aligned, its digit
@@ -554,16 +547,42 @@ int vt_radix_scatter(const int64_t* state, int bits, int64_t n,
                      const int32_t* table, int64_t* out, void* stream) {
   if (n <= 0) return static_cast<int>(cudaSuccess);
   if (bits < 1 || bits > 8) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(place<int64_t, kScatter>(
-      state, bits, n, table, out, static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(
+      place<int64_t, kScatter>(state, nullptr, bits, n, table, out, nullptr,
+                               static_cast<cudaStream_t>(stream)));
 }
 
-// Resident blocks per SM and dynamic shared memory of B3's kernels:
-// which = 0 positions, 1 scatter.
+// B2, rank and scatter. word, perm: (n,) int32, 16-byte aligned; the
+// word's digit is its low `bits` bits (1..8); table: each (digit, tile)'s
+// first destination. word_out[destination] = (uint32)word >> bits (skipped
+// when word_out is null), perm_out[destination] = perm.
+int vt_radix_rank_scatter(const int32_t* word, const int32_t* perm, int bits,
+                          int64_t n, const int32_t* table, int32_t* word_out,
+                          int32_t* perm_out, void* stream) {
+  if (n <= 0) return static_cast<int>(cudaSuccess);
+  if (bits < 1 || bits > 8) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(place<int32_t, kRankScatter>(
+      word, perm, bits, n, table, word_out, perm_out,
+      static_cast<cudaStream_t>(stream)));
+}
+
+// Resident blocks per SM and dynamic shared memory of the place kernels:
+// which = 0 positions (B3, B2's rank form), 1 scatter (B3), 2 rank and
+// scatter (B2).
 int vt_radix_place_occupancy(int which, int* blocks, int* smem) {
-  return static_cast<int>(
-      which == 0 ? place_occupancy<int32_t, kPositions>(blocks, smem)
-                 : place_occupancy<int64_t, kScatter>(blocks, smem));
+  switch (which) {
+    case 0:
+      return static_cast<int>(
+          place_occupancy<int32_t, kPositions>(blocks, smem));
+    case 1:
+      return static_cast<int>(
+          place_occupancy<int64_t, kScatter>(blocks, smem));
+    case 2:
+      return static_cast<int>(
+          place_occupancy<int32_t, kRankScatter>(blocks, smem));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // extern "C"

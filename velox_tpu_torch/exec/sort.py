@@ -9,8 +9,10 @@ every 8-bit pass runs the hand-written kernels of ``ops/radix.py``:
 * keys + row id within 64 bits: ``_scatter_sort_perm``, one histogram
   (B4) and one place-and-scatter (B3) launch a pass over the 64-bit
   state, no row gather;
-* otherwise the classic loop: each pass gathers its digits through the
-  permutation, then one histogram (B4) and one rank (B2) launch.
+* otherwise the classic loop, ``_classic_sort_perm``: each 32-bit word
+  gathered once through the permutation (B5), then one histogram (B4)
+  and one rank-and-scatter (B2) launch a pass, which carry the word and
+  the permutation.
 
 The reference sends every key of at most four u64 lanes to ``lax.sort``
 instead, a cap that exists for XLA:TPU compile time only; the port has
@@ -46,8 +48,9 @@ import torch
 
 from velox_tpu_torch import types as T
 from velox_tpu_torch.expression.eval import EvalValue
+from velox_tpu_torch.ops.gather import flat_gather
 from velox_tpu_torch.ops.radix import (RADIX, _destinations, radix_hist,
-                                       radix_pass_positions,
+                                       radix_rank_scatter,
                                        radix_scatter_pass)
 
 _M32 = 0xFFFFFFFF
@@ -432,27 +435,50 @@ def radix_sort_perm(words: List[torch.Tensor], bits: List[int],
     return perm
 
 
+def _word_bits(word: torch.Tensor) -> torch.Tensor:
+    """A 32-bit sort word (int64 in [0, 2^32)) as the int32 with the same
+    bits: words from 2^31 up become negative, exactly."""
+    return ((word ^ _SIGN32) - _SIGN32).to(torch.int32)
+
+
+def _classic_sort_perm(words: List[torch.Tensor], bits: List[int],
+                       capacity: int) -> torch.Tensor:
+    """Stable radix sort of keys too wide for the scatter branch.
+
+    The words go least significant first. Each rides its passes beside
+    the int32 permutation: a pass counts the word's low digit (B4), scans
+    the table, and moves ``word >> width`` and the permutation entry to
+    each row's destination (B2's rank-and-scatter form), so the word stays
+    in the permutation's order and is gathered once, when its turn comes
+    (B5; the first word is in row order already). A word's last pass
+    drops it. (The reference gathers the digit through the permutation
+    every pass.)"""
+    perm = None
+    for word, wb in zip(reversed(words), reversed(bits)):
+        w = _word_bits(word)
+        if perm is None:
+            perm = torch.arange(capacity, dtype=torch.int32, device=w.device)
+        else:
+            w = flat_gather(w, perm)
+        for shift in range(0, wb, _DIGIT_BITS):
+            width = min(_DIGIT_BITS, wb - shift)
+            table = radix_hist(w, width)
+            w, perm = radix_rank_scatter(w, width, perm, _destinations(table),
+                                         keep_word=shift + width < wb)
+    return perm.long()
+
+
 def _radix_fallback_perm(words: List[torch.Tensor], bits: List[int],
                          capacity: int) -> torch.Tensor:
     """Counting radix sort: scatter-only when the key fits 64 bits beside
-    the row id, otherwise the classic gather-digits-by-perm loop. Every
-    pass runs the kernels of ops/radix.py, whatever its digit width: a
-    digit below 2^width is still a digit below 256."""
+    the row id, otherwise the classic loop. Every pass runs the kernels
+    of ops/radix.py, whatever its digit width: a digit below 2^width is
+    still a digit below 256."""
     total = int(sum(bits))
     pbits = max(1, capacity - 1).bit_length()
     if total + pbits <= 64 and total > 0:
         return _scatter_sort_perm(words, bits, capacity)
-    dev = words[0].device
-    perm = torch.arange(capacity, dtype=torch.int64, device=dev)
-    for word, wb in zip(reversed(words), reversed(bits)):
-        for shift in range(0, wb, _DIGIT_BITS):
-            width = min(_DIGIT_BITS, wb - shift)
-            d = ((word[perm] >> shift) & ((1 << width) - 1)).to(torch.int32)
-            pos = radix_pass_positions(d, capacity)
-            nxt = torch.empty_like(perm)
-            nxt[pos] = perm
-            perm = nxt
-    return perm
+    return _classic_sort_perm(words, bits, capacity)
 
 
 def sort_permutation(keys, orders, capacity: int, active) -> torch.Tensor:
