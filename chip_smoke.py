@@ -8,10 +8,14 @@ Phases, each printing one line; any failure raises and exits non-zero:
 1. device: require CUDA; print the card's name and power limit.
 2. build: compile the CUDA kernels (velox_tpu_torch/csrc) and the native
    TPC-H generator from the sources in this checkout.
-3. kernel: the filter-sum kernel against its plain PyTorch version on the
-   card, exact equality over many shapes; median times at 6.7M and 60M
-   rows, in the Q6 shape and in a shape where every row loads every column
-   (the one whose bytes are known, for the bandwidth figure).
+3. kernel: the filter-sum kernel (B1) against its plain PyTorch version
+   on the card, exact equality over many shapes, every kernel instance
+   (each layout of range and product columns), every 16-byte offset of the
+   columns (alike and mixed) and a running total carried across calls;
+   median times at 6.7M and 60M rows, in the Q6 shape (adding into a
+   running total, as the operator does) and in a shape where every row
+   loads every column (the one whose bytes are known, for the bandwidth
+   figure), and at 6.7M rows also from a captured CUDA graph.
 4. q6: TPC-H Q6 through Task.batches() twice, through the kernel (its
    launch count is reset just before and read just after); the result
    must equal a numpy oracle over the same generated columns exactly.
@@ -45,21 +49,29 @@ Phases, each printing one line; any failure raises and exits non-zero:
 10. q6_generic: Q6 with a filter the kernel matcher rejects, through the
    generic aggregation: the Q6 value, and no filter-sum launch.
 11. gather_kernel: the flat-gather kernel (B5) against its plain PyTorch
-   version on the card, exact, over data lengths 1 to 60,000,001, index
-   lengths 1 to 6.7M, 4- and 8-byte data, int32 and int64 indices, and
-   uniform, sorted, reversed and constant indices; median times of the
-   kernel, its plain version and torch.index_select at 2^20 and
-   60,000,001 int32 data rows with 6.7M indices. The bound counts each
-   data sector the indices touch once.
+   version on the card, bit for bit, over data lengths 1 to 60,000,001,
+   index lengths 1 to 6.7M, 4- and 8-byte data, int32 and int64 indices,
+   uniform, sorted, reversed and constant indices, and indices that start
+   off the 16-byte boundary; the multi-column form (gather_rows) with 1-8
+   columns of mixed widths. Median times of the kernel, its plain version
+   and torch.index_select (one a column), beside the bound that counts
+   each data sector the indices touch once, at the shapes the path gives
+   it: uniform indices into 2^20 and 60,000,001 int32 rows, the q3/q18
+   probe's monotone indices (one SF10 lineitem split's l_orderkey into the
+   orders domain), three orders columns through the build rows in one
+   launch, and the full sort's permutation of 60,000,401 rows; CUDA-graph
+   times at 6.7M indices.
 12. q3: TPC-H Q3 (two array-mode joins, a sort-mode group-by with a
    DECIMAL(38) sum, a TopN on it): the 10 rows must equal a numpy oracle
    with direct-address joins over the generator's own columns. B5 runs
-   every gather of both join probes and the TopN's word gathers; B2 runs
-   every pass of the TopN's classic loop; both launch counts must be the
-   ones the plan gives.
+   every gather of both join probes (the build columns through one index
+   in one multi-column launch) and the TopN's word gathers; B2 runs every
+   pass of the TopN's classic loop; the launch counts must be the ones
+   the plan gives.
 13. q18: TPC-H Q18 (threshold 300): the rows must equal a numpy oracle
    (np.bincount of l_quantity by l_orderkey, joins, the top 100), with
-   B5's and B2's launch counts derived from the plan as in q3.
+   B5's (both forms) and B2's launch counts derived from the plan as in
+   q3.
 
 Every number a phase prints is measured in this run, on this card; bounds
 are bytes over the H100's 3.35 TB/s.
@@ -94,10 +106,14 @@ from velox_tpu_torch.exec.task import QueryCtx, Task
 from velox_tpu_torch.expression.eval import EvalValue
 from velox_tpu_torch.native import build
 from velox_tpu_torch.ops import radix as R
+from velox_tpu_torch.ops import gather as G
 from velox_tpu_torch.ops.filter_reduce import (
-    MAX_COLS, filtered_sum_product, filtered_sum_product_reference,
+    MAX_COLS, filtered_sum_product,
+    filtered_sum_product_reference, kernel_layout,
 )
-from velox_tpu_torch.ops.gather import flat_gather, flat_gather_reference
+from velox_tpu_torch.ops.gather import (
+    flat_gather, flat_gather_reference, gather_rows,
+)
 from velox_tpu_torch.testing.plan_builder import PlanBuilder
 from velox_tpu_torch.tpch import tpch_plan
 from velox_tpu_torch.tpch.queries import q18
@@ -149,6 +165,7 @@ PATH_PLANS = {
     "q1": lambda: tpch_plan(1),
     "topn": topn_plan,
     "sort_full": sort_full_plan,
+    "q6": lambda: tpch_plan(6),
     "q6_generic": q6_generic_plan,
     "q3": lambda: tpch_plan(3),
     "q18": lambda: q18(threshold=float(Q18_THRESHOLD)),
@@ -254,51 +271,125 @@ def _case(rng, n: int, k: int, n_active: int, empty: bool):
     return cols, tuple(ranges), k - 1, 0, n_active
 
 
+def _layout_case(rng, n: int, nr: int, np_: int):
+    """A call whose kernel layout is (nr range columns, np_ product
+    columns outside every range), over nr + np_ + 1 columns (the last one
+    read by nothing): ranges keep about half of each column's values, `a`
+    and `b` are the product columns, or range columns where there are
+    fewer than two."""
+    k = nr + np_
+    cols = [torch.from_numpy(rng.integers(-50_000, 50_000, n,
+                                          dtype=np.int32)).cuda()
+            for _ in range(k + (k < MAX_COLS))]
+    ranges = tuple((i, -30_000 + 1000 * i, 20_000) for i in range(nr))
+    if np_ == 2:
+        ai, bi = nr, nr + 1
+    elif np_ == 1:  # b a range column, or a * a without ranges
+        ai, bi = nr, 0 if nr else nr
+    else:
+        ai, bi = 0, nr - 1
+    return cols, ranges, ai, bi
+
+
+def _check_filter_sum(cols, ranges, ai, bi, na, what: str) -> int:
+    got = filtered_sum_product(cols, ranges, ai, bi, na)
+    ref = filtered_sum_product_reference(cols, ranges, ai, bi, na)
+    err = abs(int(got.item()) - int(ref.item()))
+    if err:
+        raise AssertionError(f"kernel {got.item()} != plain {ref.item()} "
+                             f"at {what}")
+    return err
+
+
+# B1's checked row counts, those of its layout and offset sweeps, and
+# its timed ones (one SF10 lineitem batch, all of lineitem)
+FILTER_SIZES = (1, 1000, 131089, 6_700_000, 60_000_000)
+FILTER_SWEEP_SIZES = (1003, 131089, 6_700_000)
+FILTER_TIMED = (6_700_000, 60_000_000)
+
+
 def kernel_phase(rng) -> dict:
     cases = 0
     max_err = 0
-    for n in (1, 1000, 131089, 6_700_000, 60_000_000):
+    for n in FILTER_SIZES:
         for n_active in sorted({0, max(0, n - 17), n}):
             for k in ((1, 4, MAX_COLS) if n <= 131089 else (4,)):
                 for empty in (False, True):
                     cols, ranges, ai, bi, na = _case(rng, n, k, n_active,
                                                      empty)
-                    got = filtered_sum_product(cols, ranges, ai, bi, na)
-                    ref = filtered_sum_product_reference(cols, ranges, ai,
-                                                         bi, na)
-                    torch.cuda.synchronize()
-                    err = abs(int(got.item()) - int(ref.item()))
-                    max_err = max(max_err, err)
-                    if err or (empty and int(got.item()) != 0):
-                        raise AssertionError(
-                            f"kernel {got.item()} != plain {ref.item()} at "
-                            f"n={n} k={k} n_active={na} ranges={ranges}")
+                    max_err = max(max_err, _check_filter_sum(
+                        cols, ranges, ai, bi, na,
+                        f"n={n} k={k} n_active={na} ranges={ranges}"))
                     cases += 1
+    # every kernel instance: each (range columns, product columns outside
+    # every range) layout a call over at most MAX_COLS columns can have
+    layouts = [(nr, np_) for np_ in range(3)
+               for nr in range(MAX_COLS + 1 - np_) if nr + np_]
+    for nr, np_ in layouts:
+        for n in FILTER_SWEEP_SIZES:
+            cols, ranges, ai, bi = _layout_case(rng, n, nr, np_)
+            if kernel_layout(ranges, ai, bi).instance != (nr, np_):
+                raise AssertionError(f"layout case {nr, np_} maps to "
+                                     f"{kernel_layout(ranges, ai, bi)}")
+            for na in (n - 17, n):
+                max_err = max(max_err, _check_filter_sum(
+                    cols, ranges, ai, bi, na,
+                    f"layout {nr, np_} n={n} n_active={na}"))
+                cases += 1
+    # every 16-byte offset of the columns, all alike (a scalar head and
+    # tail around the 16-byte body) and all different (the scalar loop)
+    for n in FILTER_SWEEP_SIZES[1:]:
+        base, ranges, ai, bi, _ = _case(rng, n + 3, 4, 0, False)
+        for offs in ((0,) * 4, (1,) * 4, (2,) * 4, (3,) * 4, (0, 1, 2, 3),
+                     (3, 1, 0, 2)):
+            cols = [c[o:o + n] for c, o in zip(base, offs)]
+            for na in (n - 17, n - 2, n):
+                max_err = max(max_err, _check_filter_sum(
+                    cols, ranges, ai, bi, na, f"offsets {offs} n={n} "
+                    f"n_active={na}"))
+                cases += 1
+    # a running total carried across calls, as FilterSumOperator does
+    total = torch.zeros((), dtype=torch.int64, device="cuda")
+    want = 0
+    for i, n in enumerate(FILTER_SWEEP_SIZES + (4097,)):
+        cols, ranges, ai, bi, _ = _case(rng, n, 4, n - i, i == 3)
+        na = torch.tensor(n - i, dtype=torch.int32, device="cuda")
+        filtered_sum_product(cols, ranges, ai, bi, na, out=total)
+        want += int(filtered_sum_product_reference(cols, ranges, ai, bi,
+                                                   na).item())
+        err = abs(int(total.item()) - want)
+        max_err = max(max_err, err)
+        if err:
+            raise AssertionError(f"running total {total.item()} != {want} "
+                                 f"after {i + 1} calls")
+        cases += 1
     timings = {}
-    for n in (6_700_000, 60_000_000):
+    for n in FILTER_TIMED:
         # the Q6 shape: 4 columns, 3 ranges, `a` outside every range (so it
-        # is loaded only for rows that pass), n_active on the device
+        # is loaded only for groups where some row passes), n_active on the
+        # device, the sum added into a running total as on the path
         cols, ranges, ai, bi, _ = _case(rng, n, 4, n, False)
         na = torch.tensor(n - 17, dtype=torch.int32, device="cuda")
+        acc = torch.zeros((), dtype=torch.int64, device="cuda")
         # every column a range that keeps every row: each row loads all
         # 4 columns, 16 bytes, the count the bandwidth figure divides by
         full = tuple((i, -50_000, 50_000) for i in range(4))
-        got = filtered_sum_product(cols, full, ai, bi, na)
-        ref = filtered_sum_product_reference(cols, full, ai, bi, na)
-        if int(got.item()) != int(ref.item()):
-            raise AssertionError(f"kernel {got.item()} != plain {ref.item()}"
-                                 f" at n={n} with every column a range")
+        for rs, what in ((ranges, "the Q6 shape"),
+                         (full, "every column a range")):
+            max_err = max(max_err, _check_filter_sum(
+                cols, rs, ai, bi, na, f"timed n={n}, {what}"))
+            cases += 1
         t = {
             "ms": time_ms(lambda: filtered_sum_product(cols, ranges, ai, bi,
-                                                       na)),
+                                                       na, out=acc)),
             "plain_ms": time_ms(lambda: filtered_sum_product_reference(
                 cols, ranges, ai, bi, na)),
             "all_read_ms": time_ms(lambda: filtered_sum_product(
-                cols, full, ai, bi, na)),
-            # the output memset each call launches, timed alone
-            "zeros_ms": time_ms(lambda: torch.zeros(
-                (), dtype=torch.int64, device="cuda")),
+                cols, full, ai, bi, na, out=acc)),
         }
+        if n == FILTER_TIMED[0]:
+            t["graph_ms"] = graph_ms(lambda: filtered_sum_product(
+                cols, ranges, ai, bi, na, out=acc))
         t["all_read_bytes_per_s"] = 16 * (n - 17) / (t["all_read_ms"] / 1e3)
         # least bytes of the Q6 shape: each range column over the active
         # rows, a product column outside every range only where all pass,
@@ -314,6 +405,7 @@ def kernel_phase(rng) -> dict:
         timings[n] = t
         del cols
     phase("kernel", cases=cases, max_abs_err=max_err,
+          layouts=[list(x) for x in layouts],
           times={str(n): t for n, t in timings.items()})
     return {"max_abs_err": max_err, "timings": timings}
 
@@ -330,7 +422,7 @@ def q6_phase(conn, ctx, li) -> int:
     rows = conn.gen.num_rows("lineitem")
     n_splits = len(conn.default_splits("lineitem"))
     expect = q6_oracle(li)
-    plan = tpch_plan(6)
+    plan = PATH_PLANS["q6"]()
     counter = M.K_FILTER_SUM_KERNEL
     fired0 = M.reporter().snapshot()["counters"].get(counter, 0)
     walls, values = [], []
@@ -421,13 +513,15 @@ def lineitem_columns(conn):
 def reset_launches() -> None:
     filtered_sum_product.launches = 0
     flat_gather.launches = 0
+    gather_rows.launches = 0
     for k in RADIX_KERNELS:
         k.launches = 0
 
 
 def read_launches() -> dict:
     out = {"filter_sum": filtered_sum_product.launches,
-           "flat_gather": flat_gather.launches}
+           "flat_gather": flat_gather.launches,
+           "gather_rows": gather_rows.launches}
     out.update({k.__name__: k.launches for k in RADIX_KERNELS})
     return out
 
@@ -881,7 +975,7 @@ def q1_phase(ctx, li) -> dict:
         # the final OrderBy: 4 key bits, the scatter branch, one pass
         _expect_launches("q1", counts, {"radix_hist": 1, "radix_pos": 1,
                                         "radix_rank": 0, "filter_sum": 0,
-                                        "flat_gather": 0})
+                                        "flat_gather": 0, "gather_rows": 0})
         walls.append(wall)
         launches.append(counts)
     phase("q1", groups=len(want["count_order"]),
@@ -940,7 +1034,8 @@ def topn_phase(conn, ctx, li, order) -> dict:
     out, wall, counts = _run(plan, ctx)
     _expect_launches("topn", counts, {
         "radix_hist": passes * n_batches, "radix_pos": passes * n_batches,
-        "radix_rank": 0, "filter_sum": 0, "flat_gather": 0})
+        "radix_rank": 0, "filter_sum": 0, "flat_gather": 0,
+        "gather_rows": 0})
     got = _host_rows(out, SORT_COLS[:2])
     top = order[:1000]
     for c in SORT_COLS[:2]:
@@ -973,7 +1068,8 @@ def sort_full_phase(conn, ctx, li, order) -> dict:
         passes = -(-bits // 8)
         want = {"radix_hist": passes, "radix_rank": 0, "radix_pos": passes,
                 "flat_gather": 0}
-    _expect_launches("sort_full", counts, dict(want, filter_sum=0))
+    _expect_launches("sort_full", counts, dict(want, filter_sum=0,
+                                               gather_rows=0))
     rows = 0
     for b in out:
         m = b.mask
@@ -1001,7 +1097,8 @@ def q6_generic_phase(ctx, li) -> dict:
     fired = M.reporter().snapshot()["counters"].get(M.K_FILTER_SUM_KERNEL,
                                                     0) - fired0
     _expect_launches("q6_generic", counts, {"filter_sum": 0,
-                                            "flat_gather": 0})
+                                            "flat_gather": 0,
+                                            "gather_rows": 0})
     if fired:
         raise AssertionError("the filter-sum matcher took the generic plan")
     got = _host_rows(out, ["revenue"])["revenue"]
@@ -1023,6 +1120,12 @@ GATHER_PATTERNS = ("uniform", "sorted", "reversed", "constant")
 # domain table at SF10), each with one lineitem batch of indices
 GATHER_TIMED = (1 << 20, 60_000_001)
 GATHER_M = 6_700_000
+# the orders domain at SF10 (o_orderkey's stats span 0..60,000,000) and
+# the full sort's row count (all of lineitem)
+ORDERS_DOMAIN = 60_000_001
+SORT_ROWS = 60_000_401
+ORDERS_ROWS = 15_000_000
+MULTI_WIDTHS = (torch.int32, torch.int64, torch.float32, torch.float64)
 
 
 def _gather_idx(pattern: str, n: int, m: int, dtype, gen) -> torch.Tensor:
@@ -1033,6 +1136,17 @@ def _gather_idx(pattern: str, n: int, m: int, dtype, gen) -> torch.Tensor:
     if pattern != "uniform":
         idx = torch.sort(idx, descending=pattern == "reversed").values
     return idx.to(dtype).contiguous()
+
+
+def _random_column(n: int, dtype, gen) -> torch.Tensor:
+    lim = 2 ** 31 - 1 if torch.empty((), dtype=dtype).element_size() == 4 \
+        else 2 ** 62
+    bits = torch.randint(-lim, lim, (n,), generator=gen, device="cuda",
+                         dtype=torch.int64)
+    if dtype.is_floating_point:  # any bit pattern, NaNs included: raw bits
+        itype = torch.int32 if dtype == torch.float32 else torch.int64
+        return bits.to(itype).view(dtype)
+    return bits.to(dtype)
 
 
 def distinct_sectors(data: torch.Tensor, idx: torch.Tensor) -> int:
@@ -1056,49 +1170,143 @@ def gather_bytes(data: torch.Tensor, idx: torch.Tensor) -> dict:
             "bytes_sector_per_read": io + per_read}
 
 
-def gather_phase(seed: int) -> dict:
+def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal dtype, shape and bits (float columns may hold NaN bit
+    patterns, which torch.equal calls unequal)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype.is_floating_point:
+        itype = torch.int32 if a.element_size() == 4 else torch.int64
+        a, b = a.view(itype), b.view(itype)
+    return torch.equal(a, b)
+
+
+def _check_gather(columns, idx, what: str) -> None:
+    """B5's multi-column form (or flat_gather, for one column) against the
+    plain version, bit for bit."""
+    if len(columns) == 1:
+        got = [flat_gather(columns[0], idx)]
+    else:
+        got = gather_rows(columns, idx)
+    for c, g in zip(columns, got):
+        if not _bits_equal(g, flat_gather_reference(c, idx)):
+            raise AssertionError(f"B5 differs from its plain version at "
+                                 f"{what}")
+
+
+def _monotone_probe(conn) -> torch.Tensor:
+    """The array-mode probe's index of the first lineitem split: its
+    l_orderkey minus the domain base 0 (lineitem arrives in order-key
+    order), int32, as _domain_index gives it."""
+    split = conn.default_splits("lineitem")[0]
+    keys = conn.gen.gen_lineitem(split.lo, split.hi, ["l_orderkey"])
+    return torch.from_numpy(keys["l_orderkey"].astype(np.int32)).cuda()
+
+
+def _build_rows(probe: torch.Tensor) -> torch.Tensor:
+    """The orders row of each of those lineitem rows: the build-column
+    gathers' index (orders rows are in order-index order; the order key of
+    index i is (i >> 3 << 5) | (i & 7))."""
+    k = probe.long()
+    return (((k >> 5) << 3) | (k & 7)).to(torch.int32)
+
+
+def _time_gather(columns, idx, hostless: bool, what: str) -> dict:
+    """B5 at one timed shape: first checked against its plain version bit
+    for bit on these inputs, then ms, plain_ms, library_ms (one
+    torch.index_select a column), the distinct-sector bound summed over
+    the columns, and with `hostless` the CUDA-graph times of the kernel
+    and of the library calls."""
+    _check_gather(columns, idx, f"timed shape {what}")
+    one = len(columns) == 1
+    kernel = (lambda: flat_gather(columns[0], idx)) if one \
+        else (lambda: gather_rows(columns, idx))
+    t = {"ms": time_ms(kernel),
+         "plain_ms": time_ms(lambda: [flat_gather_reference(c, idx)
+                                      for c in columns]),
+         "library_ms": time_ms(lambda: [torch.index_select(c, 0, idx)
+                                        for c in columns])}
+    if hostless:
+        t["graph_ms"] = graph_ms(kernel)
+        t["library_graph_ms"] = graph_ms(
+            lambda: [torch.index_select(c, 0, idx) for c in columns])
+    per = [gather_bytes(c, idx) for c in columns]
+    # the index is read once for all columns
+    nbytes = sum(p["bytes"] for p in per) \
+        - (len(columns) - 1) * idx.numel() * idx.element_size()
+    t.update({"bytes": nbytes, "bound_ms": bound_ms(nbytes),
+              "distinct_sectors": [p["distinct_sectors"] for p in per],
+              "bound_ms_sector_per_read": bound_ms(
+                  sum(p["bytes_sector_per_read"] for p in per)
+                  - (len(columns) - 1) * idx.numel() * idx.element_size()),
+              "columns": len(columns), "data_rows": columns[0].numel(),
+              "indices": idx.numel()})
+    return t
+
+
+def gather_phase(seed: int, conn) -> dict:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(seed)
     max_err, cases = 0, 0
     for n in GATHER_DATA:
         for dt in (torch.int32, torch.int64):
-            lim = 2 ** 31 - 1 if dt == torch.int32 else 2 ** 62
-            data = torch.randint(-lim, lim, (n,), generator=gen,
-                                 device="cuda", dtype=torch.int64).to(dt)
+            data = _random_column(n, dt, gen)
             for m in GATHER_IDX:
                 for pattern in GATHER_PATTERNS:
                     for it in (torch.int32, torch.int64):
-                        idx = _gather_idx(pattern, n, m, it, gen)
-                        got = flat_gather(data, idx)
-                        want = flat_gather_reference(data, idx)
-                        if got.dtype != want.dtype \
-                                or not torch.equal(got, want):
-                            raise AssertionError(
-                                f"flat_gather differs from its plain version"
-                                f" at n={n} m={m} {dt} idx {it} {pattern}")
-                        max_err = max(max_err, _max_err(got, want))
-                        cases += 1
+                        idx = _gather_idx(pattern, n, m + 3, it, gen)
+                        # indices that start off the 16-byte boundary
+                        # (views) as well: they load one index at a time
+                        for off in (0, 1, 3):
+                            _check_gather([data], idx[off:off + m],
+                                          f"n={n} m={m} {dt} idx {it} "
+                                          f"{pattern} offset {off}")
+                            cases += 1
             del data
+    # the multi-column form: 1-8 columns of mixed widths through one index
+    for n in (129, 1 << 20, ORDERS_ROWS):
+        cols = [_random_column(n, MULTI_WIDTHS[i % 4], gen)
+                for i in range(G.MAX_COLUMNS)]
+        for m in GATHER_IDX:
+            for pattern in ("uniform", "sorted", "constant"):
+                for it in (torch.int32, torch.int64):
+                    idx = _gather_idx(pattern, n, m, it, gen)
+                    for k in range(1, G.MAX_COLUMNS + 1):
+                        _check_gather(cols[:k], idx, f"{k} columns n={n} "
+                                      f"m={m} idx {it} {pattern}")
+                        cases += 1
+        del cols
     torch.cuda.synchronize()
+    # each timed shape is also a checked case (_time_gather checks first)
     timings = {}
     for n in GATHER_TIMED:
-        data = torch.randint(-2 ** 31, 2 ** 31 - 1, (n,), generator=gen,
-                             device="cuda", dtype=torch.int32)
+        data = _random_column(n, torch.int32, gen)
         idx = _gather_idx("uniform", n, GATHER_M, torch.int32, gen)
-        if not torch.equal(torch.index_select(data, 0, idx),
-                           flat_gather(data, idx)):
-            raise AssertionError(f"flat_gather != index_select at n={n}")
-        nbytes = gather_bytes(data, idx)
-        timings[n] = {
-            "ms": time_ms(lambda: flat_gather(data, idx)),
-            "plain_ms": time_ms(lambda: flat_gather_reference(data, idx)),
-            "library_ms": time_ms(lambda: torch.index_select(data, 0, idx)),
-            **nbytes, "bound_ms": bound_ms(nbytes["bytes"]),
-            "bound_ms_sector_per_read": bound_ms(
-                nbytes["bytes_sector_per_read"])}
+        timings[f"uniform_{n}"] = _time_gather([data], idx, True,
+                                               f"uniform_{n}")
         del data, idx
-    phase("gather_kernel", cases=cases, max_abs_err=max_err,
-          times={str(n): t for n, t in timings.items()})
+    # the q3/q18 probe: one split's l_orderkey into the orders domain
+    probe = _monotone_probe(conn)
+    data = _random_column(ORDERS_DOMAIN, torch.int32, gen)
+    timings["monotone"] = _time_gather([data], probe, True, "monotone")
+    del data
+    # the build-column gathers: three orders columns (o_orderdate,
+    # o_shippriority, an 8-byte one) at the same lineitem rows' orders rows
+    rows = _build_rows(probe)
+    cols = [_random_column(ORDERS_ROWS, dt, gen)
+            for dt in (torch.int32, torch.int32, torch.int64)]
+    timings["multi_3_columns"] = _time_gather(cols, rows, True,
+                                              "multi_3_columns")
+    del cols, rows, probe
+    # sort_full's word gather: a permutation of all of lineitem
+    perm = torch.randperm(SORT_ROWS, generator=gen, device="cuda").to(
+        torch.int32)
+    data = _random_column(SORT_ROWS, torch.int32, gen)
+    timings["permutation"] = _time_gather([data], perm, False,
+                                          "permutation")
+    del data, perm
+    cases += len(timings)
+    phase("gather_kernel", cases=cases, max_abs_err=max_err, times=timings)
     return {"max_abs_err": max_err, "timings": timings}
 
 
@@ -1162,7 +1370,7 @@ def q18_oracle(conn, li, threshold: int) -> dict:
             "quantity": [int(x) for x in qty[okey[top]].astype(np.int64)]}
 
 
-def _join_phase(name, plan, want, ctx, b5_launches: int,
+def _join_phase(name, plan, want, ctx, b5_launches: int, b5_multi: int,
                 b2_launches: int) -> dict:
     walls, launches = [], []
     for _ in range(2):
@@ -1171,6 +1379,7 @@ def _join_phase(name, plan, want, ctx, b5_launches: int,
         if got != want:
             raise AssertionError(f"{name} {got} != numpy oracle {want}")
         _expect_launches(name, counts, {"flat_gather": b5_launches,
+                                        "gather_rows": b5_multi,
                                         "radix_rank": b2_launches,
                                         "filter_sum": 0})
         for k in ("radix_hist", "radix_pos"):
@@ -1192,12 +1401,15 @@ def q3_phase(conn, ctx, li) -> dict:
     # for each key word after the first
     plan = PATH_PLANS["q3"]()
     words = _topn_words(plan, nullable=("revenue",))
-    # B5: two gathers in each of the two builds (packed keys and key
-    # values through the permutation); one arr_row1 lookup per orders
-    # batch in the semi join; per lineitem batch one lookup and the two
-    # build columns the join outputs (o_orderdate, o_shippriority)
+    # B5, one array a launch: two gathers in each of the two builds
+    # (packed keys and key values through the permutation); one arr_row1
+    # lookup per orders batch in the semi join and per lineitem batch in
+    # the inner join; the TopN's word gathers. B5's multi-column form: per
+    # lineitem batch, the two build columns the join outputs
+    # (o_orderdate, o_shippriority) in one launch
     return _join_phase("q3", plan, want, ctx,
-                       4 + n_od + 3 * n_li + len(words) - 1, _passes(words))
+                       4 + n_od + n_li + len(words) - 1, n_li,
+                       _passes(words))
 
 
 def q18_phase(conn, ctx, li) -> dict:
@@ -1209,11 +1421,13 @@ def q18_phase(conn, ctx, li) -> dict:
     # the TopN merges each joined orders batch: one classic-loop sort each
     plan = PATH_PLANS["q18"]()
     words = _topn_words(plan)
-    # B5: two gathers in each build; per orders batch, in each join, one
-    # arr_row1 lookup and two 8-byte build columns (quantity's two limbs;
-    # then c_name's ids and c_custkey), and the TopN's word gathers
+    # B5, one array a launch: two gathers in each build; per orders
+    # batch, one arr_row1 lookup in each join and the TopN's word gathers.
+    # B5's multi-column form: per orders batch, in each join, the build
+    # columns in one launch (quantity's two limbs; then c_name's ids and
+    # c_custkey)
     return _join_phase("q18", plan, want, ctx,
-                       4 + n_od * (6 + len(words) - 1),
+                       4 + n_od * (2 + len(words) - 1), 2 * n_od,
                        n_od * _passes(words))
 
 
@@ -1243,11 +1457,11 @@ def main() -> None:
                 "sort_full": sort_full_phase(conn, ctx, li, order),
                 "q6_generic": q6_generic_phase(ctx, li)}
     del order
-    gather = gather_phase(args.seed)
+    gather = gather_phase(args.seed, conn)
     by_phase["q3"] = q3_phase(conn, ctx, li)
     by_phase["q18"] = q18_phase(conn, ctx, li)
 
-    main_shape = kernel["timings"][6_700_000]
+    main_shape = kernel["timings"][FILTER_TIMED[0]]
     kernels = [{
         "name": "filter_sum",
         "route": "cuda",
@@ -1261,11 +1475,17 @@ def main() -> None:
         "bound_by": "bytes",
         # no one PyTorch call filters by ranges and sums products
         "library_ms": None,
-        "rows": 6_700_000,
-        "ms_60m_rows": kernel["timings"][60_000_000]["ms"],
-        "plain_ms_60m_rows": kernel["timings"][60_000_000]["plain_ms"],
-        "bound_ms_60m_rows": kernel["timings"][60_000_000]["bound_ms"],
-        "all_read_ms_60m_rows": kernel["timings"][60_000_000]["all_read_ms"],
+        "rows": FILTER_TIMED[0],
+        "graph_ms": main_shape["graph_ms"],
+        "ms_60m_rows": kernel["timings"][FILTER_TIMED[1]]["ms"],
+        "plain_ms_60m_rows": kernel["timings"][FILTER_TIMED[1]]["plain_ms"],
+        "bound_ms_60m_rows": kernel["timings"][FILTER_TIMED[1]]["bound_ms"],
+        "all_read_ms_60m_rows":
+            kernel["timings"][FILTER_TIMED[1]]["all_read_ms"],
+        "redesigned": "a template instance per (range columns, product "
+                      "columns) layout; 16-byte streaming loads, >= 8 in "
+                      "flight a thread; persistent grid; adds into the "
+                      "caller's running total",
     }]
     # (kernel, TPU kernel it replaces, the path phase whose launches are
     # reported, rows of the timed shape that phase gives it, the timed
@@ -1318,28 +1538,32 @@ def main() -> None:
         if design:
             row["redesigned"] = design
         kernels.append(row)
-    q3_shape, small = (gather["timings"][GATHER_TIMED[1]],
-                       gather["timings"][GATHER_TIMED[0]])
+    # B5's path shape: the q3/q18 array-mode probe (monotone indices into
+    # the orders domain); its launches are both wrappers' on q3
+    probe = gather["timings"]["monotone"]
     kernels.append({
         "name": "flat_gather",
         "route": "cuda",
         "source": "velox_tpu_torch/csrc/flat_gather.cu",
         "replaces": "velox_tpu/ops/pallas_kernels.py:292",
-        "launches": by_phase["q3"]["flat_gather"],
-        "launches_by_phase": {p: c["flat_gather"]
+        "launches": by_phase["q3"]["flat_gather"]
+        + by_phase["q3"]["gather_rows"],
+        "launches_by_phase": {p: {"flat_gather": c["flat_gather"],
+                                  "gather_rows": c["gather_rows"]}
                               for p, c in by_phase.items()},
         "max_abs_err": gather["max_abs_err"],
-        "ms": q3_shape["ms"],
-        "plain_ms": q3_shape["plain_ms"],
-        "bound_ms": q3_shape["bound_ms"],
+        "ms": probe["ms"],
+        "plain_ms": probe["plain_ms"],
+        "bound_ms": probe["bound_ms"],
         "bound_by": "bytes",
-        "library_ms": q3_shape["library_ms"],
-        "data_rows": GATHER_TIMED[1], "indices": GATHER_M,
-        "distinct_sectors": q3_shape["distinct_sectors"],
-        "bound_ms_sector_per_read": q3_shape["bound_ms_sector_per_read"],
-        "ms_1m_data": small["ms"], "plain_ms_1m_data": small["plain_ms"],
-        "bound_ms_1m_data": small["bound_ms"],
-        "library_ms_1m_data": small["library_ms"],
+        "library_ms": probe["library_ms"],
+        "timed_shape": "monotone",
+        # every timed shape: uniform at two data sizes, monotone, the
+        # multi-column form, the full sort's permutation
+        "times": gather["timings"],
+        "redesigned": "all of a thread's data loads in flight; 16-byte "
+                      "index loads and stores, evict-first in L2; up to 8 "
+                      "columns through one index a launch",
     })
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -334,7 +334,11 @@ def test_rejected_batch_runs_the_generic_aggregation():
 
 def test_storage_change_after_the_kernel_ran_raises():
     """A batch the kernel cannot take, after the kernel has summed
-    earlier batches, raises instead of dropping the running total."""
+    earlier rows, no longer raises: the generic aggregation takes it and
+    the kernel's running total is added to its result, so Q6 stays exact.
+    The kernel sums the first half of the rows (a prefix mask); the rest
+    arrive with an int64 column."""
+    want = JTask(jax_tpch_plan(6)).run()
     plan = tpch_plan(6)
     chain = collapse_chain(plan.source)
     conn = register_tpch(0.01)
@@ -343,13 +347,62 @@ def test_storage_change_after_the_kernel_ran_raises():
     op = FilterSumOperator(plan, spec, "cpu", lambda: AggregationOperator(
         plan, "cpu", pre_fn=chain_fn(chain)))
     src = conn.create_data_source("lineitem", Q6_COLS, CPU)
-    b = src.next(conn.default_splits("lineitem")[0])
-    op.add_input(b)
-    cols = dict(b.columns)
-    q = cols["l_quantity"]
-    cols["l_quantity"] = DeviceColumn(q.data.long(), q.validity, q.dtype)
-    with pytest.raises(NotImplementedError, match="storage changes"):
-        op.add_input(DeviceBatch(cols, b.mask))
+    splits = conn.default_splits("lineitem")
+    batches = [src.next(s) for s in splits]
+    first, rest = batches[0], batches[1:]
+    half = torch.arange(first.capacity) < int(first.num_active()) // 2
+    op.add_input(DeviceBatch(first.columns, first.mask & half))
+    assert op._fallback is None and op._total is not None
+    for b, mask in [(first, first.mask & ~half)] + [(b, b.mask)
+                                                    for b in rest]:
+        cols = dict(b.columns)
+        q = cols["l_quantity"]
+        cols["l_quantity"] = DeviceColumn(q.data.long(), q.validity, q.dtype)
+        op.add_input(DeviceBatch(cols, mask))
+    op.no_more_input()
+    assert op._fallback is not None
+    _equal_tables(to_arrow(op.get_output()), want)
+
+
+def _long_decimal_key_plan(kind: str):
+    """Group lineitem by l_orderkey into a DECIMAL(38, 2) sum, then group
+    by that sum: the second group-by's key is a long decimal."""
+    b = PlanBuilder().table_scan("lineitem", ["l_orderkey",
+                                              "l_extendedprice"])
+    if kind == "partial_final":
+        return (b.partial_aggregation(["l_orderkey"],
+                                      ["sum(l_extendedprice) as s"])
+                .final_aggregation()
+                .partial_aggregation(["s"], ["count() as n"])
+                .final_aggregation().plan())
+    b = (b.single_aggregation(["l_orderkey"], ["sum(l_extendedprice) as s"])
+         .single_aggregation(["s"], ["count() as n"]))
+    if kind == "topn":
+        b = b.top_n(["s desc"], 20)
+    return b.plan()
+
+
+@pytest.mark.parametrize("kind", ["single", "partial_final", "topn"])
+def test_long_decimal_group_keys_keep_their_high_limb(kind):
+    """A DECIMAL(38) group key carries its high limb out of the sort-mode
+    group-by (the reference drops it and cannot convert the result, so
+    the oracle is pyarrow's group_by over the generator's columns)."""
+    conn = register_tpch(0.01)
+    li = conn.gen.gen_lineitem(0, conn.gen.num_rows("orders"),
+                               ["l_orderkey", "l_extendedprice"])
+    sums = (pa.table({"k": li["l_orderkey"].astype(np.int64),
+                      "p": li["l_extendedprice"].astype(np.int64)})
+            .group_by("k").aggregate([("p", "sum")]))
+    counts = sums.group_by("p_sum").aggregate([("p_sum", "count")])
+    want = sorted(zip(counts["p_sum"].to_pylist(),
+                      counts["p_sum_count"].to_pylist()))
+    got = Task(_long_decimal_key_plan(kind), CPU).run()
+    assert got.schema.field("s").type == pa.decimal128(38, 2)
+    rows = [(int(r["s"].scaleb(2)), r["n"]) for r in got.to_pylist()]
+    if kind == "topn":
+        assert rows == sorted(want, reverse=True)[:20]
+    else:
+        assert sorted(rows) == want
 
 
 @pytest.mark.parametrize("agg", ["approx_distinct(l_quantity)",

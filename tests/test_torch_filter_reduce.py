@@ -132,3 +132,108 @@ def test_stats_above_the_bound_match_nothing_in_both():
     assert jfr.match_filter_sum(jplan, jchain, big) is None
     assert tfr.match_filter_sum(tplan, tchain, big) is None
     assert tfr.match_filter_sum(tplan, tchain, None) is None
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_running_total_equals_the_sum_of_per_batch_results(seed):
+    """``out=`` adds each call's sum into one int64 total in place, as
+    FilterSumOperator carries it across a query's batches."""
+    total = torch.zeros((), dtype=torch.int64)
+    want = 0
+    for i in range(4):
+        cols, ranges, ai, bi = _inputs(seed * 10 + i, 3000 + 517 * i)
+        cols = [torch.from_numpy(c) for c in cols]
+        n_active = torch.tensor(2900 + i, dtype=torch.int32)
+        got = tfr.filtered_sum_product(cols, ranges, ai, bi, n_active,
+                                       out=total)
+        assert got is total
+        want += int(tfr.filtered_sum_product(cols, ranges, ai, bi,
+                                             n_active))
+        assert int(total) == want
+
+
+@pytest.mark.parametrize("bad", ["int32", "shape", "device"])
+def test_running_total_must_be_one_int64_on_the_columns_device(bad):
+    cols, ranges, ai, bi = _inputs(4, 1000)
+    out = {"int32": torch.zeros((), dtype=torch.int32),
+           "shape": torch.zeros((1,), dtype=torch.int64),
+           "device": torch.zeros((), dtype=torch.int64, device="meta")}[bad]
+    with pytest.raises(ValueError, match="out must be"):
+        tfr.filtered_sum_product([torch.from_numpy(c) for c in cols],
+                                 ranges, ai, bi, 1000, out=out)
+
+
+def _matcher_specs():
+    """The specs the matcher emits on this file's plans: Q6, and Q6 with
+    its bounds moved so one range column, l_extendedprice, is also the
+    product's `a` and l_discount is left without a range."""
+    conn = register_tpch(0.01)
+    plan = tpch_plan(6)
+    chain = collapse_chain(plan.source)
+    stats = _stats(conn, chain.source)
+    specs = [tfr.match_filter_sum(plan, chain, stats)]
+    from velox_tpu_torch.testing.plan_builder import PlanBuilder
+    other = (PlanBuilder().table_scan(
+        "lineitem", ["l_shipdate", "l_extendedprice", "l_quantity",
+                     "l_discount"],
+        filter="l_extendedprice between 1000.0 and 50000.0 and "
+               "l_quantity < 24.0")
+        .project(["l_extendedprice * l_discount as revenue"])
+        .single_aggregation([], ["sum(revenue) as revenue"]).plan())
+    chain = collapse_chain(other.source)
+    specs.append(tfr.match_filter_sum(other, chain, stats))
+    assert all(s is not None for s in specs)
+    return specs
+
+
+def test_every_matched_layout_has_a_kernel_instance():
+    """The host-side layout, without a card: each spec the matcher emits
+    maps onto csrc/filter_sum.cu's instance table (at most ``MAX_COLS``
+    argument slots, at most two product columns outside every range),
+    every distinct column once, the range columns first."""
+    for spec in _matcher_specs():
+        idx = {c: i for i, c in enumerate(spec.scan_cols)}
+        layout = tfr.kernel_layout(spec.ranges, idx[spec.a_col],
+                                   idx[spec.b_col])
+        assert 1 <= len(layout.order) <= tfr.MAX_COLS
+        assert sum(layout.instance) == len(layout.order)
+        assert layout.n_product <= 2
+        assert len(set(layout.order)) == len(layout.order)
+        assert set(layout.order) == ({r[0] for r in spec.ranges}
+                                     | {idx[spec.a_col], idx[spec.b_col]})
+        assert layout.order[:layout.n_ranges] == tuple(
+            sorted(r[0] for r in spec.ranges))
+    # Q6: three range columns, the product's `a` outside every range
+    q6 = _matcher_specs()[0]
+    idx = {c: i for i, c in enumerate(q6.scan_cols)}
+    assert tfr.kernel_layout(q6.ranges, idx[q6.a_col],
+                             idx[q6.b_col]).instance == (3, 1)
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_kernel_layout_keeps_the_sum(seed):
+    """The layout the kernel runs (ranges on one column intersected and
+    clamped to int32, columns reordered, range columns first) gives the
+    plain version's value on random calls within the kernel's limits,
+    empty ranges and bounds past int32 included."""
+    rng = np.random.default_rng(100 + seed)
+    k = int(rng.integers(1, tfr.MAX_COLS + 1))
+    n = 2000
+    cols = [torch.from_numpy(rng.integers(-1000, 1000, n, dtype=np.int32))
+            for _ in range(k)]
+    ranges = []
+    for _ in range(int(rng.integers(0, tfr.MAX_RANGES + 1))):
+        lo = int(rng.integers(-(2 ** 33), 900))
+        ranges.append((int(rng.integers(0, k)), lo,
+                       lo + int(rng.integers(-(2 ** 31), 2 ** 34))))
+    ai, bi = int(rng.integers(0, k)), int(rng.integers(0, k))
+    layout = tfr.kernel_layout(ranges, ai, bi)
+    assert sum(layout.instance) == len(layout.order) <= tfr.MAX_COLS
+    assert all(-(2 ** 31) <= b <= 2 ** 31 - 1 for pair in layout.bounds
+               for b in pair)
+    slots = [cols[i] for i in layout.order]
+    as_run = tfr.filtered_sum_product_reference(
+        slots, [(r, lo, hi) for r, (lo, hi) in enumerate(layout.bounds)],
+        layout.a, layout.b, n - 3)
+    want = tfr.filtered_sum_product_reference(cols, ranges, ai, bi, n - 3)
+    assert int(as_run) == int(want)

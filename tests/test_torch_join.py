@@ -31,6 +31,7 @@ from velox_tpu_torch.connectors.tpch import register_tpch
 from velox_tpu_torch.exec import join as J
 from velox_tpu_torch.exec.sort import packable_words
 from velox_tpu_torch.exec.task import QueryCtx, Task
+from velox_tpu_torch.ops import gather as G
 from velox_tpu_torch.ops.gather import flat_gather
 from velox_tpu_torch.testing.plan_builder import PlanBuilder
 from velox_tpu_torch.tpch import tpch_plan
@@ -129,6 +130,35 @@ def test_join_types_array_mode_equal_reference(jt, dup, nulls):
                         probe, build, rng, device="cpu")
     assert got.num_rows == want.num_rows > 0
     assert got.equals(want)
+
+
+@pytest.mark.parametrize("path", ["array_mode", "count_path"])
+def test_build_and_probe_columns_share_one_gather(path, monkeypatch):
+    """The matched rows' columns go through B5's multi-column form, all
+    the 4- and 8-byte arrays of one side in one call: an inner join's
+    build columns (bk with its validity, bv) in array mode, and on the
+    count path (duplicate keys) the probe columns as well."""
+    calls = []
+    real = G.gather_rows
+
+    def spy(columns, idx):
+        calls.append(len(columns))
+        return real(columns, idx)
+
+    monkeypatch.setattr(G, "gather_rows", spy)
+    probe, build = make_tables(path == "count_path", True, seed=11)
+    if path == "array_mode":
+        want = _run_operator(JJ, JD, _plan(JPlanBuilder, probe, build,
+                                           "inner"), probe, build, (0, 149))
+        got = _run_operator(J, D, _plan(PlanBuilder, probe, build, "inner"),
+                            probe, build, (0, 149), device="cpu")
+        assert calls == [2] * 3  # one call per probe batch
+    else:
+        got = _assert_same(_plan(JPlanBuilder, probe, build, "inner"),
+                           _plan(PlanBuilder, probe, build, "inner"))
+        want = got
+        assert calls and set(calls) == {2}
+    assert got.num_rows > 0 and got.equals(want)
 
 
 @pytest.mark.parametrize("jt", JOIN_TYPES)

@@ -4,7 +4,8 @@
 Usage: python3 tools/profile_port_paths.py [--sf N] [--paths q3,q18,...]
                                            [--table-dir DIR]
 
-For each path (q1, q3, q18, topn, sort_full, q6_generic; default q3,q18)
+For each path (q6, q1, q3, q18, topn, sort_full, q6_generic; default
+q3,q18)
 it runs the plan of chip_smoke.py's phase of that name twice to warm up,
 then once under torch.profiler with CPU and CUDA activities, and prints
 one JSON line: the card's name and power limit, the three walls, the

@@ -12,10 +12,11 @@ ported (vector/device.py) and raise here.
 
 from __future__ import annotations
 
-from typing import Callable, List
+from typing import Callable, Dict, List
 
 import torch
 
+from velox_tpu_torch.ops.gather import take_many_rows
 from velox_tpu_torch.vector.device import DeviceBatch, DeviceColumn
 
 
@@ -68,6 +69,25 @@ def map_column_rows(col: DeviceColumn,
     if col.dtype.is_long_decimal:
         children = tuple(map_column_rows(c, f) for c in col.children)
     return DeviceColumn(data, validity, col.dtype, col.dictionary, children)
+
+
+def take_columns_rows(columns: Dict[str, DeviceColumn],
+                      idx: torch.Tensor) -> Dict[str, DeviceColumn]:
+    """Every column (with its validity and row-aligned children) at rows
+    ``idx``: all their 4- and 8-byte arrays through kernel B5's
+    multi-column gather, up to eight to a launch that reads ``idx`` once
+    (ops/gather.py ``take_many_rows``)."""
+    arrays: List[torch.Tensor] = []
+
+    def record(a: torch.Tensor) -> torch.Tensor:
+        arrays.append(a)
+        return a
+
+    for col in columns.values():
+        map_column_rows(col, record)
+    taken = iter(take_many_rows(arrays, idx))
+    return {name: map_column_rows(col, lambda a: next(taken))
+            for name, col in columns.items()}
 
 
 def compact(batch: DeviceBatch) -> DeviceBatch:

@@ -176,22 +176,31 @@ def sorted_group_info(keys: Sequence[EvalValue], active, capacity: int,
 def group_keys_sorted(keys: Sequence[EvalValue], perm, gid, boundary,
                       active_sorted, num_groups, capacity: int):
     """Dense per-group key columns (group g's key values), taken from each
-    group's first sorted row."""
+    group's first sorted row. A long decimal's high limb goes through the
+    same gather and scatter as its low limb."""
     from velox_tpu_torch.ops.wide import scatter_unique_set
+    from velox_tpu_torch.vector.device import DeviceColumn
     group_mask = torch.arange(capacity, device=perm.device) < num_groups
     target = torch.where(boundary & active_sorted, gid, capacity)
+
+    def first_of_group(rows: torch.Tensor) -> torch.Tensor:
+        return scatter_unique_set(capacity + 1, target,
+                                  rows[perm])[:capacity]
+
     out_keys = []
     for v in keys:
-        ks = v.full_data(capacity)[perm]
-        gd = scatter_unique_set(capacity + 1, target, ks)[:capacity]
+        gd = first_of_group(v.full_data(capacity))
         if v.validity is not None:
-            vs = v.full_validity(capacity)[perm]
-            validity = scatter_unique_set(capacity + 1, target,
-                                          vs)[:capacity]
+            validity = first_of_group(v.full_validity(capacity))
             validity = validity | ~group_mask  # padding rows: non-null
         else:
             validity = None
-        out_keys.append(EvalValue(gd, validity, v.dtype, v.dictionary))
+        children = ()
+        if v.dtype.is_long_decimal:
+            children = (DeviceColumn(first_of_group(v.full_hi(capacity)),
+                                     None, T.BIGINT),)
+        out_keys.append(EvalValue(gd, validity, v.dtype, v.dictionary,
+                                  children=children))
     return out_keys, group_mask
 
 

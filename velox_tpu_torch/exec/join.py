@@ -19,9 +19,11 @@ build keys in one of two ways:
   probe row's key run give its [lo, hi).
 
 ``perm`` maps sorted positions back to build rows, so duplicate keys need
-no side structure. Every 4- and 8-byte gather of the probe (the domain
-tables, ``perm``, the build and probe columns at the matched rows) runs
-kernel B5 (ops/gather.py ``take_rows``).
+no side structure. Every 4- and 8-byte gather of the probe runs kernel
+B5: the domain tables and ``perm`` one array at a time (ops/gather.py
+``take_rows``), the build and probe columns at the matched rows all
+through one index in one launch (exec/batch_utils.py
+``take_columns_rows``).
 
 * Unique-key builds without a filter emit one output row per probe row,
   with no host sync.
@@ -52,7 +54,9 @@ from velox_tpu_torch.core.expressions import referenced_fields
 from velox_tpu_torch.core.stats import (
     resolve_column_stats, resolve_column_unique,
 )
-from velox_tpu_torch.exec.batch_utils import concat_batches, map_column_rows
+from velox_tpu_torch.exec.batch_utils import (
+    concat_batches, take_columns_rows,
+)
 from velox_tpu_torch.exec.operator import Operator
 from velox_tpu_torch.exec.sort import (
     pack_key_u64, packable_words, sort_perm_key, sort_words,
@@ -488,11 +492,11 @@ class HashJoinOperator(Operator):
             if self._node.filter is not None:
                 need |= referenced_fields(self._node.filter)
         row = torch.clamp(build_row, 0, None)
+        taken = take_columns_rows(
+            {name: col for name, col in build.columns.items()
+             if need is None or name in need}, row)
         cols = {}
-        for name, col in build.columns.items():
-            if need is not None and name not in need:
-                continue
-            c = map_column_rows(col, lambda a: take_rows(a, row))
+        for name, c in taken.items():
             validity = c.validity
             if null_out is not None:
                 validity = (~null_out if validity is None
@@ -598,9 +602,7 @@ class HashJoinOperator(Operator):
         build_row = torch.where(
             row_hit, self._build_row_at(bt, take_rows(loc, row_c), within),
             -1)
-        out_cols = {name: map_column_rows(col,
-                                          lambda a: take_rows(a, row_c))
-                    for name, col in batch.columns.items()}
+        out_cols = take_columns_rows(batch.columns, row_c)
         null_out = None
         if node.join_type in (P.JoinType.LEFT, P.JoinType.FULL):
             null_out = ~row_hit

@@ -40,6 +40,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _LOCK = threading.Lock()
 _LOADED: Dict[str, Optional[ctypes.CDLL]] = {}
+_SM_COUNT: Dict[int, int] = {}
 # seconds each library's compile took in this process (0.0 when the
 # hashed library was already on disk); read by chip_smoke.py
 BUILD_SECONDS: Dict[str, float] = {}
@@ -120,6 +121,18 @@ def load_kernel(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(_build_kernel(name)))
             _LOADED[name] = lib
         return lib
+
+
+def sm_count(device) -> int:
+    """The SM count of CUDA ``device`` (a ``torch.device``), read once per
+    device: the persistent kernels size their grids by it."""
+    import torch
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if index not in _SM_COUNT:
+        _SM_COUNT[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return _SM_COUNT[index]
 
 
 def load_kernels() -> Dict[str, ctypes.CDLL]:

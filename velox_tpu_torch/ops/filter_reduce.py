@@ -4,10 +4,12 @@ Counterpart of ``velox_tpu/ops/filter_reduce.py``. The pattern: a global
 ``sum(a * b)`` over int32-stored columns under a conjunction of
 per-column range predicates — TPC-H Q6 exactly. ``match_filter_sum``
 recognizes it in a fused scan chain and ``FilterSumOperator`` runs
-``filtered_sum_product`` once per scan batch:
+``filtered_sum_product`` once per scan batch, adding into one running
+total on the device:
 
 * on a CUDA tensor, the hand-written kernel in ``csrc/filter_sum.cu``
-  (exact int64 accumulation, one atomic add per block);
+  (exact int64 accumulation, one atomic add per block; a template
+  instance per ``kernel_layout``);
 * on a CPU tensor, its plain PyTorch version
   ``filtered_sum_product_reference``.
 
@@ -20,7 +22,8 @@ does not; widening the matcher is a separate change with its own test.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, List, Optional, Tuple
+import functools
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -29,15 +32,21 @@ from velox_tpu_torch import types as T
 from velox_tpu_torch.core import expressions as ex
 from velox_tpu_torch.core import plan as P
 from velox_tpu_torch.exec.operator import Operator
+from velox_tpu_torch.native.build import load_kernel, sm_count
+from velox_tpu_torch.ops.int128 import add128
 from velox_tpu_torch.vector.device import DeviceBatch, DeviceColumn
 
 # The reference's |b| bound for its 1024-row int32 lane sums:
 # 1024 * 65535 * |b| < 2^31.
 MAX_B_ABS = (2 ** 31 - 1) // (1024 * 65536)
 
-# the kernel's fixed argument slots (csrc/filter_sum.cu kMaxCols/kMaxRanges)
+# the kernel's argument slots (csrc/filter_sum.cu kMaxCols, which also
+# bounds its instance table); MAX_RANGES bounds the (col_idx, lo, hi)
+# triples a call may pass, which the wrapper intersects per column before
+# the kernel sees them
 MAX_COLS = 8
 MAX_RANGES = 8
+_INT32_MIN, _INT32_MAX = -(2 ** 31), 2 ** 31 - 1
 
 
 def filtered_sum_product_reference(cols: List[torch.Tensor], ranges,
@@ -55,23 +64,60 @@ def filtered_sum_product_reference(cols: List[torch.Tensor], ranges,
     return torch.where(keep, prod, 0).sum()
 
 
+class KernelLayout(NamedTuple):
+    """How one call maps onto the kernel: ``order`` lists the distinct
+    columns it reads (indices into the call's ``cols``), the ``n_ranges``
+    range columns first, each with one int32 ``bounds`` pair, then the
+    ``n_product`` product columns outside every range; ``a`` and ``b``
+    index ``order``. ``instance`` names the kernel instance: the kernel
+    has one for every layout of a call over at most ``MAX_COLS``
+    columns."""
+    n_ranges: int
+    n_product: int
+    order: Tuple[int, ...]
+    bounds: Tuple[Tuple[int, int], ...]
+    a: int
+    b: int
+
+    @property
+    def instance(self) -> Tuple[int, int]:
+        return self.n_ranges, self.n_product
+
+
+def kernel_layout(ranges, ai: int, bi: int) -> KernelLayout:
+    """The kernel layout of a call: ranges on one column intersected into
+    one pair, clamped to int32 (a column holds int32 values, so the clamp
+    keeps every row's outcome; an empty range becomes (1, 0))."""
+    merged: Dict[int, List[int]] = {}
+    for i, lo, hi in ranges:
+        b = merged.setdefault(i, [_INT32_MIN, _INT32_MAX])
+        b[0], b[1] = max(b[0], int(lo)), min(b[1], int(hi))
+    range_cols = sorted(merged)
+    product = sorted({ai, bi} - set(range_cols))
+    order = tuple(range_cols + product)
+    bounds = tuple((lo, hi) if lo <= hi else (1, 0)
+                   for lo, hi in (merged[c] for c in range_cols))
+    return KernelLayout(len(range_cols), len(product), order, bounds,
+                        order.index(ai), order.index(bi))
+
+
 class _FilterSumArgs(ctypes.Structure):
     """Mirror of ``FilterSumArgs`` in csrc/filter_sum.cu."""
     _fields_ = [
         ("cols", ctypes.c_void_p * MAX_COLS),
-        ("lo", ctypes.c_int64 * MAX_RANGES),
-        ("hi", ctypes.c_int64 * MAX_RANGES),
-        ("range_col", ctypes.c_int32 * MAX_RANGES),
+        ("lo", ctypes.c_int32 * MAX_COLS),
+        ("hi", ctypes.c_int32 * MAX_COLS),
         ("n_ranges", ctypes.c_int32),
-        ("a_col", ctypes.c_int32),
-        ("b_col", ctypes.c_int32),
-        ("pad", ctypes.c_int32),
+        ("n_product", ctypes.c_int32),
+        ("a", ctypes.c_int32),
+        ("b", ctypes.c_int32),
         ("n", ctypes.c_int64),
+        ("sms", ctypes.c_int32),
+        ("pad", ctypes.c_int32),
     ]
 
 
 def _kernel_lib():
-    from velox_tpu_torch.native.build import load_kernel
     fn = load_kernel("filter_sum").vt_filter_sum
     if fn.argtypes is None:
         fn.argtypes = [_FilterSumArgs, ctypes.c_void_p, ctypes.c_void_p,
@@ -101,8 +147,32 @@ def _check_args(cols: List[torch.Tensor], ranges, ai: int, bi: int):
             raise ValueError(f"column index {idx} out of range")
 
 
+def _check_out(out: Optional[torch.Tensor], dev: torch.device) -> None:
+    if out is not None and (out.dtype != torch.int64 or out.dim() != 0
+                            or out.device != dev):
+        raise ValueError("out must be a 0-dim int64 tensor on the columns' "
+                         f"device; got {out.dtype} {tuple(out.shape)} on "
+                         f"{out.device}")
+
+
+@functools.lru_cache(maxsize=256)
+def _call_template(ranges, ai: int, bi: int,
+                   sms: int) -> Tuple[Tuple[int, ...], _FilterSumArgs]:
+    """The layout's column order and the kernel's arguments without the
+    column pointers and the row count: built once per (ranges, a, b, SM
+    count), so a query's batches pay only for their pointers."""
+    layout = kernel_layout(ranges, ai, bi)
+    args = _FilterSumArgs()
+    for r, (lo, hi) in enumerate(layout.bounds):
+        args.lo[r], args.hi[r] = lo, hi
+    args.n_ranges, args.n_product = layout.n_ranges, layout.n_product
+    args.a, args.b = layout.a, layout.b
+    args.sms = sms
+    return layout.order, args
+
+
 def _launch(cols: List[torch.Tensor], ranges, ai: int, bi: int,
-            n_active) -> torch.Tensor:
+            n_active, out: Optional[torch.Tensor]) -> torch.Tensor:
     dev = cols[0].device
     if isinstance(n_active, torch.Tensor):
         if n_active.device != dev or n_active.numel() != 1:
@@ -111,14 +181,15 @@ def _launch(cols: List[torch.Tensor], ranges, ai: int, bi: int,
         n_act = n_active.reshape(()).to(torch.int32).contiguous()
     else:
         n_act = torch.tensor(int(n_active), dtype=torch.int32, device=dev)
-    args = _FilterSumArgs()
-    for i, c in enumerate(cols):
-        args.cols[i] = c.data_ptr()
-    for r, (i, lo, hi) in enumerate(ranges):
-        args.range_col[r], args.lo[r], args.hi[r] = i, lo, hi
-    args.n_ranges, args.a_col, args.b_col = len(ranges), ai, bi
+    order, template = _call_template(tuple(map(tuple, ranges)), ai, bi,
+                                     sm_count(dev))
+    args = _FilterSumArgs.from_buffer_copy(template)
+    ptrs = args.cols
+    for slot, i in enumerate(order):
+        ptrs[slot] = cols[i].data_ptr()
     args.n = cols[0].shape[0]
-    out = torch.zeros((), dtype=torch.int64, device=dev)
+    if out is None:
+        out = torch.zeros((), dtype=torch.int64, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):
         err = _kernel_lib()(args, n_act.data_ptr(), out.data_ptr(), stream)
@@ -130,23 +201,27 @@ def _launch(cols: List[torch.Tensor], ranges, ai: int, bi: int,
 
 
 def filtered_sum_product(cols: List[torch.Tensor], ranges, ai: int, bi: int,
-                         n_active) -> torch.Tensor:
+                         n_active, out: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
     """sum over active rows passing all ranges of cols[ai] * cols[bi].
 
     cols: int32 tensors of one shared length on one device; rows at or
     past ``n_active`` (an int or a one-element tensor on that device) are
     excluded. ranges: (col_idx, lo, hi) inclusive int bounds. Returns a
-    0-dim int64 tensor on the columns' device. CUDA tensors run the
-    kernel (``launches`` counts its launches); CPU tensors run the plain
-    version; any other device raises.
+    0-dim int64 tensor on the columns' device: a new one, or ``out`` (a
+    0-dim int64 tensor there) with the sum added to it in place, so a
+    caller carries a running total across calls without a launch of its
+    own. CUDA tensors run the kernel (``launches`` counts its launches);
+    CPU tensors run the plain version; any other device raises.
     """
     _check_args(cols, ranges, ai, bi)
     dev = cols[0].device
+    _check_out(out, dev)
     if dev.type == "cuda":
-        return _launch(cols, ranges, ai, bi, n_active)
+        return _launch(cols, ranges, ai, bi, n_active, out)
     if dev.type == "cpu":
-        return filtered_sum_product_reference(cols, ranges, ai, bi,
-                                              n_active)
+        s = filtered_sum_product_reference(cols, ranges, ai, bi, n_active)
+        return s if out is None else out.add_(s)
     raise ValueError(f"filtered_sum_product has no kernel for {dev}")
 
 
@@ -302,11 +377,13 @@ def match_filter_sum(node: "P.AggregationNode", chain,
 
 
 class FilterSumOperator(Operator):
-    """Runs the fused kernel per scan batch and emits one row with the
-    total. A batch whose storage defeats the kernel (nulls, non-int32
-    columns) switches the operator to the generic aggregation that
+    """Runs the fused kernel per scan batch, adding into one device int64
+    total that it zeroes once per query, and emits one row with the total.
+    A batch whose storage defeats the kernel (nulls, non-int32 columns)
+    switches the operator to the generic aggregation that
     ``fallback_factory`` builds, as in the reference; that batch and every
-    later one go there."""
+    later one go there, and the kernel's total of the earlier batches is
+    added to the generic aggregation's result."""
 
     def __init__(self, node, spec: FilterSumSpec, device, fallback_factory):
         super().__init__(node)
@@ -315,7 +392,7 @@ class FilterSumOperator(Operator):
         self._idx = {c: i for i, c in enumerate(spec.scan_cols)}
         self._fallback_factory = fallback_factory
         self._fallback = None
-        self._total = None
+        self._total = None  # the kernel's running total, once it ran
         self._done = False
 
     @property
@@ -332,29 +409,45 @@ class FilterSumOperator(Operator):
 
     def add_input(self, batch):
         if self._fallback is None and not self._batch_ok(batch):
-            if self._total is not None:
-                # the reference would drop the kernel's running total here
-                raise NotImplementedError(
-                    "filter-sum input whose storage changes after the "
-                    "first batch")
             self._fallback = self._fallback_factory()
         if self._fallback is not None:
             self._fallback.add_input(batch)
             return
+        if self._total is None:
+            self._total = torch.zeros((), dtype=torch.int64,
+                                      device=self._device)
         cols = [batch.columns[c].data for c in self.spec.scan_cols]
-        t = filtered_sum_product(
+        filtered_sum_product(
             cols, self.spec.ranges, self._idx[self.spec.a_col],
-            self._idx[self.spec.b_col], batch.num_active())
-        self._total = t if self._total is None else self._total + t
+            self._idx[self.spec.b_col], batch.num_active(), out=self._total)
 
     def no_more_input(self):
         super().no_more_input()
         if self._fallback is not None:
             self._fallback.no_more_input()
 
+    def _with_kernel_total(self, out: DeviceBatch) -> DeviceBatch:
+        """The generic aggregation's one-row result plus the kernel's total
+        of the batches before the fallback. The kernel's sum is never NULL,
+        so neither is the combined one."""
+        name = self.spec.out_name
+        col = out.columns[name]
+        total = self._total.reshape(1)
+        if col.dtype.is_long_decimal:
+            lo, hi = add128(col.data, col.children[0].data, total,
+                            total >> 63)
+            col = DeviceColumn(lo, None, col.dtype, None,
+                               (DeviceColumn(hi, None, T.BIGINT),))
+        else:
+            col = DeviceColumn(col.data + total, None, col.dtype)
+        return DeviceBatch(dict(out.columns, **{name: col}), out.mask)
+
     def get_output(self):
         if self._fallback is not None:
-            return self._fallback.get_output()
+            out = self._fallback.get_output()
+            if out is None or self._total is None:
+                return out
+            return self._with_kernel_total(out)
         if self._done or not self._no_more_input:
             return None
         self._done = True

@@ -1,58 +1,132 @@
-"""Flat gather: ``out[i] = data[idx[i]]`` (kernel B5).
+"""Flat gather: ``out[i] = data[idx[i]]`` (kernel B5), one column or
+several through one index.
 
 Counterpart of ``velox_tpu/ops/pallas_kernels.py``'s ``flat_gather``. The
 reference builds it for the TPU's VMEM and lanes: 128 lane rotations, a
 (R, 128) reshape, output and data split into sub-calls, and a fallback to
 ``data[idx]`` past 2^20 data elements, so nothing in its engine reaches
-it. On Hopper it is a plain indexed load (``csrc/flat_gather.cu``) with no
-length cap, and the join probe sends its 4- and 8-byte gathers through it
-(exec/join.py).
+it. On Hopper it is an indexed load with no length cap
+(``csrc/flat_gather.cu``: one tile of consecutive index rows a block, all
+of a thread's data loads in flight, 16-byte index loads and stores that
+leave L2 to the data), and the join probe and the sort send their 4- and
+8-byte gathers through it (exec/join.py, exec/sort.py).
 
-``flat_gather`` dispatches on the tensors' device: a CUDA tensor launches
-the kernel and adds one to ``flat_gather.launches``; a CPU tensor runs the
-plain PyTorch version beside it, ``flat_gather_reference``; any other
-device raises. Data is a contiguous 1-D tensor of 4- or 8-byte elements
-(moved as raw bits, so any such dtype), indices a contiguous 1-D int32 or
-int64 tensor whose every value lies in [0, len(data)): the kernel does not
-check them, so callers clip first, as the reference's callers do.
+``flat_gather`` (one column) and ``gather_rows`` (up to ``MAX_COLUMNS``
+columns through one index, in one launch that reads the index once)
+dispatch on the tensors' device: a CUDA tensor launches the kernel and
+adds one to the wrapper's ``launches``; a CPU tensor runs the plain
+PyTorch version, ``flat_gather_reference``; any other device raises.
+Data is a contiguous 1-D tensor of 4- or 8-byte elements (moved as raw
+bits, so any such dtype), indices a contiguous 1-D int32 or int64 tensor
+whose every value lies in [0, len(data)): the kernel does not check them,
+so callers clip first, as the reference's callers do.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import List, Optional, Sequence
 
 import torch
 
+from velox_tpu_torch.native.build import load_kernel
+
 _INDEX_DTYPES = (torch.int32, torch.int64)
+# columns one gather_rows launch takes (csrc/flat_gather.cu kMaxCols)
+MAX_COLUMNS = 8
 
 
-def _check(data: torch.Tensor, idx: torch.Tensor) -> None:
-    if data.dim() != 1 or not data.is_contiguous() \
-            or data.element_size() not in (4, 8) or data.dtype == torch.bool:
-        raise ValueError("flat_gather data must be a contiguous 1-D tensor "
-                         "of 4- or 8-byte elements; got "
-                         f"{data.dtype} {tuple(data.shape)}")
+class _GatherArgs(ctypes.Structure):
+    """Mirror of ``GatherArgs`` in csrc/flat_gather.cu."""
+    _fields_ = [
+        ("data", ctypes.c_void_p * MAX_COLUMNS),
+        ("out", ctypes.c_void_p * MAX_COLUMNS),
+        ("elem_bytes", ctypes.c_int32 * MAX_COLUMNS),
+        ("n_cols", ctypes.c_int32),
+        ("idx_bytes", ctypes.c_int32),
+        ("idx", ctypes.c_void_p),
+        ("m", ctypes.c_int64),
+    ]
+
+
+def _is_gatherable(a: torch.Tensor) -> bool:
+    return a.dim() == 1 and a.element_size() in (4, 8) \
+        and a.dtype != torch.bool
+
+
+def _check(columns: Sequence[torch.Tensor], idx: torch.Tensor,
+           what: str) -> None:
+    for data in columns:
+        if not _is_gatherable(data) or not data.is_contiguous():
+            raise ValueError(f"{what} data must be a contiguous 1-D tensor "
+                             "of 4- or 8-byte elements; got "
+                             f"{data.dtype} {tuple(data.shape)}")
+        if idx.device != data.device:
+            raise ValueError(f"{what} data on {data.device}, indices on "
+                             f"{idx.device}")
+        if data.shape[0] == 0 and idx.shape[0] > 0:
+            raise ValueError(f"{what} from empty data")
     if idx.dtype not in _INDEX_DTYPES or idx.dim() != 1 \
             or not idx.is_contiguous():
-        raise ValueError("flat_gather indices must be a contiguous 1-D int32 "
+        raise ValueError(f"{what} indices must be a contiguous 1-D int32 "
                          f"or int64 tensor; got {idx.dtype} "
                          f"{tuple(idx.shape)}")
-    if idx.device != data.device:
-        raise ValueError(f"flat_gather data on {data.device}, indices on "
-                         f"{idx.device}")
-    if data.shape[0] == 0 and idx.shape[0] > 0:
-        raise ValueError("flat_gather from empty data")
 
 
-def _kernel_lib():
-    from velox_tpu_torch.native.build import load_kernel
-    fn = load_kernel("flat_gather").vt_flat_gather
+# each C entry's arguments: the one-column form takes scalars, the
+# multi-column form one struct
+_ARGTYPES = {
+    "vt_flat_gather": [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+                       ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+                       ctypes.c_void_p],
+    "vt_flat_gather_multi": [_GatherArgs, ctypes.c_void_p],
+}
+
+
+def _entry(name: str):
+    fn = getattr(load_kernel("flat_gather"), name)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                       ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64,
-                       ctypes.c_void_p, ctypes.c_void_p]
+        fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
     return fn
+
+
+def _raise_on(err: int) -> None:
+    if err != 0:
+        raise RuntimeError(f"flat gather kernel launch failed: CUDA error "
+                           f"{err}")
+
+
+def _launch_one(data: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """One column through the scalar entry, which fills no struct."""
+    dev = idx.device
+    out = torch.empty(idx.shape, dtype=data.dtype, device=dev)
+    fn = _entry("vt_flat_gather")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        _raise_on(fn(data.element_size(), idx.element_size(),
+                     data.data_ptr(), idx.data_ptr(), idx.shape[0],
+                     out.data_ptr(), stream))
+    return out
+
+
+def _launch(columns: Sequence[torch.Tensor],
+            idx: torch.Tensor) -> List[torch.Tensor]:
+    dev = idx.device
+    outs = [torch.empty(idx.shape, dtype=c.dtype, device=dev)
+            for c in columns]
+    args = _GatherArgs()
+    data, out, widths = args.data, args.out, args.elem_bytes
+    for i, (c, o) in enumerate(zip(columns, outs)):
+        data[i], out[i], widths[i] = c.data_ptr(), o.data_ptr(), \
+            c.element_size()
+    args.n_cols, args.idx_bytes = len(columns), idx.element_size()
+    args.idx, args.m = idx.data_ptr(), idx.shape[0]
+    fn = _entry("vt_flat_gather_multi")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):
+        _raise_on(fn(args, stream))
+    return outs
 
 
 def flat_gather_reference(data: torch.Tensor,
@@ -64,19 +138,10 @@ def flat_gather_reference(data: torch.Tensor,
 def flat_gather(data: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """B5: ``data[idx]`` for 4- or 8-byte data and int32/int64 indices in
     [0, len(data))."""
-    _check(data, idx)
+    _check([data], idx, "flat_gather")
     dev = data.device
     if dev.type == "cuda":
-        out = torch.empty(idx.shape, dtype=data.dtype, device=dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        with torch.cuda.device(dev):
-            err = _kernel_lib()(data.element_size(), idx.element_size(),
-                                data.data_ptr(), data.shape[0],
-                                idx.data_ptr(), idx.shape[0], out.data_ptr(),
-                                stream)
-        if err != 0:
-            raise RuntimeError(f"flat gather kernel launch failed: CUDA error "
-                               f"{err}")
+        out = _launch_one(data, idx)
         flat_gather.launches += 1
         return out
     if dev.type == "cpu":
@@ -87,12 +152,56 @@ def flat_gather(data: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 flat_gather.launches = 0
 
 
+def gather_rows(columns: Sequence[torch.Tensor],
+                idx: torch.Tensor) -> List[torch.Tensor]:
+    """B5 over up to ``MAX_COLUMNS`` columns through one index:
+    ``[c[idx] for c in columns]``, each column 4- or 8-byte data (widths
+    may differ), in one launch that reads ``idx`` once. CUDA tensors
+    launch the kernel and add one to ``gather_rows.launches``; CPU
+    tensors run ``flat_gather_reference`` per column."""
+    if not 1 <= len(columns) <= MAX_COLUMNS:
+        raise ValueError(f"gather_rows takes 1 to {MAX_COLUMNS} columns, "
+                         f"got {len(columns)}")
+    _check(columns, idx, "gather_rows")
+    dev = idx.device
+    if dev.type == "cuda":
+        outs = _launch(columns, idx)
+        gather_rows.launches += 1
+        return outs
+    if dev.type == "cpu":
+        return [flat_gather_reference(c, idx) for c in columns]
+    raise ValueError(f"gather_rows has no kernel for {dev}")
+
+
+gather_rows.launches = 0
+
+
 def take_rows(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """``a[idx]`` of a 1-D row-aligned tensor: through B5 when ``a`` has
     4- or 8-byte elements and ``idx`` is an int32/int64 index tensor,
     plain indexing otherwise (bool validity and narrower columns lie
     outside B5's contract)."""
-    if a.dim() == 1 and a.element_size() in (4, 8) \
-            and a.dtype != torch.bool and idx.dtype in _INDEX_DTYPES:
+    if _is_gatherable(a) and idx.dtype in _INDEX_DTYPES:
         return flat_gather(a.contiguous(), idx.contiguous())
     return a[idx]
+
+
+def take_many_rows(arrays: Sequence[torch.Tensor],
+                   idx: torch.Tensor) -> List[torch.Tensor]:
+    """``[a[idx] for a in arrays]`` of 1-D row-aligned tensors: the 4- and
+    8-byte ones through ``gather_rows``, ``MAX_COLUMNS`` to a launch, the
+    rest (bool validity, narrower columns) by plain indexing."""
+    out: List[Optional[torch.Tensor]] = [None] * len(arrays)
+    wide = [i for i, a in enumerate(arrays) if _is_gatherable(a)]
+    if idx.dtype not in _INDEX_DTYPES:
+        wide = []
+    idx_c = idx.contiguous()
+    for k in range(0, len(wide), MAX_COLUMNS):
+        part = wide[k:k + MAX_COLUMNS]
+        for i, g in zip(part, gather_rows(
+                [arrays[i].contiguous() for i in part], idx_c)):
+            out[i] = g
+    for i, a in enumerate(arrays):
+        if out[i] is None:
+            out[i] = a[idx]
+    return out
