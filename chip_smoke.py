@@ -16,12 +16,29 @@ Phases, each printing one line; any failure raises and exits non-zero:
    running total, as the operator does) and in a shape where every row
    loads every column (the one whose bytes are known, for the bandwidth
    figure), and at 6.7M rows also from a captured CUDA graph.
-4. q6: TPC-H Q6 through Task.batches() twice, through the kernel (its
-   launch count is reset just before and read just after); the result
+4. q6: TPC-H Q6 through Task.batches(), through the kernel; the result
    must equal a numpy oracle over the same generated columns exactly.
+   Like every path phase below, it runs the query three times: cold (the
+   scan cache cleared), warm (every split from the cache) and cold with
+   the scan's producer thread off (SCAN_PREFETCH_DEPTH 0). Each run is
+   exact with the same launch counts (reset just before the run, read
+   just after); cold runs miss the cache once a split their scans read
+   and hit nothing, the warm run hits as often and misses nothing, and a
+   checksum of every cached tensor is the same after the warm run as
+   after the cold one. The line gives the three walls.
+   eviction: Q6 three times with a cache budget of half one run's scan,
+   so entries are evicted (and their device blocks reused by the next
+   uploads) while the query runs: exact every time, evictions above 0.
 5. heads: the scan+filter+project heads of Q6 and Q1 without their
    aggregations; active-row counts and column sums, reduced on the card,
    must equal numpy exactly.
+   scan: one lineitem split of Q1's seven columns uploaded in the earlier
+   host form (zeros, astype and a slice copy, then a pageable copy) and
+   in the data source's (one pass into pinned memory, then an
+   asynchronous copy on its own stream), in turns: host ms, copy ms and
+   GB/s of each, and the data source's whole upload; equal device bytes.
+   It runs before q6, so its first call of each form is the process's
+   first (pinned) upload.
 6. radix_kernels: the counting-sort pass kernels (histogram B4 from int32
    digits, from the int64 sort state and from an int32 sort word at every
    digit width 1-8; B2's rank form and its rank-and-scatter form, with and
@@ -36,7 +53,7 @@ Phases, each printing one line; any failure raises and exits non-zero:
    branch in its two-launch form and its earlier glue form, in turns; and
    whole radix_sort_perm calls on the orderBy and full-sort keys against
    a stable torch.sort of the same packed lane.
-7. q1: TPC-H Q1 twice (array-mode partial/final aggregation, DECIMAL(38)
+7. q1: TPC-H Q1 (array-mode partial/final aggregation, DECIMAL(38)
    sums, half-up avgs, the final OrderBy); every output value must equal
    a numpy oracle exactly.
 8. topn: the orderBy config (ORDER BY l_shipdate, l_orderkey LIMIT 1000,
@@ -76,8 +93,9 @@ Phases, each printing one line; any failure raises and exits non-zero:
 Every number a phase prints is measured in this run, on this card; bounds
 are bytes over the H100's 3.35 TB/s.
 
-Each path phase sets every kernel's launch count to 0 just before it runs
-the query and reads the counts just after. The line before the last is a
+Each path phase sets every kernel's launch count to 0 just before each
+run of its query and reads the counts just after; the kernels line
+reports the cold run's. The line before the last is a
 JSON object describing each kernel; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -95,8 +113,12 @@ import torch
 
 from velox_tpu_torch import types as T
 from velox_tpu_torch.common import metrics as M
-from velox_tpu_torch.connectors.tpch import register_tpch
+from velox_tpu_torch.connectors.cache import DataCache
+from velox_tpu_torch.connectors.tpch import (
+    register_tpch, stage_column, storage_dtype,
+)
 from velox_tpu_torch.core import plan as P
+from velox_tpu_torch.core.config import QueryConfig as QC
 from velox_tpu_torch.core.plan import SortOrder
 from velox_tpu_torch.core.stats import resolve_column_stats
 from velox_tpu_torch.exec.sort import (
@@ -418,41 +440,76 @@ def q6_oracle(li) -> int:
                 * li["l_discount"][m].astype(np.int64)).sum())
 
 
-def q6_phase(conn, ctx, li) -> int:
+def q6_value(out) -> int:
+    """Q6's revenue from its one output batch, both limbs checked."""
+    col = out[0].columns["revenue"]
+    value = int(col.data[0].item())
+    hi = int(col.children[0].data[0].item())
+    if hi != (-1 if value < 0 else 0):
+        raise AssertionError(f"Q6 high limb {hi} for {value}")
+    return value
+
+
+def q6_phase(conn, ctx, li) -> dict:
     rows = conn.gen.num_rows("lineitem")
     n_splits = len(conn.default_splits("lineitem"))
     expect = q6_oracle(li)
-    plan = PATH_PLANS["q6"]()
     counter = M.K_FILTER_SUM_KERNEL
     fired0 = M.reporter().snapshot()["counters"].get(counter, 0)
-    walls, values = [], []
-    filtered_sum_product.launches = 0
-    for _ in range(2):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        task = Task(plan, ctx)
-        out = list(task.batches())
-        task.check_errors()
-        col = out[0].columns["revenue"]
-        values.append(int(col.data[0].item()))
-        hi = int(col.children[0].data[0].item())
-        walls.append(time.perf_counter() - t0)
-        if hi != (-1 if values[-1] < 0 else 0):
-            raise AssertionError(f"Q6 high limb {hi} for {values[-1]}")
-    launches = filtered_sum_product.launches
+
+    def check(out, counts):
+        got = q6_value(out)
+        if got != expect:
+            raise AssertionError(f"Q6 {got} != numpy oracle {expect}")
+        _expect_launches("q6", counts, {"filter_sum": n_splits,
+                                        "flat_gather": 0, "gather_rows": 0})
+
+    runs = path_runs(PATH_PLANS["q6"](), conn, ctx, check)
     fired = M.reporter().snapshot()["counters"].get(counter, 0) - fired0
-    if fired != 2:
+    if fired != len(runs):
         raise AssertionError(f"K_FILTER_SUM_KERNEL fired {fired} times, "
                              "expected once per run")
-    if launches != 2 * n_splits:
-        raise AssertionError(f"{launches} kernel launches in two runs over "
-                             f"{n_splits} lineitem splits")
-    if values != [expect, expect]:
-        raise AssertionError(f"Q6 {values} != numpy oracle {expect}")
     phase("q6", sf=conn.scale_factor, lineitem_rows=rows, splits=n_splits,
-          revenue_scaled_e4=expect, launches=launches, wall_s=walls,
-          rows_per_s=[rows / w for w in walls])
-    return launches
+          revenue_scaled_e4=expect, **_runs_fields(runs),
+          rows_per_s={r: rows / v["wall_s"] for r, v in runs.items()})
+    return runs["cold"]["launches"]
+
+
+def eviction_phase(conn, ctx, li) -> None:
+    """Q6 three times with the default prefetch and a cache budget of half
+    one run's scan (at least its largest batch): every run evicts entries
+    while the query still reads earlier batches, and the freed device
+    blocks go back to the allocator for the next uploads. Every run must
+    stay exact."""
+    cache = DataCache.instance()
+    expect = q6_oracle(li)
+    cache.clear()
+    _run(PATH_PLANS["q6"](), ctx)
+    run_bytes = cache.used
+    small = max(run_bytes // 2, max(b.nbytes for _, b in cache.entries()))
+    budget = cache.budget
+    evicted0 = M.reporter().snapshot()["counters"].get(
+        M.K_SCAN_CACHE_EVICTIONS, 0)
+    cache.clear()
+    cache.budget = small
+    walls = []
+    try:
+        for _ in range(3):
+            out, wall, counts = _run(PATH_PLANS["q6"](), ctx)
+            got = q6_value(out)
+            if got != expect:
+                raise AssertionError(f"Q6 under evictions: {got} != numpy "
+                                     f"oracle {expect}")
+            walls.append(wall)
+    finally:
+        cache.budget = budget
+        cache.clear()
+    evicted = M.reporter().snapshot()["counters"].get(
+        M.K_SCAN_CACHE_EVICTIONS, 0) - evicted0
+    if evicted <= 0:
+        raise AssertionError("no cache entry was evicted")
+    phase("eviction", run_scan_bytes=run_bytes, budget=small,
+          evictions=evicted, wall_s=walls)
 
 
 def _head_sums(plan, ctx):
@@ -500,6 +557,90 @@ def heads_phase(ctx, li) -> None:
             raise AssertionError(f"{name}: rows {count} vs {int(mask.sum())}"
                                  f", sums {got} vs {want}")
         phase(name, active_rows=count, columns=sorted(got), wall_s=wall)
+
+
+def _old_host_form(arrays, dtypes, cap) -> dict:
+    """The data source's host form before the one-pass staging: zeros,
+    astype, a slice copy, into pageable memory."""
+    out = {}
+    for c, arr in arrays.items():
+        np_dt = torch.empty(0, dtype=dtypes[c]).numpy().dtype
+        data = np.zeros((cap,), np_dt)
+        data[:len(arr)] = arr.astype(np_dt)
+        out[c] = data
+    return out
+
+
+def scan_phase(conn) -> dict:
+    """One SF10 lineitem split of Q1's seven columns, uploaded in the
+    earlier form (zeros, astype and a slice copy on the host, then a
+    pageable ``.to``, which the driver stages through its own buffer) and
+    in the data source's form (one pass into pinned memory, then a
+    ``non_blocking`` copy on a stream of its own), in turns: host ms, copy
+    ms (host clock to the copies' end) and GB/s of each, and the whole
+    ``_to_batch`` of the source, which overlaps a column's narrowing with
+    the previous column's copy. The device bytes must be equal."""
+    dev = torch.device("cuda")
+    split = conn.default_splits("lineitem")[0]
+    arrays = conn.gen.generate("lineitem", split.lo, split.hi, Q1_COLS)
+    src = conn.create_data_source("lineitem", Q1_COLS, QueryCtx(dev))
+    cap = src._capacity
+    dtypes = {c: storage_dtype("lineitem", c) for c in Q1_COLS}
+    nbytes = sum(cap * torch.empty(0, dtype=d).element_size()
+                 for d in dtypes.values())
+    stream = torch.cuda.Stream(dev)
+
+    def old_form():
+        t0 = time.perf_counter()
+        host = _old_host_form(arrays, dtypes, cap)
+        t1 = time.perf_counter()
+        out = {c: torch.from_numpy(h).to(dev) for c, h in host.items()}
+        torch.cuda.synchronize()
+        return t1 - t0, time.perf_counter() - t1, out
+
+    def new_form():
+        t0 = time.perf_counter()
+        host = {c: stage_column(a, dtypes[c], cap, pin=True)
+                for c, a in arrays.items()}
+        t1 = time.perf_counter()
+        with torch.cuda.stream(stream):
+            out = {c: h.to(dev, non_blocking=True) for c, h in host.items()}
+        stream.synchronize()
+        return t1 - t0, time.perf_counter() - t1, out
+
+    def to_batch():
+        t0 = time.perf_counter()
+        src._to_batch(arrays)
+        return time.perf_counter() - t0
+
+    # the process's first pinned buffers (the phase runs before any
+    # query); the host allocator caches them from here on
+    first = {"new": new_form()[:2], "old": old_form()[:2]}
+    times = {"old": [], "new": [], "to_batch": []}
+    for i in range(6):
+        for form in (("old", "new") if i % 2 == 0 else ("new", "old")):
+            host_s, copy_s, _ = old_form() if form == "old" else new_form()
+            times[form].append((host_s, copy_s))
+        times["to_batch"].append(to_batch())
+    _, _, old = old_form()
+    _, _, new = new_form()
+    for c in Q1_COLS:
+        if old[c].dtype != new[c].dtype or not torch.equal(old[c], new[c]):
+            raise AssertionError(f"scan: {c} differs between the forms")
+    forms = {}
+    for form in ("old", "new"):
+        host_ms = statistics.median(h for h, _ in times[form]) * 1e3
+        copy_ms = statistics.median(c for _, c in times[form]) * 1e3
+        forms[form] = {"host_ms": host_ms, "copy_ms": copy_ms,
+                       "total_ms": host_ms + copy_ms,
+                       "h2d_gb_per_s": nbytes / copy_ms / 1e6,
+                       "first_call_ms": [x * 1e3 for x in first[form]]}
+    forms["new"]["to_batch_ms"] = statistics.median(
+        times["to_batch"]) * 1e3
+    phase("scan", rows=len(arrays[Q1_COLS[0]]), capacity=cap,
+          columns=len(Q1_COLS), device_bytes=nbytes, forms=forms)
+    DataCache.instance().clear()
+    return forms
 
 
 def lineitem_columns(conn):
@@ -957,6 +1098,76 @@ def _run(plan, ctx):
     return out, time.perf_counter() - t0, read_launches()
 
 
+def scan_splits(conn, plan) -> int:
+    """Splits the plan's scans read: each TableScan reads every split of
+    its table."""
+    n = len(conn.default_splits(plan.table)) \
+        if isinstance(plan, P.TableScanNode) else 0
+    return n + sum(scan_splits(conn, s) for s in plan.sources)
+
+
+def _checksum(t: torch.Tensor) -> torch.Tensor:
+    """A position-weighted int64 sum of a tensor's values (wrapping), on
+    the card: any changed, moved or swapped value changes it."""
+    w = torch.arange(t.numel(), device=t.device) % 65521 + 1
+    return (t.reshape(-1).long() * w).sum()
+
+
+def cache_checksums() -> dict:
+    """One checksum a tensor of every scan-cache entry."""
+    sums = {}
+    for key, b in DataCache.instance().entries():
+        ts = [b.mask]
+        for c in b.columns.values():
+            ts += [c.data] + ([c.validity] if c.validity is not None
+                              else []) + [ch.data for ch in c.children]
+        sums[key] = torch.stack([_checksum(t) for t in ts]).tolist()
+    return sums
+
+
+def path_runs(plan, conn, ctx, check) -> dict:
+    """Three runs of a path, each exact (``check(out, launch counts)``):
+    cold (the scan cache cleared just before), warm (every split from the
+    cache), and cold again with the scan's producer thread off
+    (SCAN_PREFETCH_DEPTH 0). Cold runs must miss once a split their scans
+    read and hit nothing; the warm run must hit as often and miss
+    nothing; the cache's entries must be unchanged across the warm run."""
+    cache = DataCache.instance()
+    n = scan_splits(conn, plan)
+    serial = QueryCtx(ctx.device, {QC.SCAN_PREFETCH_DEPTH: 0})
+    runs = {}
+    for run, c in (("cold", ctx), ("warm", ctx), ("prefetch_0", serial)):
+        if run != "warm":
+            cache.clear()
+        hits, misses = cache.hits, cache.misses
+        out, wall, counts = _run(plan, c)
+        check(out, counts)
+        got = (cache.hits - hits, cache.misses - misses)
+        want = (n, 0) if run == "warm" else (0, n)
+        if got != want:
+            raise AssertionError(f"{run} run: cache (hits, misses) {got}, "
+                                 f"expected {want}")
+        if run == "cold":
+            sums = cache_checksums()
+        elif run == "warm" and cache_checksums() != sums:
+            raise AssertionError("the warm run changed a cached batch")
+        runs[run] = {"wall_s": wall, "cache_hits": got[0],
+                     "cache_misses": got[1], "launches": counts}
+    if runs["warm"]["launches"] != runs["cold"]["launches"]:
+        raise AssertionError("warm and cold runs launched differently")
+    return runs
+
+
+def _runs_fields(runs) -> dict:
+    """A path phase's line: the walls and cache lookups of its runs and
+    the cold run's launch counts."""
+    return {"wall_s": {r: v["wall_s"] for r, v in runs.items()},
+            "cache": {r: [v["cache_hits"], v["cache_misses"]]
+                      for r, v in runs.items()},
+            "cached_entries": len(DataCache.instance().entries()),
+            "launches": runs["cold"]["launches"]}
+
+
 def _expect_launches(name, got, want):
     for k, v in want.items():
         if got[k] != v:
@@ -964,11 +1175,10 @@ def _expect_launches(name, got, want):
                                  f"expected {v}")
 
 
-def q1_phase(ctx, li) -> dict:
+def q1_phase(conn, ctx, li) -> dict:
     want = q1_oracle(li)
-    walls, launches = [], []
-    for _ in range(2):
-        out, wall, counts = _run(PATH_PLANS["q1"](), ctx)
+
+    def check(out, counts):
         got = _host_rows(out, list(want))
         if got != want:
             raise AssertionError(f"Q1 {got} != numpy oracle {want}")
@@ -976,13 +1186,13 @@ def q1_phase(ctx, li) -> dict:
         _expect_launches("q1", counts, {"radix_hist": 1, "radix_pos": 1,
                                         "radix_rank": 0, "filter_sum": 0,
                                         "flat_gather": 0, "gather_rows": 0})
-        walls.append(wall)
-        launches.append(counts)
+
+    runs = path_runs(PATH_PLANS["q1"](), conn, ctx, check)
     phase("q1", groups=len(want["count_order"]),
-          count_order=want["count_order"], launches=launches[-1],
-          wall_s=walls, rows_per_s=[len(li["l_orderkey"]) / w
-                                    for w in walls])
-    return launches[-1]
+          count_order=want["count_order"], **_runs_fields(runs),
+          rows_per_s={r: len(li["l_orderkey"]) / v["wall_s"]
+                      for r, v in runs.items()})
+    return runs["cold"]["launches"]
 
 
 def _words_of(bits: int) -> list:
@@ -1031,82 +1241,96 @@ def topn_phase(conn, ctx, li, order) -> dict:
     bits = _key_bits(conn, SORT_COLS[:2])
     n_batches = len(conn.default_splits("lineitem"))
     passes = -(-bits // 8)
-    out, wall, counts = _run(plan, ctx)
-    _expect_launches("topn", counts, {
-        "radix_hist": passes * n_batches, "radix_pos": passes * n_batches,
-        "radix_rank": 0, "filter_sum": 0, "flat_gather": 0,
-        "gather_rows": 0})
-    got = _host_rows(out, SORT_COLS[:2])
     top = order[:1000]
-    for c in SORT_COLS[:2]:
-        if got[c] != [int(x) for x in li[c][top]]:
-            raise AssertionError(f"TopN {c} differs from np.lexsort's "
-                                 "first 1000 rows")
+
+    def check(out, counts):
+        _expect_launches("topn", counts, {
+            "radix_hist": passes * n_batches,
+            "radix_pos": passes * n_batches, "radix_rank": 0,
+            "filter_sum": 0, "flat_gather": 0, "gather_rows": 0})
+        got = _host_rows(out, SORT_COLS[:2])
+        for c in SORT_COLS[:2]:
+            if got[c] != [int(x) for x in li[c][top]]:
+                raise AssertionError(f"TopN {c} differs from np.lexsort's "
+                                     "first 1000 rows")
+
+    runs = path_runs(plan, conn, ctx, check)
     phase("topn", key_bits=bits, batches=n_batches, passes=passes,
-          launches=counts, wall_s=wall)
-    return counts
+          **_runs_fields(runs))
+    return runs["cold"]["launches"]
 
 
 def sort_full_phase(conn, ctx, li, order) -> dict:
     plan = sort_full_plan()
     bits = _key_bits(conn, SORT_COLS)
-    out, wall, counts = _run(plan, ctx)
-    cap = sum(b.capacity for b in out)
-    # key + row-id bits past 64: the classic loop, B4 + B2's
-    # rank-and-scatter form a pass over the key's 32-bit words, B5 once
-    # for each word after the first; at SF10, 42 key bits + 26 row-id bits
-    classic = bits + max(1, cap - 1).bit_length() > 64
-    if conn.scale_factor >= 10 and not classic:
-        raise AssertionError(f"full sort of {cap} rows and {bits} key bits "
-                             "would not take the classic loop")
-    if classic:
-        words = _words_of(bits)
-        passes = _passes(words)
-        want = {"radix_hist": passes, "radix_rank": passes, "radix_pos": 0,
-                "flat_gather": len(words) - 1}
-    else:
-        passes = -(-bits // 8)
-        want = {"radix_hist": passes, "radix_rank": 0, "radix_pos": passes,
-                "flat_gather": 0}
-    _expect_launches("sort_full", counts, dict(want, filter_sum=0,
-                                               gather_rows=0))
-    rows = 0
-    for b in out:
-        m = b.mask
-        n = int(m.sum().item())
-        for c in SORT_COLS:
-            got = b.columns[c].data[m].cpu().numpy()
-            if not np.array_equal(got, li[c][order[rows:rows + n]]):
-                raise AssertionError(f"full sort: {c} is not in "
-                                     "np.lexsort order")
-        rows += n
-    if rows != len(order):
-        raise AssertionError(f"full sort gave {rows} rows, not {len(order)}")
-    phase("sort_full", rows=rows, capacity=cap, key_bits=bits,
-          classic_loop=classic, passes=passes, launches=counts, wall_s=wall,
-          rows_per_s=rows / wall)
-    return counts
+    shape = {}
+
+    def check(out, counts):
+        cap = sum(b.capacity for b in out)
+        # key + row-id bits past 64: the classic loop, B4 + B2's
+        # rank-and-scatter form a pass over the key's 32-bit words, B5
+        # once for each word after the first; at SF10, 42 key bits + 26
+        # row-id bits
+        classic = bits + max(1, cap - 1).bit_length() > 64
+        if conn.scale_factor >= 10 and not classic:
+            raise AssertionError(f"full sort of {cap} rows and {bits} key "
+                                 "bits would not take the classic loop")
+        if classic:
+            words = _words_of(bits)
+            passes = _passes(words)
+            want = {"radix_hist": passes, "radix_rank": passes,
+                    "radix_pos": 0, "flat_gather": len(words) - 1}
+        else:
+            passes = -(-bits // 8)
+            want = {"radix_hist": passes, "radix_rank": 0,
+                    "radix_pos": passes, "flat_gather": 0}
+        _expect_launches("sort_full", counts, dict(want, filter_sum=0,
+                                                   gather_rows=0))
+        rows = 0
+        for b in out:
+            m = b.mask
+            n = int(m.sum().item())
+            for c in SORT_COLS:
+                got = b.columns[c].data[m].cpu().numpy()
+                if not np.array_equal(got, li[c][order[rows:rows + n]]):
+                    raise AssertionError(f"full sort: {c} is not in "
+                                         "np.lexsort order")
+            rows += n
+        if rows != len(order):
+            raise AssertionError(f"full sort gave {rows} rows, not "
+                                 f"{len(order)}")
+        shape.update(rows=rows, capacity=cap, classic_loop=classic,
+                     passes=passes)
+
+    runs = path_runs(plan, conn, ctx, check)
+    phase("sort_full", key_bits=bits, **shape, **_runs_fields(runs),
+          rows_per_s={r: shape["rows"] / v["wall_s"]
+                      for r, v in runs.items()})
+    return runs["cold"]["launches"]
 
 
-def q6_generic_phase(ctx, li) -> dict:
+def q6_generic_phase(conn, ctx, li) -> dict:
     plan = q6_generic_plan()
     expect = q6_oracle(li)
     fired0 = M.reporter().snapshot()["counters"].get(M.K_FILTER_SUM_KERNEL,
                                                      0)
-    out, wall, counts = _run(plan, ctx)
+
+    def check(out, counts):
+        _expect_launches("q6_generic", counts, {"filter_sum": 0,
+                                                "flat_gather": 0,
+                                                "gather_rows": 0})
+        got = _host_rows(out, ["revenue"])["revenue"]
+        if got != [expect]:
+            raise AssertionError(f"generic Q6 {got} != numpy oracle "
+                                 f"{expect}")
+
+    runs = path_runs(plan, conn, ctx, check)
     fired = M.reporter().snapshot()["counters"].get(M.K_FILTER_SUM_KERNEL,
                                                     0) - fired0
-    _expect_launches("q6_generic", counts, {"filter_sum": 0,
-                                            "flat_gather": 0,
-                                            "gather_rows": 0})
     if fired:
         raise AssertionError("the filter-sum matcher took the generic plan")
-    got = _host_rows(out, ["revenue"])["revenue"]
-    if got != [expect]:
-        raise AssertionError(f"generic Q6 {got} != numpy oracle {expect}")
-    phase("q6_generic", revenue_scaled_e4=expect, launches=counts,
-          wall_s=wall)
-    return counts
+    phase("q6_generic", revenue_scaled_e4=expect, **_runs_fields(runs))
+    return runs["cold"]["launches"]
 
 
 # ---------------------------------------------------------------------------
@@ -1370,11 +1594,9 @@ def q18_oracle(conn, li, threshold: int) -> dict:
             "quantity": [int(x) for x in qty[okey[top]].astype(np.int64)]}
 
 
-def _join_phase(name, plan, want, ctx, b5_launches: int, b5_multi: int,
-                b2_launches: int) -> dict:
-    walls, launches = [], []
-    for _ in range(2):
-        out, wall, counts = _run(plan, ctx)
+def _join_phase(name, plan, want, conn, ctx, b5_launches: int,
+                b5_multi: int, b2_launches: int) -> dict:
+    def check(out, counts):
         got = _host_rows(out, list(want))
         if got != want:
             raise AssertionError(f"{name} {got} != numpy oracle {want}")
@@ -1385,11 +1607,10 @@ def _join_phase(name, plan, want, ctx, b5_launches: int, b5_multi: int,
         for k in ("radix_hist", "radix_pos"):
             if counts[k] == 0:
                 raise AssertionError(f"{name}: {k} never launched")
-        walls.append(wall)
-        launches.append(counts)
-    phase(name, rows=len(next(iter(want.values()))), launches=launches[-1],
-          wall_s=walls)
-    return launches[-1]
+
+    runs = path_runs(plan, conn, ctx, check)
+    phase(name, rows=len(next(iter(want.values()))), **_runs_fields(runs))
+    return runs["cold"]["launches"]
 
 
 def q3_phase(conn, ctx, li) -> dict:
@@ -1407,7 +1628,7 @@ def q3_phase(conn, ctx, li) -> dict:
     # the inner join; the TopN's word gathers. B5's multi-column form: per
     # lineitem batch, the two build columns the join outputs
     # (o_orderdate, o_shippriority) in one launch
-    return _join_phase("q3", plan, want, ctx,
+    return _join_phase("q3", plan, want, conn, ctx,
                        4 + n_od + n_li + len(words) - 1, n_li,
                        _passes(words))
 
@@ -1426,7 +1647,7 @@ def q18_phase(conn, ctx, li) -> dict:
     # B5's multi-column form: per orders batch, in each join, the build
     # columns in one launch (quantity's two limbs; then c_name's ids and
     # c_custkey)
-    return _join_phase("q18", plan, want, ctx,
+    return _join_phase("q18", plan, want, conn, ctx,
                        4 + n_od * (2 + len(words) - 1), 2 * n_od,
                        n_od * _passes(words))
 
@@ -1444,18 +1665,20 @@ def main() -> None:
     conn = register_tpch(args.sf)
     ctx = QueryCtx(device="cuda")
     li = lineitem_columns(conn)
-    reset_launches()
-    launches = q6_phase(conn, ctx, li)
+    scan_phase(conn)
+    by_phase = {"q6": q6_phase(conn, ctx, li)}
+    launches = by_phase["q6"]["filter_sum"]
+    eviction_phase(conn, ctx, li)
     heads_phase(ctx, li)
     radix = radix_phase(args.seed, conn, li)
     t0 = time.perf_counter()
     order = np.lexsort([li[c] for c in reversed(SORT_COLS)])
     phase("oracle_lexsort", rows=len(order),
           seconds=time.perf_counter() - t0)
-    by_phase = {"q1": q1_phase(ctx, li),
-                "topn": topn_phase(conn, ctx, li, order),
-                "sort_full": sort_full_phase(conn, ctx, li, order),
-                "q6_generic": q6_generic_phase(ctx, li)}
+    by_phase.update({"q1": q1_phase(conn, ctx, li),
+                     "topn": topn_phase(conn, ctx, li, order),
+                     "sort_full": sort_full_phase(conn, ctx, li, order),
+                     "q6_generic": q6_generic_phase(conn, ctx, li)})
     del order
     gather = gather_phase(args.seed, conn)
     by_phase["q3"] = q3_phase(conn, ctx, li)

@@ -5,15 +5,17 @@ Usage: python3 tools/profile_port_paths.py [--sf N] [--paths q3,q18,...]
                                            [--table-dir DIR]
 
 For each path (q6, q1, q3, q18, topn, sort_full, q6_generic; default
-q3,q18)
-it runs the plan of chip_smoke.py's phase of that name twice to warm up,
-then once under torch.profiler with CPU and CUDA activities, and prints
-one JSON line: the card's name and power limit, the three walls, the
-device-busy time (the summed self device time of the CUDA-side rows
-only, kernels and memcpys: some torch versions give an aten op its
-kernels' time again), its share of the profiled wall, and the largest
-device items with their call counts. With --table-dir, the full tables
-go to DIR/profile_<path>.txt. Needs a CUDA card.
+q3,q18) it clears the scan cache and runs the plan of chip_smoke.py's
+phase of that name cold (every split generated and uploaded) and warm
+(every split from the cache), then warm once more under torch.profiler
+with CPU and CUDA activities: the regime of the reference's benchmark,
+which reports a query's second run. It prints one JSON line: the card's
+name and power limit, the three walls, the device-busy time (the summed
+self device time of the CUDA-side rows only, kernels and memcpys: some
+torch versions give an aten op its kernels' time again), its share of
+the profiled wall, the host-to-device copies' part of it, and the
+largest device items with their call counts. With --table-dir, the full
+tables go to DIR/profile_<path>.txt. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
 from chip_smoke import PATH_PLANS  # noqa: E402
+from velox_tpu_torch.connectors.cache import DataCache  # noqa: E402
 from velox_tpu_torch.connectors.tpch import register_tpch  # noqa: E402
 from velox_tpu_torch.exec.task import QueryCtx, Task  # noqa: E402
 
@@ -68,6 +71,7 @@ def main() -> None:
     from torch.profiler import ProfilerActivity, profile
     for name in args.paths.split(","):
         plan = PATH_PLANS[name]()
+        DataCache.instance().clear()
         walls = [run(plan, ctx), run(plan, ctx)]
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -75,15 +79,20 @@ def main() -> None:
         rows = [e for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA]
         busy_us = sum(e.self_device_time_total for e in rows)
+        htod_us = sum(e.self_device_time_total for e in rows
+                      if "HtoD" in e.key)
         top = sorted(rows, key=lambda e: -e.self_device_time_total)
         if args.table_dir:
             Path(args.table_dir, f"profile_{name}.txt").write_text(
                 prof.key_averages().table(sort_by="self_device_time_total",
                                           row_limit=60))
         print(json.dumps({
-            "path": name, "sf": args.sf, "card": smi, "wall_s": walls,
+            "path": name, "sf": args.sf, "card": smi,
+            "wall_s": {"cold": walls[0], "warm": walls[1],
+                       "warm_profiled": walls[2]},
             "device_busy_ms": busy_us / 1e3,
             "busy_share_of_profiled_wall": busy_us / 1e6 / walls[-1],
+            "htod_ms": htod_us / 1e3,
             "top": [{"name": e.key[:90], "ms": e.self_device_time_total / 1e3,
                      "count": e.count} for e in top[:args.top]],
         }), flush=True)

@@ -3,11 +3,14 @@
 Counterpart of ``velox_tpu/connectors/tpch.py``. The generator
 (``TpchTableGen``: counter-based splitmix64 streams over (table, column,
 row), the native core in ``tpch_native.py``) is the reference's, copied so
-that both engines see bit-identical tables at any scale factor. What
-differs is the data source: each split is generated on the host and
-uploaded with ``torch.from_numpy(...).to(device)`` to the device of the
-query's ``QueryCtx``. The reference's device scan cache and prefetch
-thread are not ported yet.
+that both engines see bit-identical tables at any scale factor. The data
+source looks each split up in the device scan cache
+(``connectors/cache.py``) and, on a miss, generates it on the host and
+uploads it to the device of the query's ``QueryCtx``: each column is
+narrowed in one host pass into a pinned buffer and copied asynchronously
+on the source's own CUDA stream (on the CPU, into an ordinary tensor).
+The split prefetch thread that overlaps this with the query is the scan
+operator's (``exec/operator.py``).
 
 Money/quantity columns are DECIMAL(12,2) stored as scaled integers
 (cents); those whose generated values provably fit int32 are stored as
@@ -16,6 +19,7 @@ int32 (``_NARROW_INT32``), which the filter-sum kernel requires.
 
 from __future__ import annotations
 
+from contextlib import nullcontext
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -23,6 +27,7 @@ import numpy as np
 import torch
 
 from velox_tpu_torch import types as T
+from velox_tpu_torch.connectors.cache import DataCache
 from velox_tpu_torch.connectors.connector import (
     Connector, ConnectorSplit, DataSource, register_connector,
 )
@@ -710,6 +715,29 @@ class TpchSplit(ConnectorSplit):
     hi: int = 0
 
 
+def storage_dtype(table: str, column: str) -> torch.dtype:
+    """The dtype a column is stored in on the device."""
+    if column in _NARROW_INT32:
+        # values provably fit int32: halves device-memory traffic, and the
+        # filter-sum kernel takes int32 columns only
+        return torch.int32
+    return TPCH_SCHEMAS[table].field_type(column).torch_dtype()
+
+
+def stage_column(arr: np.ndarray, dtype: torch.dtype, capacity: int,
+                 pin: bool) -> torch.Tensor:
+    """One host pass: ``arr`` narrowed (or widened) to ``dtype`` into a
+    new host tensor of ``capacity`` rows, zero past ``len(arr)``; pinned
+    when ``pin``, so that its upload can run asynchronously. A failed pin
+    raises."""
+    host = torch.empty((capacity,), dtype=dtype, pin_memory=pin)
+    view = host.numpy()
+    n = len(arr)
+    np.copyto(view[:n], arr, casting="unsafe")
+    view[n:] = 0
+    return host
+
+
 class TpchDataSource(DataSource):
     def __init__(self, gen: TpchTableGen, table: str,
                  columns: Sequence[str], capacity: int, device):
@@ -720,6 +748,7 @@ class TpchDataSource(DataSource):
         self._schema = TPCH_SCHEMAS[table]
         self._capacity = capacity
         self._pending: Optional[Tuple[TpchSplit, int]] = None
+        self._stream = None  # the CUDA stream of this source's uploads
 
     def dictionaries(self) -> Dict[str, Dictionary]:
         return self._gen.dictionaries(self._table)
@@ -733,8 +762,16 @@ class TpchDataSource(DataSource):
         # generate in one go per split (splits are sized by the connector)
         lo, hi = pos, split.hi
         self._pending = (split, hi)
-        arrays = self._gen.generate(self._table, lo, hi, self._columns)
-        return self._to_batch(arrays)
+        # the device in the key: a CPU query never gets a CUDA batch
+        key = ("tpch", self._gen.sf, self._table, tuple(self._columns),
+               lo, hi, self._capacity, str(self._device))
+        cache = DataCache.instance()
+        batch = cache.get(key)
+        if batch is None:
+            batch = self._to_batch(
+                self._gen.generate(self._table, lo, hi, self._columns))
+            cache.put(key, batch)
+        return batch
 
     def _to_batch(self, arrays: Dict[str, np.ndarray]) -> DeviceBatch:
         n = len(next(iter(arrays.values()))) if arrays else 0
@@ -744,21 +781,26 @@ class TpchDataSource(DataSource):
             # operation on the batch runs over all `cap` rows
             cap = max(1024, default_capacity(n))
         dicts = self._gen.dictionaries(self._table)
-        cols = {}
-        for name in self._columns:
-            arr = arrays[name]
-            dt = self._schema.field_type(name)
-            np_dt = dt.np_dtype()
-            if name in _NARROW_INT32:
-                # values provably fit int32: halves device-memory traffic,
-                # and the filter-sum kernel takes int32 columns only
-                np_dt = np.dtype(np.int32)
-            data = np.zeros((cap,), np_dt)
-            data[:n] = arr.astype(np_dt)
-            cols[name] = DeviceColumn(
-                torch.from_numpy(data).to(self._device), None, dt,
-                dicts.get(name))
-        return DeviceBatch(cols, prefix_mask(n, cap, self._device))
+        cuda = self._device.type == "cuda"
+        if cuda and self._stream is None:
+            self._stream = torch.cuda.Stream(self._device)
+        # on the card, each column's copy runs on this source's stream
+        # while the host narrows the next column
+        with torch.cuda.stream(self._stream) if cuda else nullcontext():
+            cols = {}
+            for name in self._columns:
+                host = stage_column(arrays[name],
+                                    storage_dtype(self._table, name), cap,
+                                    pin=cuda)
+                cols[name] = DeviceColumn(
+                    host.to(self._device, non_blocking=True), None,
+                    self._schema.field_type(name), dicts.get(name))
+            mask = prefix_mask(n, cap, self._device)
+        if cuda:
+            # published complete: a batch in the cache or the prefetch
+            # queue never needs its reader's stream to wait for the upload
+            self._stream.synchronize()
+        return DeviceBatch(cols, mask)
 
 
 class TpchConnector(Connector):

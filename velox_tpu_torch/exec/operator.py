@@ -5,21 +5,27 @@ add_input / get_output / no_more_input / is_finished contract
 (velox/exec/Operator.h), the Values and TableScan sources, and the fused
 Filter/Project operator. Each operator's per-batch work is eager torch
 code on the batch's device; the driver loop in exec/task.py only moves
-batch handles.
+batch handles. The scan can generate and upload its next splits on a
+producer thread while the query works on the current one.
 
-Not ported yet: the scan prefetch thread, the Values ingest cache and the
-Arrow stream source.
+Not ported yet: the Values ingest cache and the Arrow stream source.
 """
 
 from __future__ import annotations
 
+import queue
+import threading
 from dataclasses import dataclass
-from typing import Callable, Optional
+from typing import Callable, Iterator, Optional
 
 import torch
 
+from velox_tpu_torch.common import metrics as M
+from velox_tpu_torch.common import testvalue as TV
 from velox_tpu_torch.core import plan as P
-from velox_tpu_torch.vector.device import DeviceBatch, from_arrow
+from velox_tpu_torch.vector.device import (
+    DeviceBatch, DeviceColumn, from_arrow,
+)
 
 
 @dataclass
@@ -65,6 +71,11 @@ class Operator:
     def is_finished(self) -> bool:
         raise NotImplementedError
 
+    def close(self) -> None:
+        """Release what the operator holds beyond its batches (threads).
+        The Task calls it when the query finishes, stops early or raises.
+        Parity: Operator::close (exec/Operator.h)."""
+
 
 class SourceOperator(Operator):
     """Source operators take no input."""
@@ -99,28 +110,133 @@ class ValuesOperator(SourceOperator):
         return self._i >= len(self._tables)
 
 
+def _column_tensors(col: DeviceColumn) -> Iterator[torch.Tensor]:
+    yield col.data
+    if col.validity is not None:
+        yield col.validity
+    for child in col.children:
+        yield from _column_tensors(child)
+
+
+def _hand_over(batch: DeviceBatch) -> DeviceBatch:
+    """Mark a scan batch's CUDA tensors as used by the consuming stream.
+    They were allocated on the data source's upload stream; without this
+    the caching allocator could hand a freed block (an evicted cache
+    entry) back to that stream for the next upload while this stream's
+    kernels still read it."""
+    if batch.device.type == "cuda":
+        stream = torch.cuda.current_stream(batch.device)
+        batch.mask.record_stream(stream)
+        for col in batch.columns.values():
+            for t in _column_tensors(col):
+                t.record_stream(stream)
+    return batch
+
+
 class TableScanOperator(SourceOperator):
     """Parity: velox/exec/TableScan.cpp:75 — pulls splits in order, hands
-    them to a connector DataSource, yields device batches."""
+    them to a connector DataSource, yields device batches.
 
-    def __init__(self, node: P.TableScanNode, data_source, splits):
+    With ``prefetch > 0`` and more than one split, a producer thread runs
+    the source ahead (host generation and upload of the next splits) into
+    a queue of at most ``prefetch`` batches while the query works on the
+    current one: the split preload of velox's I/O executor and a bounded
+    exchange queue in one. One producer thread a scan, so a data source
+    needs no locking. Its error is raised on the consumer side."""
+
+    _DONE = object()
+
+    def __init__(self, node: P.TableScanNode, data_source, splits,
+                 prefetch: int):
         super().__init__(node)
         self._source = data_source
         self._splits = list(splits)
         self._i = 0
+        self._queue: Optional[queue.Queue] = None
+        self._error: Optional[BaseException] = None
+        self._exhausted = False
+        if prefetch > 0 and len(self._splits) > 1:
+            self._queue = queue.Queue(maxsize=prefetch)
+            self._stop = threading.Event()
+            self._thread = threading.Thread(
+                target=self._produce, daemon=True,
+                name=f"velox-scan-{node.id}")
+            self._thread.start()
+
+    def _put(self, item) -> bool:
+        """Bounded put that gives up once the consumer abandoned the scan
+        (a Limit, an error, a probe that finished early): without the
+        stop check the producer would block on a full queue forever."""
+        while not self._stop.is_set():
+            try:
+                self._queue.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def _produce(self) -> None:
+        try:
+            for split in self._splits:
+                TV.adjust("TableScan::prefetch", split)
+                if self._stop.is_set():
+                    return
+                while True:
+                    out = self._source.next(split)
+                    if out is None:
+                        break
+                    if not self._put(out):
+                        return
+                # counted when fully drained, as the serial path counts
+                M.record_counter(M.K_SCAN_SPLITS)
+        except BaseException as e:  # raised again by get_output
+            self._error = e
+        finally:
+            self._put(self._DONE)
+
+    def _drain(self) -> None:
+        while True:
+            try:
+                self._queue.get_nowait()
+            except queue.Empty:
+                return
+
+    def close(self) -> None:
+        """Stop the producer and join it, so that no thread of this scan
+        issues copies once its task is over."""
+        if self._queue is None:
+            return
+        self._stop.set()
+        # a producer blocked in put() sees the stop within its timeout;
+        # one inside a split's generation finishes that split first
+        while self._thread.is_alive():
+            self._drain()
+            self._thread.join(timeout=0.25)
+        self._drain()
 
     def get_output(self):
+        if self._queue is not None:
+            if self._exhausted:
+                return None
+            item = self._queue.get()
+            if item is self._DONE:
+                self._exhausted = True
+                if self._error is not None:
+                    raise self._error
+                return None
+            return _hand_over(item)
         while self._i < len(self._splits):
             out = self._source.next(self._splits[self._i])
             if out is None:
-                from velox_tpu_torch.common import metrics as M
                 M.record_counter(M.K_SCAN_SPLITS)
                 self._i += 1
                 continue
-            return out
+            return _hand_over(out)
         return None
 
     def is_finished(self):
+        if self._queue is not None:
+            return self._exhausted
         return self._i >= len(self._splits)
 
 
