@@ -89,6 +89,22 @@ Phases, each printing one line; any failure raises and exits non-zero:
    (np.bincount of l_quantity by l_orderkey, joins, the top 100), with
    B5's (both forms) and B2's launch counts derived from the plan as in
    q3.
+14. tpch_rest: the 13 other TPC-H queries (Q2, Q7, Q8, Q9, Q11, Q12, Q13,
+   Q14, Q15, Q16, Q17, Q20, Q22: casts, CASE, division, dictionary-string
+   LIKE/substr, date parts, a DECIMAL(38) max, EnforceSingleRow and the
+   nested-loop join) through Task.batches(), each cold (scan cache
+   cleared) and warm: the two runs must give the same rows with the same
+   launch counts. Q11, Q12, Q13, Q14, Q15, Q17 and Q22 must equal numpy
+   oracles over the generator's columns (doubles within the reference
+   oracle's relative tolerance; Q11's fixed fraction, 0.0001, selects no
+   part at SF10, which its oracle confirms, so Q11 is held to an empty
+   result there); Q2, Q7, Q8, Q9, Q16 and Q20 must give rows, the same
+   cold and warm. The nested-loop joins of Q11 and Q22 must launch B5
+   for their gathers, and Q15's DECIMAL(38) max must run through the
+   radix sort (B4). The host time of the dictionary-string passes (the
+   pass and the enqueue of its gather, no sync) is timed per query.
+   Then each query runs at SF 1 on the card and on the CPU in this
+   process: equal rows, doubles within the relative tolerance.
 
 Every number a phase prints is measured in this run, on this card; bounds
 are bytes over the H100's 3.35 TB/s.
@@ -103,7 +119,9 @@ JSON object describing each kernel; the last line is
 from __future__ import annotations
 
 import argparse
+import datetime
 import json
+import math
 import statistics
 import subprocess
 import time
@@ -121,11 +139,14 @@ from velox_tpu_torch.core import plan as P
 from velox_tpu_torch.core.config import QueryConfig as QC
 from velox_tpu_torch.core.plan import SortOrder
 from velox_tpu_torch.core.stats import resolve_column_stats
+from velox_tpu_torch.exec import misc_ops
+from velox_tpu_torch.exec.aggregation import AggregationOperator
 from velox_tpu_torch.exec.sort import (
     _word_bits, num_value_words, pack_words_u64, radix_sort_perm, sort_words,
 )
 from velox_tpu_torch.exec.task import QueryCtx, Task
 from velox_tpu_torch.expression.eval import EvalValue
+from velox_tpu_torch.functions import scalar as S
 from velox_tpu_torch.native import build
 from velox_tpu_torch.ops import radix as R
 from velox_tpu_torch.ops import gather as G
@@ -181,8 +202,17 @@ def q6_generic_plan():
         .single_aggregation([], ["sum(revenue) as revenue"]).plan())
 
 
+# the TPC-H queries of the tpch_rest phase
+REST_QUERIES = (2, 7, 8, 9, 11, 12, 13, 14, 15, 16, 17, 20, 22)
+# tpch_rest's card-vs-CPU scale: the 13 queries take 130-163 s of CPU at
+# SF 1 on an 8-core H100 host (PERF.md)
+COMPARE_SF = 1.0
+# relative tolerance of DOUBLE results: the reference oracle's
+# (tests/tpch_sql.py TOLERANCES), 1e-9 unless listed
+DOUBLE_REL_TOL = {17: 1e-6}
+
 # the plan of each query path phase, by name (tools/profile_port_paths.py
-# profiles the same plans)
+# profiles the same plans); tpch_rest's queries as q2, q7, ...
 PATH_PLANS = {
     "q1": lambda: tpch_plan(1),
     "topn": topn_plan,
@@ -192,6 +222,8 @@ PATH_PLANS = {
     "q3": lambda: tpch_plan(3),
     "q18": lambda: q18(threshold=float(Q18_THRESHOLD)),
 }
+PATH_PLANS.update({f"q{q}": (lambda q=q: tpch_plan(q))
+                   for q in REST_QUERIES})
 
 
 def phase(name: str, **fields) -> None:
@@ -1652,6 +1684,382 @@ def q18_phase(conn, ctx, li) -> dict:
                        n_od * _passes(words))
 
 
+# ---------------------------------------------------------------------------
+# tpch_rest: the other 13 TPC-H queries
+# ---------------------------------------------------------------------------
+
+def _day(iso: str) -> int:
+    return (datetime.date.fromisoformat(iso) - datetime.date(1970, 1, 1)).days
+
+
+def _host_table(batches):
+    """(column names, active rows) of output batches on the host: NULL as
+    None, DOUBLE/REAL as float, long decimals through both limbs, strings
+    through their dictionary."""
+    if not batches:
+        return [], []
+    names = list(batches[0].columns)
+    cols = {n: [] for n in names}
+    for b in batches:
+        mask = b.mask.cpu().numpy()
+        for n in names:
+            col = b.columns[n]
+            data = col.data.cpu().numpy()[mask]
+            if col.dtype.is_long_decimal:
+                hi = col.children[0].data.cpu().numpy()[mask]
+                vals = [(int(h) << 64) | (int(lo) & (2 ** 64 - 1))
+                        for lo, h in zip(data, hi)]
+            elif col.dictionary is not None:
+                vals = list(col.dictionary.take(data))
+            elif col.dtype.is_floating:
+                vals = [float(x) for x in data]
+            else:
+                vals = [int(x) for x in data]
+            if col.validity is not None:
+                ok = col.validity.cpu().numpy()[mask]
+                vals = [v if k else None for v, k in zip(vals, ok)]
+            cols[n].extend(vals)
+    return names, list(zip(*(cols[n] for n in names)))
+
+
+def _row_key(row):
+    return tuple((v is None, 0 if v is None or isinstance(v, float) else v)
+                 for v in row)
+
+
+def _same_rows(got, want, rel_tol: float, what: str) -> None:
+    """Equal multisets of rows: exact but for floats, which agree within
+    ``rel_tol`` (NaN equals NaN)."""
+    if got[0] != want[0] or len(got[1]) != len(want[1]):
+        raise AssertionError(f"{what}: columns/rows {got[0]} x "
+                             f"{len(got[1])} != {want[0]} x "
+                             f"{len(want[1])}")
+    for g, w in zip(sorted(got[1], key=_row_key),
+                    sorted(want[1], key=_row_key)):
+        for a, b in zip(g, w):
+            if isinstance(a, float) and isinstance(b, float):
+                if not (math.isclose(a, b, rel_tol=rel_tol, abs_tol=0.0)
+                        or (math.isnan(a) and math.isnan(b))):
+                    raise AssertionError(f"{what}: {g} != {w}")
+            elif a != b:
+                raise AssertionError(f"{what}: {g} != {w}")
+
+
+def q12_oracle(conn, li) -> tuple:
+    """Q12 in numpy: MAIL/SHIP lines received in 1994 after their commit
+    date, shipped before it, joined to their order's priority by a
+    direct-address table; high = 1-URGENT or 2-HIGH."""
+    n_orders = conn.gen.num_rows("orders")
+    lx = {k: v.astype(np.int64) for k, v in conn.gen.gen_lineitem(
+        0, n_orders, ["l_shipmode", "l_commitdate", "l_receiptdate"]
+    ).items()}
+    od = table_columns(conn, "orders", ["o_orderkey", "o_orderpriority"])
+    modes = conn.gen.dictionaries("lineitem")["l_shipmode"]
+    prios = conn.gen.dictionaries("orders")["o_orderpriority"]
+    sm, cd, rd = lx["l_shipmode"], lx["l_commitdate"], lx["l_receiptdate"]
+    m = ((cd < rd) & (li["l_shipdate"] < cd) & (rd >= D94) & (rd < D95))
+    prio_of = np.full(int(od["o_orderkey"].max()) + 1, -1, np.int64)
+    prio_of[od["o_orderkey"]] = od["o_orderpriority"]
+    high_ids = [prios.id_of("1-URGENT"), prios.id_of("2-HIGH")]
+    rows = []
+    for name in ("MAIL", "SHIP"):
+        sel = m & (sm == modes.id_of(name))
+        high = np.isin(prio_of[li["l_orderkey"][sel]], high_ids)
+        rows.append((name, int(high.sum()), int((~high).sum())))
+    return ["l_shipmode", "high_line_count", "low_line_count"], rows
+
+
+def q11_oracle(conn) -> tuple:
+    """Q11 in numpy: German suppliers' partsupp value (supplycost x
+    availqty, scale 2) per part against 0.0001 of their total, as the
+    plan's doubles compare them; the top 1000 by value. At SF10 the fixed
+    fraction selects no part (the spec scales it by 1/SF)."""
+    ps = table_columns(conn, "partsupp", ["ps_partkey", "ps_suppkey",
+                                          "ps_availqty", "ps_supplycost"])
+    su = table_columns(conn, "supplier", ["s_suppkey", "s_nationkey"])
+    na = table_columns(conn, "nation", ["n_nationkey", "n_name"])
+    names = conn.gen.dictionaries("nation")["n_name"]
+    germany = na["n_nationkey"][na["n_name"] == names.id_of("GERMANY")]
+    german = su["s_suppkey"][np.isin(su["s_nationkey"], germany)]
+    m = np.isin(ps["ps_suppkey"], german)
+    parts = ps["ps_partkey"][m]
+    pv = ps["ps_supplycost"][m] * ps["ps_availqty"][m]
+    value = np.bincount(parts, weights=pv)  # exact: sums stay below 2^53
+    total = _psum(pv)
+    if total >= 2 ** 53:
+        raise AssertionError("Q11 oracle total exceeds float64's integers")
+    cand = np.nonzero(np.bincount(parts))[0]
+    keep = cand[value[cand] / 100.0 > (total / 100.0) * 0.0001]
+    top = keep[np.argsort(-value[keep], kind="stable")[:1000]]
+    return ["ps_partkey", "value"], [(int(k), int(value[k])) for k in top]
+
+
+def q14_oracle(conn, li) -> tuple:
+    """Q14 in numpy: revenue of PROMO parts over all revenue shipped in
+    1995-09, exact int sums at scale 4, then the plan's double ops."""
+    n_orders = conn.gen.num_rows("orders")
+    pk = conn.gen.gen_lineitem(0, n_orders, ["l_partkey"])["l_partkey"]
+    pt = table_columns(conn, "part", ["p_partkey", "p_type"])
+    types = conn.gen.dictionaries("part")["p_type"]
+    promo_ids = [i for i, v in enumerate(types.values)
+                 if v.startswith("PROMO")]
+    type_of = np.full(int(pt["p_partkey"].max()) + 1, -1, np.int64)
+    type_of[pt["p_partkey"]] = pt["p_type"]
+    sd = li["l_shipdate"]
+    m = (sd >= _day("1995-09-01")) & (sd < _day("1995-10-01"))
+    rev = li["l_extendedprice"][m] * (100 - li["l_discount"][m])
+    promo = np.isin(type_of[pk[m].astype(np.int64)], promo_ids)
+    p, t = _psum(rev[promo]), _psum(rev)
+    return ["promo_pct"], [((p / 1e4) * 100.0 / (t / 1e4),)]
+
+
+def _half_up_avg(s: np.ndarray, c: np.ndarray) -> np.ndarray:
+    """avg of a non-negative short decimal at its own scale: the sum over
+    the count, rounded half up (c > 0)."""
+    return (2 * s + c) // (2 * c)
+
+
+def q13_oracle(conn) -> tuple:
+    """Q13 in numpy: each customer's count of orders whose comment has
+    no 'special' followed by 'requests' (0 for a customer without one,
+    the left join), then customers per count."""
+    od = table_columns(conn, "orders", ["o_custkey", "o_comment"])
+    cu = table_columns(conn, "customer", ["c_custkey"])
+    comments = conn.gen.dictionaries("orders")["o_comment"].values
+
+    def special(v: str) -> bool:
+        i = v.find("special")
+        return i >= 0 and v.find("requests", i + len("special")) >= 0
+
+    bad = np.array([special(v) for v in comments], bool)
+    keep = ~bad[od["o_comment"]]
+    per = np.bincount(od["o_custkey"][keep],
+                      minlength=int(cu["c_custkey"].max()) + 1)
+    c_count = per[cu["c_custkey"]]
+    dist = np.bincount(c_count)
+    return ["c_count", "custdist"], [(int(k), int(dist[k]))
+                                     for k in np.nonzero(dist)[0]]
+
+
+def q15_oracle(conn, li) -> tuple:
+    """Q15 in numpy: each supplier's revenue shipped in 1996-Q1, exact at
+    scale 4; the suppliers whose revenue is the maximum, with their name,
+    address and phone from the generator's dictionaries."""
+    n_orders = conn.gen.num_rows("orders")
+    sk = conn.gen.gen_lineitem(0, n_orders,
+                               ["l_suppkey"])["l_suppkey"].astype(np.int64)
+    sd = li["l_shipdate"]
+    m = (sd >= _day("1996-01-01")) & (sd < _day("1996-04-01"))
+    rev = li["l_extendedprice"][m] * (100 - li["l_discount"][m])
+    if _psum(rev) >= 2 ** 53:
+        raise AssertionError("Q15 oracle revenue exceeds float64's integers")
+    total = np.bincount(sk[m], weights=rev).astype(np.int64)
+    top = np.nonzero(total == total.max())[0]
+    cols = ["s_suppkey", "s_name", "s_address", "s_phone"]
+    su = table_columns(conn, "supplier", cols)
+    row_of = np.full(int(su["s_suppkey"].max()) + 1, -1, np.int64)
+    row_of[su["s_suppkey"]] = np.arange(len(su["s_suppkey"]))
+    r = row_of[top]
+    dicts = conn.gen.dictionaries("supplier")
+    strs = {c: list(dicts[c].take(su[c][r])) for c in cols[1:]}
+    return cols + ["total_revenue"], [
+        (int(su["s_suppkey"][x]), strs["s_name"][i], strs["s_address"][i],
+         strs["s_phone"][i], int(total[k]))
+        for i, (x, k) in enumerate(zip(r, top))]
+
+
+def q17_oracle(conn, li) -> tuple:
+    """Q17 in numpy: each part's average quantity over all of lineitem
+    (half up, scale 2); the Brand#23 MED BOX lines whose quantity is
+    under 0.2 of it, compared in doubles as the plan casts them; their
+    price total over 7."""
+    n_orders = conn.gen.num_rows("orders")
+    pk = conn.gen.gen_lineitem(0, n_orders,
+                               ["l_partkey"])["l_partkey"].astype(np.int64)
+    qty = li["l_quantity"]
+    s = np.bincount(pk, weights=qty).astype(np.int64)  # exact: < 2^53
+    c = np.bincount(pk)
+    aq = _half_up_avg(s, np.maximum(c, 1))
+    pt = table_columns(conn, "part", ["p_partkey", "p_brand", "p_container"])
+    dicts = conn.gen.dictionaries("part")
+    wanted = pt["p_partkey"][
+        (pt["p_brand"] == dicts["p_brand"].id_of("Brand#23"))
+        & (pt["p_container"] == dicts["p_container"].id_of("MED BOX"))]
+    m = np.isin(pk, wanted)
+    m[m] = (qty[m].astype(np.float64) / 100.0
+            < 0.2 * (aq[pk[m]].astype(np.float64) / 100.0))
+    total = _psum(li["l_extendedprice"][m])
+    return ["avg_yearly"], [((total / 100.0) / 7.0,)]
+
+
+def q22_oracle(conn) -> tuple:
+    """Q22 in numpy: customers whose phone starts with one of the seven
+    codes and whose balance is above the average positive balance of
+    those customers (half up, scale 2; compared in doubles), with no
+    order; count and balance total by code."""
+    codes = ("13", "31", "23", "29", "30", "18", "17")
+    cu = table_columns(conn, "customer", ["c_custkey", "c_phone",
+                                          "c_acctbal"])
+    phones = conn.gen.dictionaries("customer")["c_phone"].take(cu["c_phone"])
+    code = np.array([p[:2] for p in phones], dtype=object)
+    sel = np.isin(code, codes)
+    bal = cu["c_acctbal"]
+    pos = bal[sel & (bal > 0)]
+    ab = _half_up_avg(_psum(pos), len(pos))
+    sel &= bal.astype(np.float64) / 100.0 > np.float64(ab) / 100.0
+    od = table_columns(conn, "orders", ["o_custkey"])
+    has = np.bincount(od["o_custkey"],
+                      minlength=int(cu["c_custkey"].max()) + 1) > 0
+    sel &= ~has[cu["c_custkey"]]
+    return ["cntrycode", "numcust", "totacctbal"], [
+        (k, int((sel & (code == k)).sum()), _psum(bal[sel & (code == k)]))
+        for k in sorted(codes) if (sel & (code == k)).any()]
+
+
+class _Probe:
+    """Within a ``with`` block, counts, during one query, B5 launches
+    inside the nested-loop join's gathers, radix kernel launches inside
+    the collect aggregates' (min/max over DECIMAL(38)) sorts, and the host
+    seconds of the dictionary-string passes by function (the host pass and
+    the enqueue of its one device gather; no device sync is added). The
+    wrappers call the originals unchanged; leaving the block puts the
+    originals back."""
+
+    def __init__(self):
+        self.reset()
+
+    def __enter__(self):
+        self._saved = take, collect, dict_map, dict_lookup = (
+            misc_ops.take_columns_rows,
+            AggregationOperator._collect_min_max_by,
+            S._dict_map, S._dict_lookup)
+        probe = self
+
+        def b5() -> int:
+            return flat_gather.launches + gather_rows.launches
+
+        def radix() -> dict:
+            return {k.__name__: k.launches for k in RADIX_KERNELS}
+
+        def nlj_take(columns, idx):
+            before = b5()
+            out = take(columns, idx)
+            probe.nlj_b5 += b5() - before
+            return out
+
+        def collect_sort(self_, *args, **kw):
+            before = radix()
+            out = collect(self_, *args, **kw)
+            for k, v in radix().items():
+                probe.collect_radix[k] += v - before[k]
+            return out
+
+        def timed(fn):
+            def wrapper(v, f, *rest, **kw):
+                fname = rest[0] if fn is dict_map else rest[1]
+                t0 = time.perf_counter()
+                out = fn(v, f, *rest, **kw)
+                d = probe.dict_s.setdefault(fname, {"s": 0.0, "calls": 0,
+                                                    "values": 0})
+                d["s"] += time.perf_counter() - t0
+                d["calls"] += 1
+                d["values"] += len(v.dictionary)
+                return out
+            return wrapper
+
+        misc_ops.take_columns_rows = nlj_take
+        AggregationOperator._collect_min_max_by = collect_sort
+        S._dict_map, S._dict_lookup = timed(dict_map), timed(dict_lookup)
+        return self
+
+    def __exit__(self, *exc):
+        (misc_ops.take_columns_rows, AggregationOperator._collect_min_max_by,
+         S._dict_map, S._dict_lookup) = self._saved
+
+    def reset(self):
+        self.nlj_b5 = 0
+        self.collect_radix = {k.__name__: 0 for k in RADIX_KERNELS}
+        self.dict_s = {}
+
+
+def tpch_rest_phase(conn, ctx, li, compare_sf: float = COMPARE_SF) -> dict:
+    oracles = {11: q11_oracle(conn), 12: q12_oracle(conn, li),
+               13: q13_oracle(conn), 14: q14_oracle(conn, li),
+               15: q15_oracle(conn, li), 17: q17_oracle(conn, li),
+               22: q22_oracle(conn)}
+    cache = DataCache.instance()
+    probe = _Probe()
+    queries, by_query = {}, {}
+    for q in REST_QUERIES:
+        plan = PATH_PLANS[f"q{q}"]()
+        tol = DOUBLE_REL_TOL.get(q, 1e-9)
+        runs = {}
+        for run in ("cold", "warm"):
+            if run == "cold":
+                cache.clear()
+            hits, misses = cache.hits, cache.misses
+            probe.reset()
+            with probe:
+                out, wall, counts = _run(plan, ctx)
+            runs[run] = {"wall_s": wall, "rows": _host_table(out),
+                         "launches": counts,
+                         "cache": [cache.hits - hits,
+                                   cache.misses - misses],
+                         "nlj_b5": probe.nlj_b5,
+                         "collect_radix": dict(probe.collect_radix),
+                         "dict_host": probe.dict_s}
+        cold, warm = runs["cold"], runs["warm"]
+        if not cold["rows"][1] and q not in oracles:
+            raise AssertionError(f"Q{q} gave no rows")
+        _same_rows(warm["rows"], cold["rows"], tol, f"Q{q} warm vs cold")
+        if warm["launches"] != cold["launches"]:
+            raise AssertionError(f"Q{q}: warm launches {warm['launches']} "
+                                 f"!= cold {cold['launches']}")
+        if q in oracles:
+            _same_rows(cold["rows"], oracles[q], tol, f"Q{q} vs numpy")
+        if q in (11, 22) and not cold["nlj_b5"] > 0:
+            raise AssertionError(f"Q{q}: the nested-loop join launched no B5")
+        if q == 15 and not cold["collect_radix"]["radix_hist"] > 0:
+            raise AssertionError("Q15: the DECIMAL(38) max sorted without B4")
+        by_query[f"q{q}"] = cold["launches"]
+        queries[q] = line = {
+            "rows": len(cold["rows"][1]),
+            "wall_s": {"cold": cold["wall_s"], "warm": warm["wall_s"]},
+            "cache": {"cold": cold["cache"], "warm": warm["cache"]},
+            "launches": {k: v for k, v in cold["launches"].items()
+                         if k != "filter_sum"},
+            "nlj_b5": cold["nlj_b5"],
+            "collect_radix": cold["collect_radix"],
+            "dict_host": {"cold": cold["dict_host"],
+                          "warm": warm["dict_host"]},
+        }
+        phase("tpch_rest_query", q=q, **line)
+    cache.clear()
+    # the same plans at a smaller scale on the card and on the CPU
+    register_tpch(compare_sf, connector_id="tpch_cmp")
+    cpu = QueryCtx("cpu")
+    compare = {}
+    for q in REST_QUERIES:
+        plan = tpch_plan(q, connector_id="tpch_cmp")
+        out, card_wall, _ = _run(plan, ctx)
+        card = _host_table(out)
+        t0 = time.perf_counter()
+        task = Task(plan, cpu)
+        host = _host_table(list(task.batches()))
+        task.check_errors()
+        cpu_wall = time.perf_counter() - t0
+        _same_rows(card, host, DOUBLE_REL_TOL.get(q, 1e-9),
+                   f"Q{q} card vs CPU at SF {compare_sf}")
+        compare[q] = {"rows": len(card[1]), "card_wall_s": card_wall,
+                      "cpu_wall_s": cpu_wall}
+        phase("tpch_rest_compare", q=q, **compare[q])
+    cache.clear()
+    phase("tpch_rest", sf_compare=compare_sf, queries=queries,
+          oracles_checked=sorted(oracles), compare=compare,
+          cpu_total_s=sum(c["cpu_wall_s"] for c in compare.values()))
+    return by_query
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sf", type=float, default=10.0,
@@ -1683,6 +2091,7 @@ def main() -> None:
     gather = gather_phase(args.seed, conn)
     by_phase["q3"] = q3_phase(conn, ctx, li)
     by_phase["q18"] = q18_phase(conn, ctx, li)
+    by_phase.update(tpch_rest_phase(conn, ctx, li))
 
     main_shape = kernel["timings"][FILTER_TIMED[0]]
     kernels = [{

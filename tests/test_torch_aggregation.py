@@ -427,3 +427,185 @@ def test_global_min_max_of_a_narrowed_decimal_are_exact():
                CPU).run().to_pylist()[0]
     assert int(got["mn"].scaleb(2)) == int(q.min()) == 100
     assert int(got["mx"].scaleb(2)) == int(q.max()) == 5000
+
+
+def _long_decimal_table(seed: int, n: int = 3000) -> pa.Table:
+    """DECIMAL(38,2) values with nonzero high limbs, negatives, pairs whose
+    low limbs are equal (v and v + 2^64 cents), and NULLs, in 13 groups;
+    group 12 is all NULL."""
+    import decimal
+    rng = np.random.default_rng(seed)
+    big = [int(x) * 10 ** 20 + int(y) for x, y in zip(
+        rng.integers(-10 ** 15, 10 ** 15, n), rng.integers(0, 10 ** 12, n))]
+    vals = [b if i % 3 else int(rng.integers(-10 ** 6, 10 ** 6))
+            for i, b in enumerate(big)]
+    for i in range(0, n, 7):  # equal low limbs, one 2^64 apart
+        vals[i] = vals[i - 1] + (1 << 64) if i else -1
+    keys = rng.integers(0, 12, n)
+    valid = rng.random(n) > 0.1
+    keys[:40] = 12
+    valid[:40] = False
+    return pa.table({
+        "k": pa.array(keys, pa.int64()),
+        "v": pa.array([decimal.Decimal(x).scaleb(-2) if ok else None
+                       for x, ok in zip(vals, valid)],
+                      pa.decimal128(38, 2)),
+        "w": pa.array(rng.normal(size=n), pa.float64()),
+    })
+
+
+def _cents(col):
+    return [None if x is None else int(x.scaleb(2)) for x in col]
+
+
+@pytest.mark.parametrize("grouped", [True, False])
+def test_min_max_of_long_decimals_equal_python(grouped):
+    """min/max over DECIMAL(38) (the collect pathway: rows sorted by
+    (group, value) through the radix sort), grouped and global, against
+    Python ints and against the reference."""
+    t = _long_decimal_table(0)
+    keys = ["k"] if grouped else []
+
+    def build(B):
+        return (B().values([t, t.slice(100, 900)])
+                .single_aggregation(keys, ["min(v) as lo", "max(v) as hi",
+                                           "count(v) as n"]).plan())
+    got = Task(build(PlanBuilder), CPU).run()
+    want = JTask(build(JPlanBuilder)).run()
+    assert got.schema.field("lo").type == pa.decimal128(38, 2)
+    rows = sorted(zip(*(got.column(c).to_pylist() for c in got.column_names)),
+                  key=lambda r: r[0] if grouped else 0)
+    wrows = sorted(zip(*(want.column(c).to_pylist()
+                         for c in want.column_names)),
+                   key=lambda r: r[0] if grouped else 0)
+    assert rows == wrows
+    full = pa.concat_tables([t, t.slice(100, 900)])
+    ks = full.column("k").to_pylist()
+    vs = _cents(full.column("v").to_pylist())
+    groups = {}
+    for key, v in zip(ks, vs):
+        groups.setdefault(key if grouped else 0, []).append(v)
+    for key, members in groups.items():
+        present = [v for v in members if v is not None]
+        row = [r for r in rows if not grouped or r[0] == key]
+        assert len(row) == 1
+        lo, hi = _cents(row[0][-3:-1])
+        if present:
+            assert (lo, hi) == (min(present), max(present)), key
+        else:
+            assert lo is None and hi is None
+    assert any(v is not None and v < 0 for v in vs)
+
+
+def test_global_min_max_of_long_decimals_over_no_passing_row_is_null():
+    t = _long_decimal_table(1, 500)
+    plan = (PlanBuilder().values([t]).filter("k > 100")
+            .single_aggregation([], ["max(v) as hi"]).plan())
+    got = Task(plan, CPU).run()
+    assert got.num_rows == 1 and got.column("hi").null_count == 1
+
+
+@pytest.mark.parametrize("fn", ["min_by", "max_by"])
+def test_min_by_max_by_equal_reference(fn):
+    t = _long_decimal_table(2, 2000)
+
+    def build(B):
+        return (B().values([t])
+                .single_aggregation(["k"], [f"{fn}(v, w) as x",
+                                            f"{fn}(w, v) as y",
+                                            "sum(w) as s"]).plan())
+    got = Task(build(PlanBuilder), CPU).run()
+    want = JTask(build(JPlanBuilder)).run()
+    assert got.schema == want.schema
+    key = got.column_names.index("k")
+    assert sorted(zip(*(got.column(c).to_pylist()
+                        for c in got.column_names)),
+                  key=lambda r: r[key]) == \
+        sorted(zip(*(want.column(c).to_pylist() for c in want.column_names)),
+               key=lambda r: r[key])
+
+
+def test_long_decimal_min_is_single_step_only():
+    t = _long_decimal_table(3, 100)
+    plan = (PlanBuilder().values([t])
+            .partial_aggregation(["k"], ["min(v) as lo"])
+            .final_aggregation().plan())
+    with pytest.raises(NotImplementedError, match="single-step"):
+        Task(plan, CPU).run()
+
+
+@pytest.mark.parametrize("agg", ["array_agg(k)", "approx_percentile(w, 0.5)"])
+def test_other_collect_aggregates_raise_naming_the_roadmap(agg):
+    with pytest.raises(NotImplementedError, match="A.5"):
+        (PlanBuilder().values([_long_decimal_table(4, 10)])
+         .single_aggregation([], [f"{agg} as x"]).plan())
+
+
+def test_sorted_group_info_vals_matches_reference():
+    """The (group, value) sort of the collect pathway: the same stable
+    permutation, group ids and group boundaries as the reference's, over an
+    int64 key with NULLs and a DECIMAL(38) value with NULLs and equal low
+    limbs."""
+    from velox_tpu import types as JT
+    from velox_tpu.exec import groupby as JG
+    from velox_tpu.expression.eval import EvalValue as JEvalValue
+    from velox_tpu.vector.device import DeviceColumn as JDeviceColumn
+    rng = np.random.default_rng(11)
+    cap = 3000
+    keys = rng.integers(-5, 5, cap)
+    kvalid = rng.random(cap) > 0.1
+    vals = [int(x) * (1 << 64) + int(y) for x, y in zip(
+        rng.integers(-3, 3, cap), rng.integers(0, 4, cap))]
+    lo = np.array([((v & (2 ** 64 - 1)) ^ 2 ** 63) - 2 ** 63 for v in vals],
+                  np.int64)
+    hi = np.array([v >> 64 for v in vals], np.int64)
+    vvalid = rng.random(cap) > 0.1
+    active = rng.random(cap) > 0.05
+    dt38 = T.decimal(38, 2)
+    tkey = EvalValue(torch.from_numpy(keys), torch.from_numpy(kvalid),
+                     T.BIGINT)
+    tval = EvalValue(torch.from_numpy(lo), torch.from_numpy(vvalid), dt38,
+                     children=(DeviceColumn(torch.from_numpy(hi), None,
+                                            T.BIGINT),))
+    jkey = JEvalValue(jnp.asarray(keys), jnp.asarray(kvalid), JT.BIGINT)
+    jval = JEvalValue(jnp.asarray(lo), jnp.asarray(vvalid),
+                      JT.decimal(38, 2),
+                      children=(JDeviceColumn(jnp.asarray(hi), None,
+                                              JT.BIGINT, None),))
+    got = G.sorted_group_info_vals([tkey], [tval], torch.from_numpy(active),
+                                   cap)
+    want = JG.sorted_group_info_vals([jkey], [jval], jnp.asarray(active),
+                                     cap)
+    assert len(got) == 5
+    for g, w, what in zip(got, want, ("perm", "gid", "boundary", "active",
+                                      "groups")):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w),
+                                      err_msg=what)
+    assert 1 < int(got[4]) < cap
+
+
+def test_long_decimal_max_sorts_through_the_radix_kernels(monkeypatch):
+    """The DECIMAL(38) max's (group, value) sort exceeds 64 bits with the
+    row id, so it runs the classic loop: B4 and B2's rank-and-scatter form
+    a pass (B4 and B2 on the card)."""
+    from velox_tpu_torch.exec import sort as S
+    calls = {"hist": 0, "rank_scatter": 0}
+
+    def counted(name, fn):
+        def call(*args, **kwargs):
+            calls[name] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    monkeypatch.setattr(S, "radix_hist", counted("hist", S.radix_hist))
+    monkeypatch.setattr(S, "radix_rank_scatter",
+                        counted("rank_scatter", S.radix_rank_scatter))
+    t = _long_decimal_table(5, 700)
+    got = Task(PlanBuilder().values([t])
+               .single_aggregation([], ["max(v) as hi"]).plan(), CPU).run()
+    present = [v for v in _cents(t.column("v").to_pylist()) if v is not None]
+    assert _cents(got.column("hi").to_pylist()) == [max(present)]
+    # the active and validity words and four 32-bit value words: 18
+    # classic passes, plus the skeleton's one-bit sort (the scatter branch)
+    assert calls["rank_scatter"] == 18
+    assert calls["hist"] == calls["rank_scatter"] + 1

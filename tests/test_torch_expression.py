@@ -191,11 +191,11 @@ def test_fused_chain_matches_reference(filter_text, projections, seed):
 
 def test_unported_function_raises_naming_it():
     _, trt = _row_types()
-    with pytest.raises(NotImplementedError, match="substr"):
-        tparse("substr(l_comment, 1, 2)",
+    with pytest.raises(NotImplementedError, match="split_part"):
+        tparse("split_part(l_comment, ' ', 2)",
                TT.row(["l_comment"], [TT.VARCHAR]))
-    with pytest.raises(NotImplementedError, match="divide"):
-        tparse("k / 2", trt)
+    with pytest.raises(NotImplementedError, match="bitwise_and"):
+        tparse("bitwise_and(k, 2)", trt)
 
 
 # ---------------------------------------------------------------------------

@@ -133,9 +133,9 @@ def test_checked_overflow_raises_in_both():
 def _needs_unported(query: int):
     """A plan shaped like TPC-H `query` that needs something the port
     lacks: for 1, Q1's grouping with an aggregate it does not have; for 3,
-    Q3's lineitem-orders join as a merge join; for 18, Q18's
-    orders-customer join as a nested-loop join. (The hash-join plans of
-    Q3 and Q18 run: tests/test_torch_join.py.)"""
+    Q3's lineitem-orders join as a merge join; for 18, Q18's orders with
+    a unique id assigned to each row. (The hash-join plans of Q3 and Q18
+    run: tests/test_torch_join.py.)"""
     b = PlanBuilder()
     if query == 3:
         orders = b.new_builder().table_scan("orders", ["o_orderkey"])
@@ -143,10 +143,8 @@ def _needs_unported(query: int):
                 .merge_join(["l_orderkey"], ["o_orderkey"], orders,
                             output=["l_orderkey"]).plan())
     if query == 18:
-        customers = b.new_builder().table_scan("customer", ["c_custkey"])
         return (b.table_scan("orders", ["o_orderkey", "o_custkey"])
-                .nested_loop_join(customers, output=["o_orderkey"],
-                                  filter="o_custkey = c_custkey").plan())
+                .assign_unique_id("uid").plan())
     return (b.table_scan("lineitem", ["l_returnflag", "l_linestatus",
                                       "l_quantity"])
             .partial_aggregation(["l_returnflag", "l_linestatus"],
@@ -163,7 +161,7 @@ def test_unported_plan_raises(query):
 def test_unported_node_kinds_raise():
     with pytest.raises(NotImplementedError, match="MergeJoinNode"):
         Task(_needs_unported(3), CPU).run()
-    with pytest.raises(NotImplementedError, match="NestedLoopJoinNode"):
+    with pytest.raises(NotImplementedError, match="AssignUniqueIdNode"):
         Task(_needs_unported(18), CPU).run()
     plan = (PlanBuilder().table_scan("lineitem", ["l_orderkey"])
             .mark_distinct("first", ["l_orderkey"]).plan())

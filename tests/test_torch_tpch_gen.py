@@ -115,3 +115,22 @@ def test_scan_batch_matches_the_reference():
         assert tb.columns["l_discount"].data.dtype == torch.int32
         assert tb.columns["l_returnflag"].dictionary.values.tolist() == \
             jb.columns["l_returnflag"].dictionary.values.tolist()
+
+
+@pytest.mark.parametrize("table,column", [("customer", "c_phone"),
+                                          ("supplier", "s_phone"),
+                                          ("customer", "c_name"),
+                                          ("supplier", "s_name"),
+                                          ("orders", "o_clerk")])
+def test_virtual_dictionary_values_are_the_reference_values(gens, table,
+                                                            column):
+    """A virtual dictionary's values, formatted from an id array, are the
+    reference's value for value (the host passes of substr/like read them),
+    and so are take() and id_of()."""
+    jd, td = (g.dictionaries(table)[column] for g in gens)
+    assert len(td) == len(jd)
+    assert list(td.values) == list(jd.values)
+    ids = np.arange(0, len(td), 7)
+    assert list(td.take(ids)) == list(jd.take(ids))
+    for v in list(jd.values[::97]) + ["nope", jd.values[1] + "x"]:
+        assert td.id_of(v) == jd.id_of(v), v

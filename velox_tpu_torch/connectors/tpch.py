@@ -123,6 +123,7 @@ class VirtualDictionary(Dictionary):
 
     Used for per-row-unique strings (c_name = 'Customer#%09d', ...): the
     device column stores the integer id, and values materialize lazily.
+    ``fmt`` maps an int64 id array to the list of its values.
     """
 
     def __init__(self, size: int, fmt):
@@ -137,12 +138,12 @@ class VirtualDictionary(Dictionary):
     @property
     def values(self) -> np.ndarray:
         if self._values is None:
-            self._values = np.array(
-                [self._fmt(i) for i in range(self._size)], dtype=object)
+            self._values = self.take(np.arange(self._size))
         return self._values
 
     def take(self, ids: np.ndarray) -> np.ndarray:
-        return np.array([self._fmt(int(i)) for i in ids], dtype=object)
+        return np.array(self._fmt(np.asarray(ids, dtype=np.int64)),
+                        dtype=object)
 
     def id_of(self, value) -> int:
         # invert the format by scanning the embedded integer
@@ -150,10 +151,16 @@ class VirtualDictionary(Dictionary):
         if not digits:
             return -1
         i = int(digits)
-        return i if 0 <= i < self._size and self._fmt(i) == value else -1
+        return (i if 0 <= i < self._size
+                and self.take(np.array([i]))[0] == value else -1)
 
     def __repr__(self):
         return f"VirtualDictionary({self._size})"
+
+
+def _numbered(prefix: str):
+    """``fmt`` for 'Prefix#%09d' values."""
+    return lambda ids: [f"{prefix}#{i:09d}" for i in ids.tolist()]
 
 
 def _comment_dict(stream: int) -> Dictionary:
@@ -269,16 +276,13 @@ class TpchTableGen:
                 "o_orderstatus": Dictionary(ORDER_STATUS),
                 "o_orderpriority": Dictionary(ORDER_PRIORITIES),
                 "o_clerk": VirtualDictionary(
-                    max(1, nsupp // 10) * 1000 + 1,
-                    lambda i: f"Clerk#{i:09d}"),
+                    max(1, nsupp // 10) * 1000 + 1, _numbered("Clerk")),
                 "o_comment": comment,
             },
             "customer": {
-                "c_name": VirtualDictionary(
-                    ncust + 1, lambda i: f"Customer#{i:09d}"),
+                "c_name": VirtualDictionary(ncust + 1, _numbered("Customer")),
                 "c_address": comment,
-                "c_phone": VirtualDictionary(
-                    ncust + 1, _phone_fmt),
+                "c_phone": VirtualDictionary(ncust + 1, _phones),
                 "c_mktsegment": Dictionary(MKT_SEGMENTS),
                 "c_comment": comment,
             },
@@ -303,10 +307,9 @@ class TpchTableGen:
                 "p_comment": comment,
             },
             "supplier": {
-                "s_name": VirtualDictionary(
-                    nsupp + 1, lambda i: f"Supplier#{i:09d}"),
+                "s_name": VirtualDictionary(nsupp + 1, _numbered("Supplier")),
                 "s_address": comment,
-                "s_phone": VirtualDictionary(nsupp + 1, _phone_fmt),
+                "s_phone": VirtualDictionary(nsupp + 1, _phones),
                 "s_comment": comment,
             },
             "partsupp": {"ps_comment": comment},
@@ -639,11 +642,14 @@ class TpchTableGen:
         return getattr(self, f"gen_{table}")(lo, hi, columns)
 
 
-def _phone_fmt(i: int) -> str:
-    h = int(_mix64(np.uint64(i * 31 + 7)))
-    cc = 10 + (i % 25)
-    return (f"{cc}-{(h >> 0) % 900 + 100}-{(h >> 10) % 900 + 100}"
-            f"-{(h >> 20) % 9000 + 1000}")
+def _phones(ids: np.ndarray) -> list:
+    """Phone numbers 'cc-aaa-bbb-cccc' of customer/supplier ids."""
+    h = _mix64(ids.astype(_U64) * _U64(31) + _U64(7))
+    cc = (10 + ids % 25).tolist()
+    a = (h % _U64(900) + _U64(100)).tolist()
+    b = ((h >> _U64(10)) % _U64(900) + _U64(100)).tolist()
+    c = ((h >> _U64(20)) % _U64(9000) + _U64(1000)).tolist()
+    return [f"{w}-{x}-{y}-{z}" for w, x, y, z in zip(cc, a, b, c)]
 
 
 # ---------------------------------------------------------------------------

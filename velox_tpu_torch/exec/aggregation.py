@@ -14,9 +14,15 @@ SINGLE, FINAL and INTERMEDIATE steps with keys buffer per-row state
 batches and group once at the end (single-shot), folding the buffer into
 one grouped run past ``_SINGLE_MERGE_MAX_ROWS``.
 
-Not ported: the collect aggregates (array_agg, approx_percentile, ...),
-host offload of partial runs, partial-aggregation abandonment, and the
-reference's compiled-program caches.
+Collect mode (the reference's collect pathway): when an aggregate has no
+segment-combinable state (min_by/max_by, and min/max over a long
+decimal), the operator retains each batch's keys and aggregate inputs and
+computes every aggregate at the end from one radix sort of the rows by
+(group keys, value). Single-step only, as in the reference.
+
+Not ported: the other collect aggregates (array_agg, approx_percentile,
+...; ROADMAP A.5), host offload of partial runs, partial-aggregation
+abandonment, and the reference's compiled-program caches.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from velox_tpu_torch import types as T
 from velox_tpu_torch.core import plan as P
 from velox_tpu_torch.exec import groupby as G
 from velox_tpu_torch.exec.batch_utils import concat_batches, slice_batch
@@ -33,7 +40,9 @@ from velox_tpu_torch.exec.operator import Operator
 from velox_tpu_torch.expression.eval import (
     EvalCtx, ExprSet, value_from_column,
 )
-from velox_tpu_torch.functions.aggregates import masked, resolve_aggregate
+from velox_tpu_torch.functions.aggregates import (
+    CollectAgg, masked, resolve_aggregate,
+)
 from velox_tpu_torch.vector.device import DeviceBatch, DeviceColumn
 
 
@@ -71,12 +80,20 @@ class AggregationOperator(Operator):
         self._agg_names = list(node.aggregate_names)
         self._aggs = [resolve_aggregate(a.name, [i.dtype for i in a.inputs])
                       for a in self._agg_calls]
+        # collect mode: retain rows, aggregate once at the end
+        self._collect_mode = any(isinstance(a, CollectAgg)
+                                 for a in self._aggs)
+        if self._collect_mode and self._step is not P.AggregationStep.SINGLE:
+            raise NotImplementedError(
+                "collect aggregates (min_by/max_by, min/max over "
+                "DECIMAL(19..38)) support single-step aggregation only")
+        self._collect_rows: List[DeviceBatch] = []
         self._partials: List[DeviceBatch] = []
         self._outputs: List[DeviceBatch] = []
         self.error_scalars: List[torch.Tensor] = []  # read by the Task
         # single-shot: one sort over every buffered row beats a sort per
         # batch plus a sort of the concatenated partials
-        self._single_shot = (bool(self._keys)
+        self._single_shot = (bool(self._keys) and not self._collect_mode
                              and self._step is not P.AggregationStep.PARTIAL)
         self._buffered_rows = 0
         # string aggregate outputs carry the input dictionary over
@@ -226,6 +243,122 @@ class AggregationOperator(Operator):
             col = DeviceColumn(col.data, col.validity, col.dtype, dictionary)
         return col
 
+    # ---- collect mode --------------------------------------------------------
+
+    def _collect_prep(self, batch: DeviceBatch) -> DeviceBatch:
+        """The rows to retain: grouping keys, every aggregate's evaluated
+        inputs (``__a{i}_{j}``) and masks (``__m{i}``)."""
+        errs: list = []
+        batch = self._pre(batch, errs)
+        cap = batch.capacity
+        out: Dict[str, DeviceColumn] = {
+            k.name: batch.columns[k.name] for k in self._keys}
+        for i, call in enumerate(self._agg_calls):
+            if call.inputs:
+                sink: list = []
+                vals = ExprSet(list(call.inputs), None).eval_batch(
+                    batch, err_sink=sink)
+                if sink and sink[0] is not None:
+                    errs.append((sink[0] & batch.mask).sum(
+                        dtype=torch.int32))
+                for j, v in enumerate(vals):
+                    out[f"__a{i}_{j}"] = v.to_column(cap)
+            if call.mask is not None:
+                m = ExprSet([call.mask], None).eval_batch(batch)[0]
+                out[f"__m{i}"] = m.to_column(cap)
+        return self._with_errors(DeviceBatch(out, batch.mask), errs)
+
+    def _collect_finalize(self, merged: DeviceBatch) -> DeviceBatch:
+        """Group the retained rows (one radix sort by the keys) and compute
+        each aggregate: collect kinds from their own (keys, value) sort,
+        the others by segmented reduction over the group runs."""
+        from velox_tpu_torch.ops.wide import segmented_reduce_sorted
+        cap = merged.capacity
+        active = merged.mask
+        cols = {n: value_from_column(c) for n, c in merged.columns.items()}
+        keys = [cols[k.name] for k in self._keys]
+        perm, gid, boundary, act_s, num_groups = G.sorted_group_info(
+            keys, active, cap, self._key_ranges)
+        out_keys, gmask = G.group_keys_sorted(
+            keys, perm, gid, boundary, act_s, num_groups, cap)
+        out_cols: Dict[str, DeviceColumn] = {
+            k.name: v.to_column(cap) for k, v in zip(self._keys, out_keys)}
+        ctx = EvalCtx(cols, cap, merged.device)
+        for i, (out_name, agg) in enumerate(zip(self._agg_names,
+                                                self._aggs)):
+            row_active = active
+            mval = cols.get(f"__m{i}")
+            if mval is not None:
+                mm = mval.full_data(cap).to(torch.bool)
+                if mval.validity is not None:
+                    mm = mm & mval.full_validity(cap)
+                row_active = row_active & mm
+            args = []
+            while f"__a{i}_{len(args)}" in cols:
+                args.append(cols[f"__a{i}_{len(args)}"])
+            if isinstance(agg, CollectAgg):
+                out_cols[out_name] = self._collect_min_max_by(
+                    agg, args, row_active, keys, active, gmask, cap)
+                continue
+            arrays = agg.map_raw(ctx, args, row_active)
+            gs = [segmented_reduce_sorted(a[perm], gid, boundary, act_s,
+                                          cap, st.combine)
+                  for a, st in zip(arrays, agg.states)]
+            out_cols[out_name] = self._result_column(
+                agg.extract(gs, gmask), cap, self._agg_dicts[i])
+        mask_out = gmask
+        if not self._keys:
+            # a global aggregation has exactly one output row (NULL
+            # results when no row passed)
+            mask_out = torch.zeros((cap,), dtype=torch.bool,
+                                   device=merged.device)
+            mask_out[0] = True
+        return DeviceBatch(out_cols, mask_out)
+
+    def _collect_min_max_by(self, agg, args, row_active, keys, active,
+                            gmask, cap: int) -> DeviceColumn:
+        """min_by/max_by: rows sorted by (group, y); the first (min_by) or
+        last (max_by) passing row's x in each group. min/max over a long
+        decimal pass one argument, both x and y. The group numbering is
+        the skeleton's: the same key words and active flag lead the
+        sort."""
+        from velox_tpu_torch.ops.wide import (
+            scatter_unique_set, segment_offsets, segmented_reduce_sorted,
+        )
+        x, y = (args[0], args[0]) if len(args) == 1 else args
+        perm, gid, boundary, act_s, _ = G.sorted_group_info_vals(
+            keys, [y], active, cap, self._key_ranges)
+        pass_ = row_active[perm] & act_s
+        if y.validity is not None:
+            pass_ = pass_ & y.full_validity(cap)[perm]
+        c = torch.cumsum(pass_.to(torch.int64), 0)
+        ce = c - pass_.to(torch.int64)
+        # passing-row ordinal within its group
+        within = ce - ce[torch.arange(cap, device=perm.device)
+                         - segment_offsets(boundary, cap)]
+        n_pass = segmented_reduce_sorted(pass_.to(torch.int64), gid,
+                                         boundary, act_s, cap, "sum")
+        if agg.collect_kind == "min_by":
+            sel = pass_ & (within == 0)
+        else:
+            sel = pass_ & (within == n_pass[gid] - 1)
+        tgt = torch.where(sel, gid, cap)
+
+        def pick(rows: torch.Tensor) -> torch.Tensor:
+            return scatter_unique_set(cap + 1, tgt, rows[perm])[:cap]
+
+        gvalid = gmask & (n_pass > 0)
+        if x.validity is not None:
+            xv = torch.ones((cap + 1,), dtype=torch.bool, device=perm.device)
+            xv[tgt] = x.full_validity(cap)[perm]
+            gvalid = gvalid & xv[:cap]
+        children = ()
+        if x.dtype.is_long_decimal:
+            # the high limb goes through the same gather and scatter
+            children = (DeviceColumn(pick(x.full_hi(cap)), None, T.BIGINT),)
+        return DeviceColumn(pick(x.full_data(cap)), gvalid,
+                            agg.result_type, x.dictionary, children)
+
     # ---- operator contract -------------------------------------------------
 
     def add_input(self, batch: DeviceBatch):
@@ -238,6 +371,10 @@ class AggregationOperator(Operator):
                     col = batch.columns.get(inp.name)
                     if col is not None:
                         self._agg_dicts[j] = col.dictionary
+        if self._collect_mode:
+            self._collect_rows.append(self._strip_errs(
+                self._collect_prep(batch)))
+            return
         if not self._keys:
             self._accumulate_global(batch)
             return
@@ -302,6 +439,12 @@ class AggregationOperator(Operator):
 
     def no_more_input(self):
         super().no_more_input()
+        if self._collect_mode:
+            if self._collect_rows:
+                merged = concat_batches(self._collect_rows)
+                self._collect_rows = []
+                self._outputs.append(self._collect_finalize(merged))
+            return
         if not self._keys:
             self._outputs = [self._extract_global()]
             return

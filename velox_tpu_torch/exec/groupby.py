@@ -11,6 +11,9 @@ HashTable.cpp's kArray / kNormalizedKey modes):
   runs become groups, and states reduce over the runs (ops/wide.py).
   Groups come out as a dense prefix in key order.
 
+``sorted_group_info_vals`` sorts each group's rows by values too, for
+the collect aggregates (exec/aggregation.py).
+
 Not ported: the reference's payload-riding ``lax.sort`` form of sort mode
 (a TPU gather workaround; this is its gather formulation, with the same
 keys and states) and the hash mode (``reduce_hash_mode``).
@@ -167,6 +170,35 @@ def sorted_group_info(keys: Sequence[EvalValue], active, capacity: int,
     words, bits = sort_words(keys, None, capacity, active, ranges=ranges)
     perm, _ = sort_perm_key(words, bits, capacity)
     boundary = _run_boundaries(words, perm, capacity)
+    gid = torch.cumsum(boundary.to(torch.int64), 0) - 1
+    active_sorted = active[perm]
+    num_groups = (boundary & active_sorted).sum()
+    return perm, gid, boundary, active_sorted, num_groups
+
+
+def sorted_group_info_vals(keys: Sequence[EvalValue],
+                           vals: Sequence[EvalValue], active, capacity: int,
+                           ranges=None):
+    """Like sorted_group_info, but rows within each key run are further
+    sorted by ``vals`` (ascending, nulls first), through the same counting
+    radix sort. Returns sorted_group_info's 5-tuple: the value words follow
+    the key words, so group numbering is the same. (The reference also
+    returns the (key, value) run starts, which only its set_agg/histogram
+    kinds read; the port has no such kind yet, ROADMAP A.5.)"""
+    from velox_tpu_torch.exec.sort import sort_perm_key, sort_words, \
+        value_words
+
+    words, bits = sort_words(keys, None, capacity, active, ranges=ranges)
+    n_key_words = len(words)
+    for v in vals:
+        if v.validity is not None:
+            words.append((~v.full_validity(capacity)).to(torch.int64))
+            bits.append(1)
+        vw = value_words(v, capacity)
+        words.extend(vw)
+        bits.extend([32] * len(vw))
+    perm, _ = sort_perm_key(words, bits, capacity)
+    boundary = _run_boundaries(words[:n_key_words], perm, capacity)
     gid = torch.cumsum(boundary.to(torch.int64), 0) - 1
     active_sorted = active[perm]
     num_groups = (boundary & active_sorted).sum()

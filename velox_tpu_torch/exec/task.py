@@ -11,10 +11,11 @@ Filter/Project chains (fused, exec/fuse.py), Aggregation (the filter-sum
 kernel for a Q6-shaped global ``sum(a * b)``, ops/filter_reduce.py, and
 the generic operator of exec/aggregation.py for every other plan of
 sum/count/avg/min/max), OrderBy, TopN and Limit (a Limit over an OrderBy
-runs as a TopN), and HashJoin (exec/join.py: the build pipeline runs to
+runs as a TopN), HashJoin (exec/join.py: the build pipeline runs to
 completion, then the probe pipeline streams; the probe side's scans
-start before the build runs). Every other node kind, merge and
-nested-loop joins included, raises NotImplementedError.
+start before the build runs), NestedLoopJoin (exec/misc_ops.py, built and
+probed the same way) and EnforceSingleRow. Every other node kind, the
+merge join included, raises NotImplementedError.
 
 Scans take their splits from the device scan cache
 (connectors/cache.py) and, by default on a CUDA device, generate and
@@ -34,6 +35,7 @@ from velox_tpu_torch.connectors.connector import get_connector
 from velox_tpu_torch.core import plan as P
 from velox_tpu_torch.core.config import QueryConfig
 from velox_tpu_torch.exec.aggregation import AggregationOperator
+from velox_tpu_torch.exec.batch_utils import concat_batches
 from velox_tpu_torch.exec.fuse import chain_fn, collapse_chain
 from velox_tpu_torch.exec.join import (
     HashBuildStage, HashJoinOperator, array_join_range, build_key_ranges,
@@ -43,6 +45,9 @@ from velox_tpu_torch.exec.operator import (
     TableScanOperator, ValuesOperator,
 )
 from velox_tpu_torch.exec.memory import MemoryPool
+from velox_tpu_torch.exec.misc_ops import (
+    EnforceSingleRowOperator, NestedLoopJoinOperator,
+)
 from velox_tpu_torch.exec.orderby import OrderByOperator, TopNOperator
 from velox_tpu_torch.vector.device import DeviceBatch
 
@@ -173,6 +178,11 @@ class Task:
             yield from self._drive(node.source, TopNOperator(node))
         elif isinstance(node, P.HashJoinNode):
             yield from self._run_join(node)
+        elif isinstance(node, P.NestedLoopJoinNode):
+            yield from self._run_nested_loop_join(node)
+        elif isinstance(node, P.EnforceSingleRowNode):
+            yield from self._drive(node.source,
+                                   EnforceSingleRowOperator(node))
         elif isinstance(node, P.LimitNode):
             # OrderBy + Limit(offset=0) => TopN: a bounded key-only sort
             # per batch instead of a full sort (parity: the Limit-over-
@@ -202,6 +212,18 @@ class Task:
         probe = HashJoinOperator(node)
         probe.set_built_table(build.finish())
         yield from self._drive(node.left, probe)
+
+    def _run_nested_loop_join(self, node: P.NestedLoopJoinNode
+                              ) -> Iterator[DeviceBatch]:
+        """The whole build side first (one concatenated batch), then the
+        probe pipeline streams through the product."""
+        self._prewarm_probe_scans(node.left)
+        builds = [self._strip_errors(b) for b in self._run_node(node.right)]
+        if not builds:
+            raise RuntimeError("empty nested-loop build side")
+        op = NestedLoopJoinOperator(node)
+        op.set_build(concat_batches(builds))
+        yield from self._drive(node.left, op)
 
     def _try_filter_sum(self, node: P.AggregationNode, chain, mk_agg):
         """Kernel pushdown: global sum(a*b) over a range-filtered scan runs

@@ -10,7 +10,9 @@ torch operations over dense ``(capacity,)`` tensors on the batch's device.
 * Dense masked execution: the batch mask matters to operators, not to
   expressions; masked-out rows compute harmless values.
 * SQL three-valued logic: default null propagation (validity AND) in the
-  functions, Kleene AND/OR in the special forms here.
+  functions, Kleene AND/OR in the special forms here, and the ``if`` (which
+  CASE parses to) and ``coalesce`` forms.
+* CAST/TRY_CAST nodes evaluate through functions/casts.py.
 * Error channel: checked operations (integer overflow) flag rows on the
   ``EvalCtx``; callers reduce the flags to a per-batch count
   (common/errors.py). ``try(...)`` turns flagged rows into NULLs.
@@ -186,6 +188,10 @@ def _eval_uncached(expr, ctx, cache) -> EvalValue:
                 f"{sorted(ctx.columns)}") from None
     if isinstance(expr, ex.Constant):
         return _eval_constant(expr, ctx)
+    if isinstance(expr, ex.Cast):
+        from velox_tpu_torch.functions import casts
+        return casts.cast(ctx, _eval(expr.child, ctx, cache), expr.dtype,
+                          is_try=expr.is_try)
     if isinstance(expr, ex.Call):
         sf = _SPECIAL_FORMS.get(expr.name)
         if sf is not None:
@@ -204,9 +210,7 @@ def _eval_constant(expr: ex.Constant, ctx: EvalCtx) -> EvalValue:
     v = expr.value
     dev = ctx.device
     if v is None:
-        tdt = dt.torch_dtype() if dt.is_fixed_width else torch.int32
-        return EvalValue(torch.zeros((), dtype=tdt, device=dev),
-                         torch.zeros((), dtype=torch.bool, device=dev), dt)
+        return ex_null(dt, dev)
     if dt.is_string:
         # unresolved until a consumer binds it against a dictionary
         return EvalValue(None, None, dt, py_value=v)
@@ -228,9 +232,16 @@ def _eval_constant(expr: ex.Constant, ctx: EvalCtx) -> EvalValue:
                      None, dt, py_value=v)
 
 
+def ex_null(dt: T.DataType, device) -> EvalValue:
+    """A NULL scalar of type ``dt``."""
+    tdt = dt.torch_dtype() if dt.is_fixed_width else torch.int32
+    return EvalValue(torch.zeros((), dtype=tdt, device=device),
+                     torch.zeros((), dtype=torch.bool, device=device), dt)
+
+
 # ---------------------------------------------------------------------------
-# Special forms: Kleene AND/OR, NOT, BETWEEN, IN, IS [NOT] NULL, TRY.
-# Dense execution has no short-circuiting.
+# Special forms: Kleene AND/OR, NOT, IF, COALESCE, BETWEEN, IN,
+# IS [NOT] NULL, TRY. Dense execution has no short-circuiting.
 # ---------------------------------------------------------------------------
 
 def _as_bool3(v: EvalValue, ctx):
@@ -282,6 +293,65 @@ def _or(expr, ctx, cache):
 def _not(expr, ctx, cache):
     v = _eval(expr.args[0], ctx, cache)
     return EvalValue(~v.data.to(torch.bool), v.validity, T.BOOLEAN)
+
+
+def _where_hi(take, a: EvalValue, b: EvalValue, dt: T.DataType, cap: int):
+    """The high limb of a long-decimal result chosen row by row (a short
+    branch's is its sign)."""
+    if not dt.is_long_decimal:
+        return ()
+    from velox_tpu_torch.vector.device import DeviceColumn
+
+    def hi(v: EvalValue):
+        if v.dtype.is_long_decimal:
+            return v.full_hi(cap)
+        return v.full_data(cap).to(torch.int64) >> 63
+    return (DeviceColumn(torch.where(take, hi(a), hi(b)), None, T.BIGINT),)
+
+
+@special_form("if")
+def _if(expr, ctx, cache):
+    """if(cond, then[, else]): a NULL condition takes the else branch."""
+    cond = _eval(expr.args[0], ctx, cache)
+    then = _eval(expr.args[1], ctx, cache)
+    els = (_eval(expr.args[2], ctx, cache) if len(expr.args) > 2
+           else ex_null(expr.dtype, ctx.device))
+    cap = ctx.capacity
+    c, ck = _as_bool3(cond, ctx)
+    take_then = c if ck is None else (c & ck)
+    then, els = _align_strings(then, els)
+    td, ed = promote(then.full_data(cap), els.full_data(cap))
+    data = torch.where(take_then, td, ed)
+    if then.validity is None and els.validity is None:
+        validity = None
+    else:
+        validity = torch.where(take_then, then.full_validity(cap),
+                               els.full_validity(cap))
+    return EvalValue(data, validity, expr.dtype,
+                     then.dictionary or els.dictionary,
+                     children=_where_hi(take_then, then, els, expr.dtype,
+                                        cap))
+
+
+@special_form("coalesce")
+def _coalesce(expr, ctx, cache):
+    """The first non-NULL argument, row by row."""
+    vals = [_eval(a, ctx, cache) for a in expr.args]
+    cap = ctx.capacity
+    out = vals[-1]
+    for v in reversed(vals[:-1]):
+        if v.validity is None:
+            out = v
+            continue
+        vk = v.full_validity(cap)
+        v2, out2 = _align_strings(v, out)
+        vd, od = promote(v2.full_data(cap), out2.full_data(cap))
+        validity = (vk | out2.full_validity(cap)
+                    if out2.validity is not None else None)
+        out = EvalValue(torch.where(vk, vd, od), validity, expr.dtype,
+                        v2.dictionary or out2.dictionary,
+                        children=_where_hi(vk, v2, out2, expr.dtype, cap))
+    return out
 
 
 @special_form("try")

@@ -11,8 +11,11 @@ per-group state (exec/groupby.py). Velox's companion split maps onto:
   combine ops  -> merging intermediates              (addIntermediateResults)
   extract()    -> final result from state columns    (extractValues)
 
-Ported: sum, count, avg, min, max. Any other aggregate raises
-NotImplementedError naming itself.
+Ported: sum, count, avg, min, max, and min_by/max_by where the reference
+takes its collect pathway (rows retained, sorted by (group, y), the first
+or last passing row's x; exec/aggregation.py), which min/max over
+DECIMAL(19..38) take too. Any other aggregate raises NotImplementedError
+naming itself.
 """
 
 from __future__ import annotations
@@ -250,9 +253,6 @@ class AvgAgg(AggregateFunction):
 
 class MinMaxAgg(AggregateFunction):
     def __init__(self, name: str, input_type: T.DataType):
-        if input_type.is_long_decimal:
-            raise NotImplementedError(
-                f"{name} over DECIMAL(>18) is not ported to velox_tpu_torch")
         self.name = name
         self.input_type = input_type
         self.result_type = input_type
@@ -273,6 +273,40 @@ class MinMaxAgg(AggregateFunction):
         return EvalValue(m, group_valid & (c > 0), self.result_type)
 
 
+class CollectAgg(AggregateFunction):
+    """An aggregate without a segment-combinable state: the operator
+    retains its rows and computes it at the end, from one sort of the rows
+    by (group, value). Single-step only."""
+    states: Tuple[StateSpec, ...] = ()
+    collect_kind: str = ""
+
+
+class CollectMinMaxByAgg(CollectAgg):
+    """min_by(x, y)/max_by(x, y) over types beyond the reference's 32-bit
+    pair packing: rows sorted by (group, y), the first or last passing
+    row's x. min/max over a long decimal come here with x == y."""
+
+    def __init__(self, name: str, x_type: T.DataType, y_type: T.DataType):
+        self.name = name
+        self.collect_kind = name if name.endswith("_by") else name + "_by"
+        self.input_type = x_type
+        self.y_type = y_type
+        self.result_type = x_type
+
+
+# argument kinds the reference packs into one segment-combinable 64-bit
+# min_by/max_by state (MinMaxByAgg, not ported)
+_PACKABLE_32 = (T.TypeKind.BOOLEAN, T.TypeKind.TINYINT, T.TypeKind.SMALLINT,
+                T.TypeKind.INTEGER, T.TypeKind.DATE, T.TypeKind.VARCHAR,
+                T.TypeKind.VARBINARY, T.TypeKind.REAL)
+
+# the reference's other collect aggregates (ROADMAP A.5)
+_COLLECT_NOT_PORTED = (
+    "array_agg", "set_agg", "map_agg", "multimap_agg", "map_union",
+    "mode", "histogram", "approx_percentile", "approx_most_frequent",
+    "bloom_filter_agg")
+
+
 def resolve_aggregate(name: str, input_types) -> AggregateFunction:
     name = name.lower()
     if name == "sum":
@@ -282,6 +316,20 @@ def resolve_aggregate(name: str, input_types) -> AggregateFunction:
     if name == "avg":
         return AvgAgg(input_types[0])
     if name in ("min", "max"):
+        if input_types[0].is_long_decimal:
+            return CollectMinMaxByAgg(name, input_types[0], input_types[0])
         return MinMaxAgg(name, input_types[0])
+    if name in ("min_by", "max_by"):
+        if (input_types[0].kind in _PACKABLE_32
+                and input_types[1].kind in _PACKABLE_32):
+            raise NotImplementedError(
+                f"{name} over 32-bit packable arguments (the reference's "
+                "MinMaxByAgg) is not ported to velox_tpu_torch (ROADMAP "
+                "A.5)")
+        return CollectMinMaxByAgg(name, input_types[0], input_types[1])
+    if name in _COLLECT_NOT_PORTED:
+        raise NotImplementedError(
+            f"collect aggregate {name!r} is not ported to velox_tpu_torch "
+            "(ROADMAP A.5)")
     raise NotImplementedError(
         f"aggregate function {name!r} is not ported to velox_tpu_torch")

@@ -1,32 +1,44 @@
-"""Presto-semantics scalar functions: the subset of the ported slice.
+"""Presto-semantics scalar functions: what the 22 TPC-H queries evaluate.
 
-Counterpart of ``velox_tpu/functions/scalar.py``, reduced to what the
-filters and projections of TPC-H Q6, Q1, Q3 and Q18 evaluate:
+Counterpart of ``velox_tpu/functions/scalar.py``:
 
 * comparisons (eq, neq, lt, lte, gt, gte) over integers, DATE and short
   DECIMAL, with decimal constants rescaled to the common scale; over long
   decimals (DECIMAL(19..38), int128 limbs); and over dictionary strings
   (ids; ordered compares need a sorted dictionary);
 * plus, minus and multiply over integers and short decimals, with the
-  reference's checked-overflow flags for integer results.
+  reference's checked-overflow flags for integer results; divide and mod
+  (integer division truncates toward zero, /0 and %0 are checked errors;
+  decimal division computes in DOUBLE), negate and abs (long decimals
+  through their limbs);
+* the double-domain math block (sqrt ... tan, ceil/floor/round, power,
+  sign, greatest/least);
+* dictionary-string functions (substr, like, lower, trim, strpos, ...):
+  a host pass over the dictionary's values, then one device gather by id.
+  The reference's pyarrow.compute forms are replaced by its plain-Python
+  ones, which give the same dictionaries;
+* date parts (year, quarter, month, day, day_of_week, day_of_year).
 
 Type resolution (promotion, result types) is the reference's, copied, so
-plans type identically in both engines. Long-decimal arithmetic and raw
-(dictionary-less) strings are not ported yet and raise.
+plans type identically in both engines. Long-decimal plus/minus/multiply
+and raw (dictionary-less) strings are not ported yet and raise.
 """
 
 from __future__ import annotations
 
 import bisect
+import re
 
+import numpy as np
 import torch
 
 from velox_tpu_torch import types as T
 from velox_tpu_torch.expression.eval import (
     EvalValue, _align_strings, merge_validity, promote,
 )
-from velox_tpu_torch.functions.registry import register
+from velox_tpu_torch.functions.registry import _REGISTRY, register
 from velox_tpu_torch.ops import int128 as I
+from velox_tpu_torch.vector.device import Dictionary
 
 # ---------------------------------------------------------------------------
 # Type promotion (copied from the reference)
@@ -78,6 +90,10 @@ def _no_long(*vals):
 
 def _numeric_data(v: EvalValue, target: T.DataType):
     """Convert EvalValue data to the computation dtype of `target`."""
+    if v.dtype.is_long_decimal and target.is_floating:
+        from velox_tpu_torch.functions.casts import long_to_double
+        hi = v.children[0].data if v.children else torch.zeros_like(v.data)
+        return long_to_double(v.data, hi, v.dtype.scale, target)
     _no_long(v)
     if target.is_long_decimal:
         raise NotImplementedError(
@@ -105,6 +121,11 @@ def arith_resolver(name):
                 and b.is_integral:
             # integer arithmetic computes and returns BIGINT
             return T.BIGINT
+        if name == "divide":
+            if (a.kind is T.TypeKind.DECIMAL
+                    or b.kind is T.TypeKind.DECIMAL):
+                return T.DOUBLE  # decimal division -> double
+            return promote_numeric(a, b)
         if name == "multiply" and (a.kind is T.TypeKind.DECIMAL
                                    and b.kind is T.TypeKind.DECIMAL):
             if a.is_long_decimal or b.is_long_decimal:
@@ -340,3 +361,467 @@ for _op in _CMP_OPS:
     register(_op, _cmp_resolver,
              lambda ctx, out_dtype, args, _op=_op:
              compare_value(ctx, args[0], args[1], _op))
+
+
+def fixed(out: T.DataType, *kinds_ok):
+    """Resolver: ``out`` when each argument's kind is ``kinds_ok``'s (a
+    TypeKind or a predicate)."""
+    def resolver(arg_types):
+        if kinds_ok and len(arg_types) != len(kinds_ok):
+            return None
+        for t, ok in zip(arg_types, kinds_ok):
+            if callable(ok):
+                if not ok(t):
+                    return None
+            elif t.kind is not ok:
+                return None
+        return out
+    return resolver
+
+
+def _floor_div(x, y):
+    return torch.div(x, y, rounding_mode="floor")
+
+
+def _half_up_div(d, p: int):
+    """d / p rounded half away from zero (integer tensors)."""
+    half = p // 2
+    return torch.where(d >= 0, _floor_div(d + half, p),
+                       -_floor_div(-d + half, p))
+
+
+def _unary_numeric(ts):
+    return ts[0] if len(ts) == 1 and ts[0].is_numeric else None
+
+
+# ---------------------------------------------------------------------------
+# Division, modulus, negation, absolute value
+# ---------------------------------------------------------------------------
+
+def _div_eval(ctx, out_dtype, args):
+    a, b = args
+    da, db = promote(_numeric_data(a, out_dtype), _numeric_data(b, out_dtype))
+    if out_dtype.is_integral:
+        # SQL integer division truncates toward zero; /0 is a checked
+        # error (Presto DIVISION_BY_ZERO)
+        db_safe = torch.where(db == 0, torch.ones_like(db), db)
+        q = torch.sign(da) * torch.sign(db_safe) \
+            * _floor_div(torch.abs(da), torch.abs(db_safe))
+        err = (db == 0) & _both_valid(a, b, ctx)
+        validity = _flag(ctx, err, merge_validity(a, b))
+        return EvalValue(q.to(out_dtype.torch_dtype()), validity, out_dtype)
+    return EvalValue(da / db, merge_validity(a, b), out_dtype)
+
+
+def _mod_eval(ctx, out_dtype, args):
+    a, b = args
+    da, db = promote(_numeric_data(a, out_dtype), _numeric_data(b, out_dtype))
+    # SQL mod: the sign follows the dividend; %0 is a checked error
+    db_safe = torch.where(db == 0, torch.ones_like(db), db)
+    data = torch.sign(da) * torch.remainder(torch.abs(da),
+                                            torch.abs(db_safe))
+    err = (db == 0) & _both_valid(a, b, ctx)
+    validity = _flag(ctx, err, merge_validity(a, b))
+    return EvalValue(data.to(out_dtype.torch_dtype()), validity, out_dtype)
+
+
+def _long_value(lo, hi, validity, out_dtype) -> EvalValue:
+    from velox_tpu_torch.vector.device import DeviceColumn
+    return EvalValue(lo, validity, out_dtype,
+                     children=(DeviceColumn(hi, None, T.BIGINT),))
+
+
+def _neg_eval(ctx, out_dtype, args):
+    (a,) = args
+    if out_dtype.is_long_decimal:
+        lo, hi = I.neg128(*_limbs(a, out_dtype.scale, ctx))
+        return _long_value(lo, hi, a.validity, out_dtype)
+    return EvalValue(-a.data, a.validity, out_dtype)
+
+
+def _abs_eval(ctx, out_dtype, args):
+    (a,) = args
+    if out_dtype.is_long_decimal:
+        # both limbs (the reference takes abs of the low limb alone;
+        # ROADMAP C)
+        lo, hi, _ = I.abs128(*_limbs(a, out_dtype.scale, ctx))
+        return _long_value(lo, hi, a.validity, out_dtype)
+    return EvalValue(torch.abs(a.data), a.validity, out_dtype)
+
+
+register("divide", arith_resolver("divide"), _div_eval)
+register("mod", arith_resolver("mod"), _mod_eval)
+register("negate", _unary_numeric, _neg_eval)
+register("abs", _unary_numeric, _abs_eval)
+
+
+# ---------------------------------------------------------------------------
+# Math (double domain)
+# ---------------------------------------------------------------------------
+
+def _cbrt(x):
+    """Real cube root: pow of |x| and one Newton step."""
+    y = torch.sign(x) * torch.pow(torch.abs(x), 1.0 / 3.0)
+    safe = torch.where(y == 0, torch.ones_like(y), y)
+    step = (safe * safe * safe - x) / (3.0 * safe * safe)
+    return torch.where((y == 0) | ~torch.isfinite(y), y, y - step)
+
+
+def _unary_math(name, fn):
+    def eval_fn(ctx, out_dtype, args):
+        (a,) = args
+        return EvalValue(fn(_numeric_data(a, T.DOUBLE)), a.validity,
+                         out_dtype)
+    register(name,
+             lambda ts: T.DOUBLE if len(ts) == 1 and ts[0].is_numeric
+             else None, eval_fn)
+
+
+for _name, _fn in (("sqrt", torch.sqrt), ("cbrt", _cbrt), ("ln", torch.log),
+                   ("log2", torch.log2), ("log10", torch.log10),
+                   ("exp", torch.exp), ("sin", torch.sin),
+                   ("cos", torch.cos), ("tan", torch.tan)):
+    _unary_math(_name, _fn)
+
+
+def _ceil_floor(name, fn):
+    def resolver(ts):
+        if len(ts) != 1 or not ts[0].is_numeric:
+            return None
+        return ts[0] if ts[0].is_integral else (
+            T.decimal(ts[0].precision, 0)
+            if ts[0].kind is T.TypeKind.DECIMAL else T.DOUBLE)
+
+    def eval_fn(ctx, out_dtype, args):
+        (a,) = args
+        if a.dtype.is_integral:
+            return EvalValue(a.data, a.validity, out_dtype)
+        if a.dtype.kind is T.TypeKind.DECIMAL:
+            _no_long(a)
+            s = 10 ** a.dtype.scale
+            d = a.data
+            if name == "ceiling":
+                data = torch.where(d >= 0, _floor_div(d + s - 1, s),
+                                   _floor_div(d, s))
+            else:
+                data = torch.where(d >= 0, _floor_div(d, s),
+                                   -_floor_div(-d + s - 1, s))
+            return EvalValue(data, a.validity, out_dtype)
+        return EvalValue(fn(a.data.to(torch.float64)), a.validity,
+                         out_dtype)
+    register(name, resolver, eval_fn)
+
+
+_ceil_floor("ceiling", torch.ceil)
+_ceil_floor("floor", torch.floor)
+_REGISTRY["ceil"] = _REGISTRY["ceiling"]
+
+
+def _round_eval(ctx, out_dtype, args):
+    a = args[0]
+    nd = 0
+    if len(args) > 1:
+        nd = int(args[1].py_value if args[1].py_value is not None
+                 else args[1].data)
+    if a.dtype.kind is T.TypeKind.DECIMAL:
+        _no_long(a)
+        diff = a.dtype.scale - nd
+        if diff <= 0:
+            return EvalValue(a.data, a.validity, out_dtype)
+        p = 10 ** diff
+        return EvalValue(_half_up_div(a.data, p) * p, a.validity, out_dtype)
+    if a.dtype.is_integral:
+        return EvalValue(a.data, a.validity, out_dtype)
+    scale = 10.0 ** nd
+    d = a.data.to(torch.float64) * scale
+    # half away from zero (Presto), not banker's rounding
+    data = torch.where(d >= 0, torch.floor(d + 0.5),
+                       torch.ceil(d - 0.5)) / scale
+    return EvalValue(data, a.validity, out_dtype)
+
+
+register("round",
+         lambda ts: (ts[0] if ts and ts[0].is_numeric and len(ts) <= 2
+                     else None),
+         _round_eval)
+
+
+def _power_eval(ctx, out_dtype, args):
+    a, b = args
+    return EvalValue(torch.pow(_numeric_data(a, T.DOUBLE),
+                               _numeric_data(b, T.DOUBLE)),
+                     merge_validity(a, b), T.DOUBLE)
+
+
+register("power",
+         lambda ts: (T.DOUBLE if len(ts) == 2
+                     and all(t.is_numeric for t in ts) else None),
+         _power_eval)
+_REGISTRY["pow"] = _REGISTRY["power"]
+
+
+def _sign_eval(ctx, out_dtype, args):
+    (a,) = args
+    _no_long(a)
+    return EvalValue(torch.sign(a.data).to(out_dtype.torch_dtype()),
+                     a.validity, out_dtype)
+
+
+register("sign",
+         lambda ts: (ts[0] if len(ts) == 1 and ts[0].is_floating
+                     else T.BIGINT if len(ts) == 1 and ts[0].is_numeric
+                     else None),
+         _sign_eval)
+
+
+def _minmax2(name, fn):
+    def eval_fn(ctx, out_dtype, args):
+        out = args[0]
+        for b in args[1:]:
+            da, db = promote(_numeric_data(out, out_dtype),
+                             _numeric_data(b, out_dtype))
+            out = EvalValue(fn(da, db), merge_validity(out, b), out_dtype)
+        return out
+
+    def resolver(ts):
+        if not ts or not all(t.is_numeric for t in ts):
+            return None
+        out = ts[0]
+        for t in ts[1:]:
+            out = promote_numeric(out, t)
+        return out
+    register(name, resolver, eval_fn)
+
+
+_minmax2("greatest", torch.maximum)
+_minmax2("least", torch.minimum)
+
+
+# ---------------------------------------------------------------------------
+# Dictionary strings: a host pass over the dictionary's values, then one
+# device gather of the result table by the column's ids
+# ---------------------------------------------------------------------------
+
+def _require_dict(v: EvalValue, fname: str) -> Dictionary:
+    if v.dictionary is None:
+        raise NotImplementedError(
+            f"{fname} over a raw (dictionary-less) string is not ported to "
+            "velox_tpu_torch (ROADMAP A.6)")
+    return v.dictionary
+
+
+def _gather_table(table: np.ndarray, v: EvalValue) -> torch.Tensor:
+    """``table[ids]`` on the column's device; ids are clamped into the
+    table, as a JAX gather clamps them (NULL rows may hold any id)."""
+    dev = v.data.device
+    ids = v.data.long().clamp(0, max(len(table) - 1, 0))
+    if not len(table):
+        return torch.zeros(ids.shape, dtype=torch.as_tensor(table).dtype,
+                           device=dev)
+    return torch.as_tensor(table, device=dev)[ids]
+
+
+def _dict_map(v: EvalValue, f, fname: str,
+              out_dtype=T.VARCHAR) -> EvalValue:
+    """Dictionary-to-dictionary transform. ``f`` may send distinct values
+    to one (substr, lower, trim), and duplicate values would break id
+    equality and grouping, so the output dictionary is the sorted distinct
+    results and the ids are remapped through one device gather."""
+    d = _require_dict(v, fname)
+    vals = [f(x) for x in d.values]
+    uniq = sorted(set(vals))
+    new_id = {x: i for i, x in enumerate(uniq)}
+    remap = np.fromiter((new_id[x] for x in vals), dtype=np.int32,
+                        count=len(vals))
+    new_dict = Dictionary(uniq)
+    new_dict.is_sorted = True
+    return EvalValue(_gather_table(remap, v), v.validity, out_dtype,
+                     new_dict)
+
+
+def _dict_lookup(v: EvalValue, f, out_dtype, fname: str) -> EvalValue:
+    """``f`` of each dictionary value, gathered by id on the device."""
+    d = _require_dict(v, fname)
+    table = np.array([f(x) for x in d.values], dtype=out_dtype.np_dtype())
+    return EvalValue(_gather_table(table, v), v.validity, out_dtype)
+
+
+def _str_resolver(out):
+    def resolver(ts):
+        return out if ts and ts[0].is_string else None
+    return resolver
+
+
+for _name, _f in (("lower", str.lower), ("upper", str.upper),
+                  ("trim", str.strip), ("ltrim", str.lstrip),
+                  ("rtrim", str.rstrip), ("reverse", lambda s: s[::-1])):
+    register(_name, _str_resolver(T.VARCHAR),
+             lambda ctx, o, a, _f=_f, _n=_name: _dict_map(a[0], _f, _n))
+register("length", _str_resolver(T.BIGINT),
+         lambda ctx, o, a: _dict_lookup(a[0], len, T.BIGINT, "length"))
+
+
+def _substr_eval(ctx, out_dtype, args):
+    start = int(args[1].py_value)
+    length = int(args[2].py_value) if len(args) > 2 else None
+
+    def f(s):
+        # 1-based start; a negative start counts from the end
+        i = start - 1 if start > 0 else len(s) + start
+        if i < 0:
+            i = 0
+        return s[i:i + length] if length is not None else s[i:]
+    return _dict_map(args[0], f, "substr")
+
+
+register("substr", lambda ts: T.VARCHAR if ts and ts[0].is_string else None,
+         _substr_eval)
+_REGISTRY["substring"] = _REGISTRY["substr"]
+
+
+def _like_regex(pattern: str):
+    """A LIKE pattern as an anchored regex: % any run, _ one character,
+    everything else literal."""
+    out = []
+    for ch in pattern:
+        if ch == "%":
+            out.append(".*")
+        elif ch == "_":
+            out.append(".")
+        else:
+            out.append(re.escape(ch))
+    return re.compile("^" + "".join(out) + "$", re.S)
+
+
+def _like_eval(ctx, out_dtype, args):
+    pattern = args[1].py_value
+    if pattern is None:
+        raise NotImplementedError("LIKE pattern must be a constant")
+    rx = _like_regex(pattern)
+    return _dict_lookup(args[0], lambda s: bool(rx.match(s)), T.BOOLEAN,
+                        "like")
+
+
+register("like", _str_resolver(T.BOOLEAN), _like_eval)
+
+
+def _string_test(name, f, out=T.BOOLEAN):
+    def eval_fn(ctx, out_dtype, args):
+        v, arg = args
+        s = arg.py_value
+        return _dict_lookup(v, lambda x: f(x, s), out, name)
+    register(name, _str_resolver(out), eval_fn)
+
+
+_string_test("starts_with", lambda x, s: x.startswith(s))
+_string_test("ends_with", lambda x, s: x.endswith(s))
+_string_test("strpos", lambda x, s: x.find(s) + 1, T.BIGINT)
+
+
+def _concat_eval(ctx, out_dtype, args):
+    # a column with constant prefixes/suffixes; column || column needs the
+    # product dictionary (not in the reference either)
+    col = None
+    for a in args:
+        if a.py_value is None:
+            if col is not None:
+                raise NotImplementedError("concat of two string columns")
+            col = a
+    parts = [a.py_value for a in args]
+
+    def f(s):
+        return "".join(p if p is not None else s for p in parts)
+    return _dict_map(col, f, "concat")
+
+
+register("concat",
+         lambda ts: T.VARCHAR if ts and all(t.is_string for t in ts)
+         else None, _concat_eval)
+
+
+def _replace_eval(ctx, out_dtype, args):
+    old = args[1].py_value
+    new = args[2].py_value if len(args) > 2 else ""
+    return _dict_map(args[0], lambda s: s.replace(old, new), "replace")
+
+
+register("replace", _str_resolver(T.VARCHAR), _replace_eval)
+
+
+# ---------------------------------------------------------------------------
+# Date parts (DATE = int32 days since 1970-01-01)
+# ---------------------------------------------------------------------------
+
+def _civil_from_days(days):
+    """Days since the epoch -> (year, month, day), Howard Hinnant's
+    branch-free algorithm over int64."""
+    z = days.to(torch.int64) + 719468
+    era = _floor_div(torch.where(z >= 0, z, z - 146096), 146097)
+    doe = z - era * 146097
+    yoe = _floor_div(doe - _floor_div(doe, 1460) + _floor_div(doe, 36524)
+                     - _floor_div(doe, 146096), 365)
+    y = yoe + era * 400
+    doy = doe - (365 * yoe + _floor_div(yoe, 4) - _floor_div(yoe, 100))
+    mp = _floor_div(5 * doy + 2, 153)
+    d = doy - _floor_div(153 * mp + 2, 5) + 1
+    m = torch.where(mp < 10, mp + 3, mp - 9)
+    y = torch.where(m <= 2, y + 1, y)
+    return y, m, d
+
+
+def _days_from_civil(y, m, d):
+    y = y - (m <= 2).to(y.dtype)
+    era = _floor_div(torch.where(y >= 0, y, y - 399), 400)
+    yoe = y - era * 400
+    mp = torch.where(m > 2, m - 3, m + 9)
+    doy = _floor_div(153 * mp + 2, 5) + d - 1
+    doe = yoe * 365 + _floor_div(yoe, 4) - _floor_div(yoe, 100) + doy
+    return era * 146097 + doe - 719468
+
+
+def _date_days(v: EvalValue):
+    if v.dtype.kind is T.TypeKind.DATE:
+        return v.data
+    if v.dtype.kind is T.TypeKind.TIMESTAMP:
+        return _floor_div(v.data, 86400_000_000).to(torch.int32)
+    raise TypeError(f"not a date: {v.dtype}")
+
+
+_DATELIKE = fixed(T.BIGINT, lambda t: t.kind in (T.TypeKind.DATE,
+                                                 T.TypeKind.TIMESTAMP))
+
+
+def _date_part(name, picker):
+    def eval_fn(ctx, out_dtype, args):
+        (v,) = args
+        y, m, d = _civil_from_days(_date_days(v))
+        return EvalValue(picker(y, m, d).to(torch.int64), v.validity,
+                         T.BIGINT)
+    register(name, _DATELIKE, eval_fn)
+
+
+_date_part("year", lambda y, m, d: y)
+_date_part("month", lambda y, m, d: m)
+_date_part("day", lambda y, m, d: d)
+_date_part("quarter", lambda y, m, d: _floor_div(m - 1, 3) + 1)
+
+
+def _dow_eval(ctx, out_dtype, args):
+    (v,) = args
+    # 1970-01-01 was a Thursday; ISO day of week 1 = Monday .. 7 = Sunday
+    days = _date_days(v).to(torch.int64)
+    return EvalValue(torch.remainder(days + 3, 7) + 1, v.validity, T.BIGINT)
+
+
+def _doy_eval(ctx, out_dtype, args):
+    (v,) = args
+    days = _date_days(v)
+    y, m, d = _civil_from_days(days)
+    jan1 = _days_from_civil(y, torch.ones_like(m), torch.ones_like(d))
+    return EvalValue(days.to(torch.int64) - jan1 + 1, v.validity, T.BIGINT)
+
+
+register("day_of_week", _DATELIKE, _dow_eval)
+_REGISTRY["dow"] = _REGISTRY["day_of_week"]
+register("day_of_year", _DATELIKE, _doy_eval)
+_REGISTRY["doy"] = _REGISTRY["day_of_year"]
