@@ -105,6 +105,21 @@ Phases, each printing one line; any failure raises and exits non-zero:
    pass and the enqueue of its gather, no sync) is timed per query.
    Then each query runs at SF 1 on the card and on the CPU in this
    process: equal rows, doubles within the relative tolerance.
+15. analytic: six paths of the analytic operators, each cold and warm,
+   each exact against a numpy oracle over the generator's columns (on
+   the card, column by column, for the large outputs): win_lineitem (a
+   window over all of lineitem: row_number, rank, dense_rank, a running
+   DECIMAL sum, lag), win_orders_frames (ROWS 2 PRECEDING min/max/avg,
+   ntile, percent_rank, cume_dist, first/last_value over orders, then a
+   RANGE 90 PRECEDING sum), topn_row_number (the top 3 orders by price
+   a customer), row_number_hash (RowNumber by l_orderkey, limit 2: the
+   hash table grows past its first 2^24 slots), distinct_rollup (two
+   MarkDistinct counts per l_returnflag; Q1's aggregates over a GroupId
+   ROLLUP) and merge_join (lineitem merge-joined with orders,
+   AssignUniqueId, an aggregation per priority; a streaming aggregation
+   over an OrderBy). Each prints its walls, its peak device memory, its
+   launches (B4 and B5 on every path, B2 or B3 on the window, TopN and
+   RowNumber paths) and the hash table's probe rounds and rehashes.
 
 Every number a phase prints is measured in this run, on this card; bounds
 are bytes over the H100's 3.35 TB/s.
@@ -139,12 +154,14 @@ from velox_tpu_torch.core import plan as P
 from velox_tpu_torch.core.config import QueryConfig as QC
 from velox_tpu_torch.core.plan import SortOrder
 from velox_tpu_torch.core.stats import resolve_column_stats
+from velox_tpu_torch.exec import hashtable as H
 from velox_tpu_torch.exec import misc_ops
 from velox_tpu_torch.exec.aggregation import AggregationOperator
 from velox_tpu_torch.exec.sort import (
     _word_bits, num_value_words, pack_words_u64, radix_sort_perm, sort_words,
 )
 from velox_tpu_torch.exec.task import QueryCtx, Task
+from velox_tpu_torch.exec.window import BoundType, FrameType, WindowFrame
 from velox_tpu_torch.expression.eval import EvalValue
 from velox_tpu_torch.functions import scalar as S
 from velox_tpu_torch.native import build
@@ -174,7 +191,8 @@ Q1_COLS = ["l_returnflag", "l_linestatus", "l_quantity", "l_extendedprice",
            "l_discount", "l_tax", "l_shipdate"]
 SORT_COLS = ["l_shipdate", "l_orderkey", "l_linenumber"]
 Q18_THRESHOLD = 300  # the spec's quantity threshold
-LI_COLS = sorted(set(Q1_COLS + Q6_COLS + SORT_COLS))
+LI_COLS = sorted(set(Q1_COLS + Q6_COLS + SORT_COLS
+                     + ["l_suppkey", "l_partkey"]))
 RADIX_KERNELS = (R.radix_hist, R.radix_rank, R.radix_pos)
 Q1_PROJECT = [
     "l_returnflag", "l_linestatus", "l_quantity", "l_extendedprice",
@@ -2060,6 +2078,434 @@ def tpch_rest_phase(conn, ctx, li, compare_sf: float = COMPARE_SF) -> dict:
     return by_query
 
 
+# ---------------------------------------------------------------------------
+# analytic: Window, RowNumber, TopNRowNumber, MarkDistinct, GroupId,
+# MergeJoin, AssignUniqueId and streaming aggregation at SF10
+# ---------------------------------------------------------------------------
+
+LI_WINDOW_COLS = ["l_suppkey", "l_shipdate", "l_orderkey", "l_linenumber",
+                  "l_quantity", "l_extendedprice"]
+Q1_ROLLUP_SETS = (("l_returnflag", "l_linestatus"), ("l_returnflag",), ())
+Q1_AGGS = ["sum(l_quantity) as sum_qty",
+           "sum(l_extendedprice) as sum_base_price",
+           "sum(l_sum_disc_price) as sum_disc_price",
+           "sum(l_sum_charge) as sum_charge",
+           "avg(l_quantity) as avg_qty", "avg(l_extendedprice) as avg_price",
+           "avg(l_discount) as avg_disc", "count() as count_order"]
+
+
+def _aggregate(source: P.PlanNode, keys, aggs) -> P.PlanNode:
+    """A single-step aggregation over a plan node the builder has no
+    method for (GroupId)."""
+    b = PlanBuilder()
+    b._node = source
+    return b.single_aggregation(keys, aggs).plan()
+
+
+def win_lineitem_plan():
+    return (PlanBuilder().table_scan("lineitem", LI_WINDOW_COLS)
+            .window(["l_suppkey"],
+                    ["l_shipdate", "l_orderkey", "l_linenumber"],
+                    ["row_number() as rn", "rank() as rk",
+                     "dense_rank() as dr", "sum(l_quantity) as sq",
+                     "lag(l_extendedprice, 1) as lg"]).plan())
+
+
+def win_orders_frames_plan():
+    rows2 = WindowFrame(FrameType.ROWS, BoundType.PRECEDING, 2,
+                        BoundType.CURRENT_ROW, 0)
+    range90 = WindowFrame(FrameType.RANGE, BoundType.PRECEDING, 90,
+                          BoundType.CURRENT_ROW, 0)
+    return (PlanBuilder().table_scan("orders", ["o_custkey", "o_orderdate",
+                                                "o_orderkey", "o_totalprice"])
+            .window(["o_custkey"], ["o_orderdate", "o_orderkey"],
+                    ["min(o_totalprice) as mn", "max(o_totalprice) as mx",
+                     "avg(o_totalprice) as av", "ntile(4) as nt",
+                     "percent_rank() as pr", "cume_dist() as cd",
+                     "first_value(o_totalprice) as fv",
+                     "last_value(o_totalprice) as lv"], frame=rows2)
+            # RANGE k takes one ORDER BY key
+            .window(["o_custkey"], ["o_orderdate"],
+                    ["sum(o_totalprice) as s90"], frame=range90).plan())
+
+
+def topn_row_number_plan():
+    """TPC-DS q67's rank() <= N shape: the top 3 orders by price a
+    customer."""
+    return (PlanBuilder().table_scan("orders", ["o_custkey", "o_totalprice",
+                                                "o_orderkey"])
+            .top_n_row_number(["o_custkey"], ["o_totalprice DESC",
+                                              "o_orderkey"], 3, "rn")
+            .plan())
+
+
+def row_number_hash_plan():
+    return (PlanBuilder().table_scan("lineitem", ["l_orderkey"])
+            .row_number(["l_orderkey"], "rn", limit=2).plan())
+
+
+def distinct_counts_plan():
+    """Two count(DISTINCT ...) per l_returnflag, as Presto plans them:
+    MarkDistinct per distinct key tuple, then sums of the markers."""
+    return (PlanBuilder().table_scan("lineitem", ["l_returnflag",
+                                                  "l_orderkey", "l_partkey"])
+            .mark_distinct("m1", ["l_returnflag", "l_orderkey"])
+            .mark_distinct("m2", ["l_returnflag", "l_partkey"])
+            .project(["l_returnflag", "if(m1, 1, 0) as c1",
+                      "if(m2, 1, 0) as c2"])
+            .single_aggregation(["l_returnflag"], ["sum(c1) as d1",
+                                                   "sum(c2) as d2"]).plan())
+
+
+def q1_rollup_plan():
+    """Q1's aggregates over ROLLUP(l_returnflag, l_linestatus): GroupId,
+    then one aggregation over 3x the rows."""
+    head = (PlanBuilder()
+            .table_scan("lineitem", Q1_COLS,
+                        filter="l_shipdate <= date '1998-09-02'")
+            .project(Q1_PROJECT).plan())
+    gid = P.GroupIdNode(
+        "q1_rollup_gid", source=head, grouping_sets=Q1_ROLLUP_SETS,
+        aggregation_inputs=("l_quantity", "l_extendedprice",
+                            "l_sum_disc_price", "l_sum_charge",
+                            "l_discount"))
+    return _aggregate(gid, ["l_returnflag", "l_linestatus", "group_id"],
+                      Q1_AGGS)
+
+
+def merge_join_plan():
+    """lineitem merge-joined with orders (its build side, in key order as
+    generated), a unique id a joined row, then per o_orderpriority."""
+    b = PlanBuilder()
+    orders = b.new_builder().table_scan("orders", ["o_orderkey",
+                                                   "o_orderpriority"])
+    return (b.table_scan("lineitem", ["l_orderkey", "l_extendedprice"])
+            .merge_join(["l_orderkey"], ["o_orderkey"], orders,
+                        output=["l_extendedprice", "o_orderpriority"])
+            .assign_unique_id("uid")
+            .single_aggregation(["o_orderpriority"],
+                                ["sum(l_extendedprice) as revenue",
+                                 "count() as n", "max(uid) as last_uid"])
+            .plan())
+
+
+def streaming_agg_plan():
+    return (PlanBuilder().table_scan("orders", ["o_custkey", "o_totalprice"])
+            .order_by(["o_custkey"])
+            .single_aggregation(["o_custkey"], ["sum(o_totalprice) as s"])
+            .plan())
+
+
+# path -> its plans, run one after the other
+ANALYTIC_PLANS = {
+    "win_lineitem": (win_lineitem_plan,),
+    "win_orders_frames": (win_orders_frames_plan,),
+    "topn_row_number": (topn_row_number_plan,),
+    "row_number_hash": (row_number_hash_plan,),
+    "distinct_rollup": (distinct_counts_plan, q1_rollup_plan),
+    "merge_join": (merge_join_plan, streaming_agg_plan),
+}
+PATH_PLANS.update({
+    "win_lineitem": win_lineitem_plan,
+    "win_orders_frames": win_orders_frames_plan,
+    "topn_row_number": topn_row_number_plan,
+    "row_number_hash": row_number_hash_plan,
+    "distinct_counts": distinct_counts_plan,
+    "q1_rollup": q1_rollup_plan,
+    "merge_join": merge_join_plan,
+    "streaming_agg": streaming_agg_plan,
+})
+# the paths whose sorts are a window's, RowNumber's or TopNRowNumber's
+# (B2 or B3 must run there)
+ANALYTIC_SORTS = ("win_lineitem", "win_orders_frames", "topn_row_number",
+                  "row_number_hash")
+
+
+def _active_cols(batches, name):
+    """(data, validity or None, high limb or None) of a column's active
+    rows over output batches, concatenated on the card."""
+    parts = ([], [], [])
+    for b in batches:
+        c = b.columns[name]
+        parts[0].append(c.data[b.mask])
+        if c.validity is not None:
+            parts[1].append(c.validity[b.mask])
+        if c.children:
+            parts[2].append(c.children[0].data[b.mask])
+    return tuple(torch.cat(p) if p else None for p in parts)
+
+
+def _expect(got: torch.Tensor, want: np.ndarray, what: str,
+            rel_tol: float = 0.0) -> None:
+    """A column on the card equals a numpy oracle (doubles within
+    ``rel_tol`` relative)."""
+    w = torch.from_numpy(np.ascontiguousarray(want)).to(got.device)
+    if got.shape != w.shape:
+        raise AssertionError(f"{what}: {tuple(got.shape)} rows, expected "
+                             f"{tuple(w.shape)}")
+    if w.dtype.is_floating_point:
+        ok = torch.isclose(got.to(w.dtype), w, rtol=rel_tol, atol=0.0)
+    else:
+        ok = got.to(w.dtype) == w
+    if not bool(ok.all()):
+        i = int((~ok).nonzero()[0])
+        raise AssertionError(f"{what}: row {i} is {got[i].item()}, "
+                             f"expected {want[i]}")
+
+
+def _check_columns(batches, want: dict, what: str) -> None:
+    """Every column of ``want`` (name -> data, or (data, validity)) equals
+    the output's active rows; a long decimal's high limb is the sign of
+    its (int64) value."""
+    for name, w in want.items():
+        data, validity, hi = _active_cols(batches, name)
+        wd, wv = w if isinstance(w, tuple) else (w, None)
+        if wv is None and validity is not None \
+                and not bool(validity.all()):
+            raise AssertionError(f"{what} {name}: unexpected NULL")
+        if wv is not None:
+            _expect(validity, wv, f"{what} {name} validity")
+            data = torch.where(validity, data, torch.zeros_like(data))
+            wd = np.where(wv, wd, 0)
+        _expect(data, wd, f"{what} {name}",
+                rel_tol=1e-9 if wd.dtype.kind == "f" else 0.0)
+        if hi is not None:
+            _expect(hi, (wd < 0).astype(np.int64) * -1, f"{what} {name} hi")
+
+
+def _partitions(sorted_keys: np.ndarray):
+    """(start, end, position) of each row's run of equal sorted keys."""
+    n = len(sorted_keys)
+    iota = np.arange(n)
+    new = np.r_[True, sorted_keys[1:] != sorted_keys[:-1]]
+    start = np.maximum.accumulate(np.where(new, iota, 0))
+    last = np.r_[new[1:], True]
+    end = np.minimum.accumulate(np.where(last, iota, n)[::-1])[::-1]
+    return start, end, iota - start
+
+
+def _before(prefix: np.ndarray, i: np.ndarray) -> np.ndarray:
+    """Inclusive prefix sums at i - 1 (0 before row 0)."""
+    return np.where(i > 0, prefix[np.maximum(i - 1, 0)], 0)
+
+
+def win_lineitem_oracle(li) -> dict:
+    """The window over lineitem sorted by one unique composite of
+    (l_suppkey, l_shipdate, l_orderkey, l_linenumber), whose widths at
+    SF10 (17, 14, 26, 3 bits) fit 60: every row is its own peer group, so
+    rank and dense_rank equal row_number."""
+    key = ((li["l_suppkey"] << 14 | li["l_shipdate"]) << 26
+           | li["l_orderkey"]) << 3 | li["l_linenumber"]
+    order = np.argsort(key)
+    start, _, pos = _partitions(li["l_suppkey"][order])
+    q = np.cumsum(li["l_quantity"][order])
+    p = li["l_extendedprice"][order]
+    rn = pos + 1
+    return {"l_orderkey": li["l_orderkey"][order],
+            "l_linenumber": li["l_linenumber"][order],
+            "rn": rn, "rk": rn, "dr": rn, "sq": q - _before(q, start),
+            "lg": (np.r_[0, p[:-1]], pos > 0)}
+
+
+def win_orders_frames_oracle(od) -> dict:
+    """Both windows over orders sorted by the unique composite
+    (o_custkey, o_orderdate, o_orderkey) (21, 15, 26 bits at SF10): the
+    second window's stable sort by (o_custkey, o_orderdate) keeps that
+    order. ROWS 2 PRECEDING frames from shifts; the RANGE 90 PRECEDING
+    sums from binary searches over (o_custkey, o_orderdate)."""
+    comp = od["o_custkey"] << 15 | od["o_orderdate"]
+    order = np.argsort(comp << 26 | od["o_orderkey"])
+    comp = comp[order]
+    tp = od["o_totalprice"][order]
+    start, end, pos = _partitions(od["o_custkey"][order])
+    size = end - start + 1
+    mn, mx, s, c = tp.copy(), tp.copy(), tp.copy(), np.ones_like(tp)
+    for d in (1, 2):
+        prev = np.r_[np.zeros(d, np.int64), tp[:-d]]
+        ok = pos >= d
+        mn = np.where(ok, np.minimum(mn, prev), mn)
+        mx = np.where(ok, np.maximum(mx, prev), mx)
+        s, c = s + np.where(ok, prev, 0), c + ok
+    half = c // 2
+    avg = np.where(s >= 0, (s + half) // c, -((-s + half) // c))
+    small, rem = size // 4, size % 4
+    cut = rem * (small + 1)
+    nt = np.where(pos < cut, pos // np.maximum(small + 1, 1),
+                  rem + (pos - cut) // np.maximum(small, 1)) + 1
+    pr = np.where(size == 1, 0.0, pos / np.maximum(size - 1, 1))
+    lo = np.searchsorted(comp, comp - 90, side="left")
+    hi = np.searchsorted(comp, comp, side="right") - 1
+    cs = np.cumsum(tp)
+    return {"o_orderkey": od["o_orderkey"][order], "mn": mn, "mx": mx,
+            "av": avg, "nt": nt, "pr": pr, "cd": (pos + 1) / size,
+            "fv": tp[np.maximum(start, np.arange(len(tp)) - 2)], "lv": tp,
+            "s90": cs[hi] - _before(cs, lo)}
+
+
+def topn_row_number_oracle(od) -> dict:
+    order = np.lexsort((od["o_orderkey"], -od["o_totalprice"],
+                        od["o_custkey"]))
+    _, _, pos = _partitions(od["o_custkey"][order])
+    keep = pos < 3
+    return {"o_orderkey": od["o_orderkey"][order][keep],
+            "rn": pos[keep] + 1}
+
+
+def row_number_hash_oracle(li) -> dict:
+    """Each line's occurrence number of its l_orderkey in the stream,
+    the first two kept."""
+    k = li["l_orderkey"]
+    order = np.argsort(k, kind="stable")
+    _, _, pos = _partitions(k[order])
+    rn = np.empty(len(k), np.int64)
+    rn[order] = pos + 1
+    keep = rn <= 2
+    return {"l_orderkey": k[keep], "rn": rn[keep]}
+
+
+def distinct_rollup_oracle(conn, li) -> tuple:
+    """(distinct counts, Q1 rollup) as (names, rows) tables: distinct
+    (flag, key) pairs from bincounts; the rollup's sums exact in Python
+    ints, averages half-up."""
+    flags = conn.gen.dictionaries("lineitem")["l_returnflag"]
+    status = conn.gen.dictionaries("lineitem")["l_linestatus"]
+    rf = li["l_returnflag"]
+    counts = []
+    for f in range(len(flags)):
+        sel = rf == f
+        if sel.any():
+            counts.append((flags.values[f],
+                           int(np.count_nonzero(np.bincount(
+                               li["l_orderkey"][sel]))),
+                           int(np.count_nonzero(np.bincount(
+                               li["l_partkey"][sel])))))
+    m = li["l_shipdate"] <= D980902
+    q, p = li["l_quantity"], li["l_extendedprice"]
+    d, t = li["l_discount"], li["l_tax"]
+    cells = {}
+    for f in range(len(flags)):
+        for s in range(len(status)):
+            sel = m & (rf == f) & (li["l_linestatus"] == s)
+            if sel.any():
+                dp = p[sel] * (100 - d[sel])
+                cells[f, s] = np.array(
+                    [_psum(q[sel]), _psum(p[sel]), _psum(dp),
+                     _psum(dp * (100 + t[sel])), _psum(d[sel]),
+                     int(sel.sum())], dtype=object)
+    rows = []
+    for gid, key_of in enumerate((lambda f, s: (f, s), lambda f, s: (f,),
+                                  lambda f, s: ())):
+        groups = {}
+        for (f, s), v in cells.items():
+            k = key_of(f, s)
+            groups[k] = groups.get(k, 0) + v
+        for k, (sq, sp, sdp, sc, sd, n) in groups.items():
+            rows.append((flags.values[k[0]] if k else None,
+                         status.values[k[1]] if len(k) > 1 else None,
+                         gid, sq, sp, sdp, sc, _half_up(sq, n),
+                         _half_up(sp, n), _half_up(sd, n), n))
+    names = (["l_returnflag", "l_linestatus", "group_id"]
+             + [a.split(" as ")[1] for a in Q1_AGGS])
+    return (["l_returnflag", "d1", "d2"], counts), (names, rows)
+
+
+def merge_join_oracle(conn, li, od) -> tuple:
+    """(per-priority table, streaming sums): every line joins its order;
+    the unique id is the line's position in the stream."""
+    prios = conn.gen.dictionaries("orders")["o_orderpriority"]
+    prio_of = np.full(int(od["o_orderkey"].max()) + 1, -1, np.int64)
+    prio_of[od["o_orderkey"]] = od["o_orderpriority"]
+    pl = prio_of[li["l_orderkey"]]
+    rows = []
+    for i in range(len(prios)):
+        sel = pl == i
+        if sel.any():
+            rows.append((prios.values[i], _psum(li["l_extendedprice"][sel]),
+                         int(sel.sum()), int(np.flatnonzero(sel)[-1])))
+    order = np.argsort(od["o_custkey"], kind="stable")
+    ck = od["o_custkey"][order]
+    first = np.flatnonzero(np.r_[True, ck[1:] != ck[:-1]])
+    sums = np.add.reduceat(od["o_totalprice"][order], first)
+    return ((["o_orderpriority", "revenue", "n", "last_uid"], rows),
+            {"o_custkey": ck[first], "s": sums})
+
+
+def analytic_phase(conn, ctx, li) -> dict:
+    """The six analytic paths at SF10, each run cold (scan cache cleared)
+    and warm, each exact against its numpy oracle; per path the walls,
+    the peak device memory, the kernels' launches and the hash table's
+    rounds and rehashes. Returns each path's cold launch counts."""
+    t0 = time.perf_counter()
+    od = table_columns(conn, "orders", ["o_orderkey", "o_custkey",
+                                        "o_orderdate", "o_totalprice",
+                                        "o_orderpriority"])
+    distinct, rollup = distinct_rollup_oracle(conn, li)
+    per_prio, stream_sums = merge_join_oracle(conn, li, od)
+
+    def table_check(want, what):
+        return lambda out: _same_rows(_host_table(out), want, 1e-9,
+                                      f"{what} vs numpy")
+    checks = {
+        "win_lineitem": (lambda out, w=win_lineitem_oracle(li):
+                         _check_columns(out, w, "win_lineitem"),),
+        "win_orders_frames": (lambda out, w=win_orders_frames_oracle(od):
+                              _check_columns(out, w, "win_orders_frames"),),
+        "topn_row_number": (lambda out, w=topn_row_number_oracle(od):
+                            _check_columns(out, w, "topn_row_number"),),
+        "row_number_hash": (lambda out, w=row_number_hash_oracle(li):
+                            _check_columns(out, w, "row_number_hash"),),
+        "distinct_rollup": (table_check(distinct, "distinct counts"),
+                            table_check(rollup, "q1 rollup")),
+        "merge_join": (table_check(per_prio, "merge join"),
+                       lambda out: _check_columns(out, stream_sums,
+                                                  "streaming")),
+    }
+    phase("analytic_oracles", seconds=time.perf_counter() - t0)
+    cache = DataCache.instance()
+    by_path = {}
+    for name, plans in ANALYTIC_PLANS.items():
+        runs = {}
+        for run in ("cold", "warm"):
+            if run == "cold":
+                cache.clear()
+            H.insert.rounds = H.reserve.rehashes = 0
+            torch.cuda.reset_peak_memory_stats()
+            wall, counts = 0.0, {}
+            for make, check in zip(plans, checks[name]):
+                out, w, c = _run(make(), ctx)
+                check(out)
+                del out
+                wall += w
+                counts = {k: counts.get(k, 0) + v for k, v in c.items()}
+            runs[run] = {"wall_s": wall, "launches": counts,
+                         "max_memory_allocated":
+                             torch.cuda.max_memory_allocated(),
+                         "hash_rounds": H.insert.rounds,
+                         "rehashes": H.reserve.rehashes}
+        cold, warm = runs["cold"], runs["warm"]
+        if warm["launches"] != cold["launches"]:
+            raise AssertionError(f"{name}: warm launches {warm['launches']}"
+                                 f" != cold {cold['launches']}")
+        got = cold["launches"]
+        if not (got["radix_hist"] > 0
+                and got["flat_gather"] + got["gather_rows"] > 0):
+            raise AssertionError(f"{name}: B4 or B5 never launched: {got}")
+        if name in ANALYTIC_SORTS and not (got["radix_rank"]
+                                           + got["radix_pos"] > 0):
+            raise AssertionError(f"{name}: neither B2 nor B3 launched")
+        if name == "row_number_hash" and not cold["rehashes"] > 0:
+            raise AssertionError("row_number_hash: the table never grew")
+        by_path[name] = got
+        phase(name, wall_s={r: v["wall_s"] for r, v in runs.items()},
+              max_memory_allocated={r: v["max_memory_allocated"]
+                                    for r, v in runs.items()},
+              launches={k: v for k, v in got.items() if k != "filter_sum"},
+              hash_rounds={r: v["hash_rounds"] for r, v in runs.items()},
+              rehashes={r: v["rehashes"] for r, v in runs.items()})
+    cache.clear()
+    return by_path
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sf", type=float, default=10.0,
@@ -2092,6 +2538,7 @@ def main() -> None:
     by_phase["q3"] = q3_phase(conn, ctx, li)
     by_phase["q18"] = q18_phase(conn, ctx, li)
     by_phase.update(tpch_rest_phase(conn, ctx, li))
+    by_phase.update(analytic_phase(conn, ctx, li))
 
     main_shape = kernel["timings"][FILTER_TIMED[0]]
     kernels = [{

@@ -1,6 +1,7 @@
-"""EnforceSingleRow and the nested-loop join of the torch port against the
-JAX reference (the port's counterparts of tests/test_misc_ops.py's
-EnforceSingleRow and NestedLoopJoin tests).
+"""The smaller operators of the torch port against the JAX reference (the
+port's counterparts of tests/test_misc_ops.py): MarkDistinct,
+AssignUniqueId, EnforceSingleRow, Expand, GroupId, the nested-loop join
+and the merge join.
 
 Each plan is built by each package's own PlanBuilder over the same
 pyarrow tables and run by each package's Task; the two Arrow results must
@@ -13,9 +14,16 @@ import pyarrow as pa
 import pytest
 import torch
 
+import velox_tpu.core.expressions as JE
+import velox_tpu.core.plan as JP
+from velox_tpu.common.errors import VeloxRuntimeError as JVeloxRuntimeError
 from velox_tpu.exec.task import Task as JTask
 from velox_tpu.testing.plan_builder import PlanBuilder as JPlanBuilder
+from velox_tpu_torch.common.errors import VeloxRuntimeError
+from velox_tpu_torch.core import expressions as E
+from velox_tpu_torch.core import plan as P
 from velox_tpu_torch.exec import misc_ops
+from velox_tpu_torch.exec.join import MergeJoinOperator
 from velox_tpu_torch.exec.task import QueryCtx, Task
 from velox_tpu_torch.testing.plan_builder import PlanBuilder
 
@@ -185,3 +193,141 @@ def test_nested_loop_join_over_several_chunks(jt):
                                   join_type=jt).plan())
     got = _both(build)
     assert got.num_rows > 0
+
+
+def test_mark_distinct():
+    rng = np.random.RandomState(0)
+    tables = [_table(k=rng.randint(0, 20, 100), v=np.arange(100))
+              for _ in range(2)]
+    got = _both(lambda B: B().values(tables)
+                .mark_distinct("is_first", ["k"]).plan())
+    assert got.num_rows == 200
+    assert sum(got.column("is_first").to_pylist()) == len(
+        set(got.column("k").to_pylist()))
+
+
+def test_assign_unique_id():
+    tables = [_table(v=np.arange(50)) for _ in range(3)]
+
+    def build(B):
+        return (B().values(tables).filter("v % 3 <> 1")
+                .assign_unique_id("uid", task_unique_id=5).plan())
+    want = JTask(build(JPlanBuilder)).run()
+    got = Task(build(PlanBuilder), CPU).run()
+    assert got.equals(want)
+    uid = np.asarray(got.column("uid"))
+    assert ((uid >> 40) == 5).all()
+    assert (uid & ((1 << 40) - 1)).tolist() == list(range(len(uid)))
+
+
+def test_expand():
+    t = _table(a=np.arange(10), b=np.arange(10, 20))
+    got = _both(lambda B: B().values([t])
+                .expand([["a as x", "0 as tag"], ["b as x", "1 as tag"]])
+                .plan())
+    assert got.num_rows == 20
+
+
+@pytest.mark.parametrize("sets", [(("a",), ("b",), ()),
+                                  (("a", "b"), ("a",), ())])
+def test_group_id(sets):
+    """GROUPING SETS (and a ROLLUP) expansion plus aggregation: the keys
+    outside a set are NULL, group_id numbers the sets."""
+    t = pa.table({"a": pa.array([1, 1, 2, 2, 3], pa.int64()),
+                  "b": pa.array(["x", "y", "x", "y", "x"]),
+                  "v": pa.array([1, 2, 3, 4, 5], pa.int64())})
+
+    def build(B):
+        Pk, Ek = (JP, JE) if B is JPlanBuilder else (P, E)
+        src = B().values([t]).plan()
+        gid = Pk.GroupIdNode("gid", source=src, grouping_sets=sets,
+                             aggregation_inputs=("v",))
+        ot = gid.output_type()
+        return Pk.AggregationNode(
+            "agg", source=gid, step=Pk.AggregationStep.SINGLE,
+            grouping_keys=tuple(Ek.field(n, ot.field_type(n))
+                                for n in ("a", "b", "group_id")),
+            aggregate_names=("s", "c"),
+            aggregates=(Pk.AggregateCall(
+                "sum", (Ek.field("v", ot.field_type("v")),), None),
+                Pk.AggregateCall("count", (), None)))
+    got = _both(build)
+    assert sorted(set(got.column("group_id").to_pylist())) == [0, 1, 2]
+
+
+def _merge_build(left, right, **kw):
+    def build(B):
+        b = B()
+        bb = b.new_builder().values(right if isinstance(right, list)
+                                    else [right])
+        return b.values([left]).merge_join(["k"], ["rk"], bb, **kw).plan()
+    return build
+
+
+def test_merge_join():
+    rng = np.random.RandomState(8)
+    left = _table(k=np.sort(rng.randint(0, 50, 200)), lv=np.arange(200))
+    right = _table(rk=np.sort(rng.permutation(60)[:30]), rv=np.arange(30))
+    build = _merge_build(left, right, output=["k", "lv", "rv"])
+    _both(build)
+    task = Task(build(PlanBuilder), CPU)
+    task.run()
+    assert any(isinstance(op, MergeJoinOperator) for op in task.operators)
+
+
+@pytest.mark.parametrize("jt", ["inner", "left", "right", "full",
+                                "left_semi_filter"])
+def test_merge_join_duplicates_and_join_types(jt):
+    left = _table(k=[1, 1, 2, 5, 7, 7, 9], lv=np.arange(7))
+    right = _table(rk=[1, 2, 2, 7, 8], rv=[10, 20, 21, 70, 80])
+    out = ["k", "lv"] if jt == "left_semi_filter" else ["k", "lv", "rv"]
+    _both(_merge_build(left, right, output=out, join_type=jt))
+
+
+def test_merge_join_unsorted_build_raises():
+    build = _merge_build(_table(k=[1, 2]), _table(rk=[5, 3, 4]),
+                         output=["k", "rk"])
+    with pytest.raises(JVeloxRuntimeError):
+        JTask(build(JPlanBuilder)).run()
+    with pytest.raises(VeloxRuntimeError, match="not sorted"):
+        Task(build(PlanBuilder), CPU).run()
+
+
+def test_merge_join_multibatch_sorted_stream():
+    """Two sorted build batches whose concatenation stays sorted."""
+    right = [_table(rk=[1, 3, 5], rv=[1, 3, 5]), _table(rk=[6, 8], rv=[6, 8])]
+    left = _table(k=[3, 5, 6, 7], lv=[30, 50, 60, 70])
+    got = _both(_merge_build(left, right, output=["k", "lv", "rv"]))
+    assert sorted(got.column("k").to_pylist()) == [3, 5, 6]
+
+
+def test_merge_join_on_wide_keys_runs_as_a_hash_join():
+    """Key tuples beyond one packed lane (a DOUBLE takes three words)
+    take the hash join, as in the reference."""
+    left = pa.table({"k": pa.array([0.5, 1.5, 1.5, 3.0]),
+                     "lv": pa.array([1, 2, 3, 4], pa.int64())})
+    right = pa.table({"rk": pa.array([0.5, 1.5, 2.5]),
+                      "rv": pa.array([10, 20, 30], pa.int64())})
+    build = _merge_build(left, right, output=["k", "lv", "rv"])
+    got = _both(build)
+    assert got.num_rows == 3
+    task = Task(build(PlanBuilder), CPU)
+    task.run()
+    assert not any(isinstance(op, MergeJoinOperator)
+                   for op in task.operators)
+
+
+def test_merge_join_anti():
+    """An anti merge join gives the reference hash join's rows. (The
+    reference's own merge join raises on ANTI: its node has no
+    null_aware, ROADMAP C.)"""
+    left = _table(k=[1, 1, 2, 5, 7, 7, 9], lv=np.arange(7))
+    right = _table(rk=[1, 2, 2, 7, 8], rv=[10, 20, 21, 70, 80])
+    got = Task(_merge_build(left, right, output=["k", "lv"],
+                            join_type="anti")(PlanBuilder), CPU).run()
+    jb = JPlanBuilder()
+    jbb = jb.new_builder().values([right])
+    want = JTask(jb.values([left]).hash_join(
+        ["k"], ["rk"], jbb, output=["k", "lv"], join_type="anti")
+        .plan()).run()
+    assert _rows(got) == _rows(want) == [(5, 3), (9, 6)]

@@ -4,10 +4,12 @@
 Usage: python3 tools/profile_port_paths.py [--sf N] [--paths q3,q18,...]
                                            [--table-dir DIR]
 
-For each path (q6, q1, q3, q18, topn, sort_full, q6_generic, and
+For each path (q6, q1, q3, q18, topn, sort_full, q6_generic,
 tpch_rest's queries q2, q7, q8, q9, q11, q12, q13, q14, q15, q16, q17,
-q20, q22; default q3,q18) it clears the scan cache and runs the plan of
-chip_smoke.py's phase of that name cold (every split generated and uploaded) and warm
+q20, q22, and the analytic phase's plans win_lineitem,
+win_orders_frames, topn_row_number, row_number_hash, distinct_counts,
+q1_rollup, merge_join, streaming_agg; default q3,q18) it clears the scan
+cache and runs chip_smoke.py's plan of that name cold (every split generated and uploaded) and warm
 (every split from the cache), then warm once more under torch.profiler
 with CPU and CUDA activities: the regime of the reference's benchmark,
 which reports a query's second run. It prints one JSON line: the card's

@@ -37,9 +37,14 @@ through one index in one launch (exec/batch_utils.py
   candidates all fail it emit one row with a null build side, and
   semi/anti joins count only passing candidates (velox HashProbe.cpp).
 
-Not ported: the scatter-probe hash table (``exec/hashtable.py``, for key
-tuples beyond ``sortable_words``), raw-string keys, ``MergeJoinOperator``,
-dynamic filters and build-side offload (ROADMAP A.10).
+The merge join (``MergeJoinOperator``, velox MergeJoin.h) shares all of
+it; its presorted build compacts without a sort, and a probe row's run
+comes from two binary searches over the packed build keys.
+
+Not ported: the hash-join build for key tuples beyond ``sortable_words``
+(the reference's scatter-probe table; ``build_table`` raises),
+raw-string keys, dynamic filters and build-side offload (ROADMAP A.5,
+A.10).
 """
 
 from __future__ import annotations
@@ -71,6 +76,7 @@ from velox_tpu_torch.vector.device import DeviceBatch, DeviceColumn
 
 # the reference's uint64 MAX as the int64 holding the same bits
 _U64_MAX = -1
+_I64_MIN = -(1 << 63)
 
 
 class SortedBuild(NamedTuple):
@@ -93,6 +99,9 @@ class SortedBuild(NamedTuple):
     arr_count: Optional[torch.Tensor] = None  # int32[domain]
     arr_base: Optional[int] = None            # the domain's first value
     arr_row1: Optional[torch.Tensor] = None   # int32[domain]
+    # a merge join's presorted build: the usable rows (the sorted prefix
+    # of ``sorted_key`` that its binary searches may land in)
+    n_usable: Optional[torch.Tensor] = None   # 0-dim int64
 
 
 def _key_values(batch: DeviceBatch, key_fields) -> List[EvalValue]:
@@ -206,9 +215,9 @@ def build_table(b: DeviceBatch, key_fields, array_range=None,
     if sortable_words(dtypes):
         return build_sorted_table(b, key_fields, None, key_ranges)
     raise NotImplementedError(
-        "join keys of more than seven value words need the scatter-probe "
-        "hash table (exec/hashtable.py), which is not ported to "
-        "velox_tpu_torch (ROADMAP A.10)")
+        "join keys of more than seven value words need the reference's "
+        "scatter-probe hash-join build, which is not ported to "
+        "velox_tpu_torch (ROADMAP A.5)")
 
 
 # Max dense direct-address domain for array-mode joins: 1 << 26 entries,
@@ -258,14 +267,64 @@ class HashBuildStage:
     def add_input(self, batch: DeviceBatch):
         self._batches.append(batch)
 
-    def finish(self) -> SortedBuild:
+    def _merged(self) -> DeviceBatch:
         if not self._batches:
             raise RuntimeError("empty build side requires at least one "
                                "(possibly empty) batch")
         merged = concat_batches(self._batches)
         self._batches = []
-        return build_table(merged, self._key_fields, self._array_range,
-                           self._key_ranges)
+        return merged
+
+    def finish(self) -> SortedBuild:
+        return build_table(self._merged(), self._key_fields,
+                           self._array_range, self._key_ranges)
+
+
+def build_sorted_table_presorted(b: DeviceBatch, key_fields) -> SortedBuild:
+    """The SortedBuild of input already sorted by the join keys (a merge
+    join's build side): the usable rows compact stably to a prefix, with
+    no sort (velox MergeJoin accumulates its right side without hashing
+    or sorting). Callers check the order with ``presorted_is_sorted``."""
+    cap = b.capacity
+    keys = _key_values(b, key_fields)
+    usable = _usable(b, keys)
+    n = usable.sum(dtype=torch.int64)
+    tgt = torch.where(usable, torch.cumsum(usable.to(torch.int64), 0) - 1,
+                      cap)
+    iota = torch.arange(cap, dtype=torch.int64, device=b.device)
+    perm = scatter_unique_set(cap + 1, tgt, iota)[:cap]
+    packed = scatter_unique_set(cap + 1, tgt, pack_key_u64(keys, cap))[:cap]
+    in_prefix = iota < n
+    packed = torch.where(in_prefix, packed, _U64_MAX)
+    dup = (packed[1:] == packed[:-1]) & in_prefix[1:]
+    return SortedBuild(packed, perm, b, (b.mask & ~usable).any(), dup.any(),
+                       n_usable=n)
+
+
+def _unsigned_order(packed: torch.Tensor) -> torch.Tensor:
+    """Packed keys (uint64 bits in int64) as int64 in the same order."""
+    return packed ^ _I64_MIN
+
+
+def presorted_is_sorted(bt: SortedBuild) -> torch.Tensor:
+    """0-dim bool: the compacted key prefix is non-decreasing (the merge
+    join's input contract)."""
+    k = _unsigned_order(bt.sorted_key)
+    return (k[1:] >= k[:-1]).all()
+
+
+class MergeBuildStage(HashBuildStage):
+    """Collects the (presorted) right side of a merge join in a plain
+    list; ``finish`` checks the sort contract with one host read. (The
+    reference's OffloadBuffer is not ported, ROADMAP A.7.)"""
+
+    def finish(self) -> SortedBuild:
+        from velox_tpu_torch.common.errors import VeloxRuntimeError
+        bt = build_sorted_table_presorted(self._merged(), self._key_fields)
+        if not bool(presorted_is_sorted(bt)):
+            raise VeloxRuntimeError(
+                "merge join right side is not sorted by the join keys")
+        return bt
 
 
 _NEEDS_RIGHT_PHASE = (P.JoinType.RIGHT, P.JoinType.FULL,
@@ -545,7 +604,7 @@ class HashJoinOperator(Operator):
             return None, new_matched
         elif jt is P.JoinType.ANTI:
             miss = batch.mask & ~hit
-            if node.null_aware:
+            if getattr(node, "null_aware", False):
                 miss = miss & ~bt.has_null_key & probe_ok
             out = DeviceBatch(batch.columns, miss)
         else:
@@ -659,7 +718,7 @@ class HashJoinOperator(Operator):
         if jt is P.JoinType.RIGHT_SEMI_FILTER:
             return  # the right phase emits the matched build rows
         if jt is P.JoinType.ANTI:
-            if node.null_aware:
+            if getattr(node, "null_aware", False):
                 raise NotImplementedError("filter on null-aware anti join")
             self._outputs.append(self._project(
                 DeviceBatch(batch.columns, batch.mask & ~row_pass)))
@@ -722,3 +781,25 @@ class HashJoinOperator(Operator):
     def is_finished(self):
         return self._no_more_input and not self._outputs
 
+
+class MergeJoinOperator(HashJoinOperator):
+    """Sorted-input join (velox/exec/MergeJoin.h:45): every join type,
+    filter and right phase of HashJoinOperator, over a build that
+    compacted without a sort; each probe row finds its run of equal build
+    keys by two binary searches over the packed build keys. The probe
+    side need not be sorted: each row searches on its own."""
+
+    def _lookup(self, batch: DeviceBatch, bt: SortedBuild):
+        keys = _key_values(batch, self._node.left_keys)
+        probe_ok = _usable(batch, keys)
+        sk = _unsigned_order(bt.sorted_key)
+        pk = _unsigned_order(pack_key_u64(keys, batch.capacity))
+        lo = torch.searchsorted(sk, pk)
+        # the MAX-padded tail: a real key can pack to MAX too, so the run
+        # is clamped to the usable prefix
+        hi = torch.minimum(torch.searchsorted(sk, pk, right=True),
+                           bt.n_usable)
+        counts = hi - lo
+        hit = probe_ok & (counts > 0) & (lo < bt.n_usable)
+        return (probe_ok, torch.clamp(lo, 0, bt.perm.shape[0] - 1),
+                torch.where(hit, counts, 0), hit)

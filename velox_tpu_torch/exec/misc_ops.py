@@ -1,19 +1,24 @@
-"""EnforceSingleRow and the nested-loop join.
+"""Smaller relational operators.
 
-Counterpart of the two operators of ``velox_tpu/exec/misc_ops.py`` that
-TPC-H's scalar subqueries need (Q11, Q22):
+Counterpart of ``velox_tpu/exec/misc_ops.py`` (all under velox/exec/):
 
-* ``EnforceSingleRowOperator`` (velox/exec/EnforceSingleRow.h): more than
-  one input row raises; no row gives one all-NULL row.
-* ``NestedLoopJoinOperator`` (velox/exec/NestedLoopJoinProbe.h): every
-  probe row against every build row, optionally filtered; inner, left,
-  right and full joins, with per-side match tracking across chunks. The
-  product is expanded in chunks of the probe batch's capacity; each
-  chunk's probe and build columns come through kernel B5, all of a side's
-  arrays through one index (exec/batch_utils.py ``take_columns_rows``).
+* ``MarkDistinctOperator`` (MarkDistinct.h): a boolean marker on the
+  first row of each distinct key tuple in the stream, from the growing
+  hash table of exec/hashtable.py.
+* ``AssignUniqueIdOperator`` (AssignUniqueId.h): the task id at bit 40
+  plus a running row counter kept on the device.
+* ``EnforceSingleRowOperator`` (EnforceSingleRow.h): more than one input
+  row raises; no row gives one all-NULL row.
+* ``ExpandOperator`` (Expand.h) and ``GroupIdOperator`` (GroupId.h): one
+  copy of each batch per projection set or grouping set.
+* ``NestedLoopJoinOperator`` (NestedLoopJoinProbe.h): every probe row
+  against every build row, optionally filtered; inner, left, right and
+  full joins, with per-side match tracking across chunks. The product is
+  expanded in chunks of the probe batch's capacity; each chunk's probe and
+  build columns come through kernel B5, all of a side's arrays through one
+  index (exec/batch_utils.py ``take_columns_rows``).
 
-Not ported: MarkDistinct, AssignUniqueId, Expand, GroupId and Unnest
-(ROADMAP A.5).
+Not ported: Unnest, which waits for ARRAY columns (ROADMAP A.6).
 """
 
 from __future__ import annotations
@@ -22,13 +27,15 @@ from typing import Dict, List, Optional
 
 import torch
 
+from velox_tpu_torch import types as T
 from velox_tpu_torch.core import plan as P
+from velox_tpu_torch.exec import hashtable as H
 from velox_tpu_torch.exec.batch_utils import (
     compact, concat_batches, take_columns_rows,
 )
 from velox_tpu_torch.exec.join import _null_column
 from velox_tpu_torch.exec.operator import Operator
-from velox_tpu_torch.expression.eval import ExprSet
+from velox_tpu_torch.expression.eval import ExprSet, value_from_column
 from velox_tpu_torch.vector.device import DeviceBatch, DeviceColumn
 
 
@@ -213,3 +220,145 @@ class NestedLoopJoinOperator(Operator):
 
     def is_finished(self):
         return self._no_more_input and not self._outputs
+
+
+class MarkDistinctOperator(Operator):
+    """Adds a boolean column marking the first row of each distinct key
+    combination in the stream (hash-table backed, streaming). The table
+    grows before a batch could fill it past one half."""
+
+    def __init__(self, node: P.MarkDistinctNode):
+        super().__init__(node)
+        self._node = node
+        self._table = H.StreamTable()
+        self._out: Optional[DeviceBatch] = None
+
+    def add_input(self, batch: DeviceBatch):
+        node = self._node
+        keys = [value_from_column(batch.columns[k.name])
+                for k in node.distinct_keys]
+        _, is_new = self._table.insert(keys, batch.mask, batch.capacity)
+        cols = dict(batch.columns)
+        cols[node.marker] = DeviceColumn(is_new, None, T.BOOLEAN)
+        self._out = DeviceBatch(cols, batch.mask)
+
+    def get_output(self):
+        out, self._out = self._out, None
+        return out
+
+    def needs_input(self):
+        return not self._no_more_input and self._out is None
+
+    def is_finished(self):
+        return self._no_more_input and self._out is None
+
+
+class AssignUniqueIdOperator(Operator):
+    """Adds a unique BIGINT per row: the task id at bit 40 plus a running
+    counter of active rows, kept on the device."""
+
+    def __init__(self, node: P.AssignUniqueIdNode):
+        super().__init__(node)
+        self._node = node
+        self._counter: Optional[torch.Tensor] = None
+        self._out: Optional[DeviceBatch] = None
+
+    def add_input(self, batch: DeviceBatch):
+        node = self._node
+        m = batch.mask.to(torch.int64)
+        if self._counter is None:
+            self._counter = torch.zeros((), dtype=torch.int64,
+                                        device=batch.device)
+        ids = (self._counter + torch.cumsum(m, 0) - 1) \
+            | (node.task_unique_id << 40)
+        self._counter = self._counter + m.sum()
+        cols = dict(batch.columns)
+        cols[node.id_column] = DeviceColumn(ids, None, T.BIGINT)
+        self._out = DeviceBatch(cols, batch.mask)
+
+    def get_output(self):
+        out, self._out = self._out, None
+        return out
+
+    def needs_input(self):
+        return not self._no_more_input and self._out is None
+
+    def is_finished(self):
+        return self._no_more_input and self._out is None
+
+
+class _CopiesOperator(Operator):
+    """Emits ``copies(batch)`` for each input batch, one at a time."""
+
+    def __init__(self, node: P.PlanNode):
+        super().__init__(node)
+        self._outs: List[DeviceBatch] = []
+
+    def copies(self, batch: DeviceBatch) -> List[DeviceBatch]:
+        raise NotImplementedError
+
+    def add_input(self, batch: DeviceBatch):
+        self._outs.extend(self.copies(batch))
+
+    def get_output(self):
+        if self._outs:
+            return self._outs.pop(0)
+        return None
+
+    def needs_input(self):
+        return not self._no_more_input and not self._outs
+
+    def is_finished(self):
+        return self._no_more_input and not self._outs
+
+
+class ExpandOperator(_CopiesOperator):
+    """One copy of the input per projection set (Spark EXPAND: grouping
+    sets, distinct-aggregate rewrites)."""
+
+    def __init__(self, node: P.ExpandNode):
+        super().__init__(node)
+        self._names = node.output_type().names
+        self._sets = [ExprSet(list(ps), None) for ps in node.projection_sets]
+
+    def copies(self, batch: DeviceBatch) -> List[DeviceBatch]:
+        cap = batch.capacity
+        return [DeviceBatch({n: v.to_column(cap) for n, v in zip(
+            self._names, es.eval_batch(batch))}, batch.mask)
+            for es in self._sets]
+
+
+class GroupIdOperator(_CopiesOperator):
+    """Grouping-sets expansion: per grouping set, the keys outside it
+    NULL, the aggregation inputs, and a BIGINT group id."""
+
+    def __init__(self, node: P.GroupIdNode):
+        super().__init__(node)
+        self._node = node
+        self._keys = node.all_keys()
+
+    def copies(self, batch: DeviceBatch) -> List[DeviceBatch]:
+        node = self._node
+        cap, dev = batch.capacity, batch.device
+        outs = []
+        for i, gs in enumerate(node.grouping_sets):
+            cols: Dict[str, DeviceColumn] = {}
+            for k in self._keys:
+                col = batch.columns[k]
+                if k in gs:
+                    cols[k] = col
+                    continue
+                # a nulled-out key, stored as the column is
+                cols[k] = DeviceColumn(
+                    torch.zeros_like(col.data),
+                    torch.zeros((cap,), dtype=torch.bool, device=dev),
+                    col.dtype, col.dictionary,
+                    tuple(DeviceColumn(torch.zeros_like(ch.data), None,
+                                       ch.dtype) for ch in col.children))
+            for a in node.aggregation_inputs:
+                cols[a] = batch.columns[a]
+            cols[node.group_id_name] = DeviceColumn(
+                torch.full((cap,), i, dtype=torch.int64, device=dev), None,
+                T.BIGINT)
+            outs.append(DeviceBatch(cols, batch.mask))
+        return outs

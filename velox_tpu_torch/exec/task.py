@@ -14,8 +14,16 @@ sum/count/avg/min/max), OrderBy, TopN and Limit (a Limit over an OrderBy
 runs as a TopN), HashJoin (exec/join.py: the build pipeline runs to
 completion, then the probe pipeline streams; the probe side's scans
 start before the build runs), NestedLoopJoin (exec/misc_ops.py, built and
-probed the same way) and EnforceSingleRow. Every other node kind, the
-merge join included, raises NotImplementedError.
+probed the same way), EnforceSingleRow, MergeJoin (the presorted build
+compacts without a sort, and probes binary-search it; key tuples beyond
+one packed lane take the hash join), MarkDistinct, AssignUniqueId,
+Expand, GroupId (exec/misc_ops.py), Window, RowNumber and TopNRowNumber
+(exec/window.py). An aggregation over an OrderBy on its grouping keys
+streams (exec/streaming_agg.py, unless ``STREAMING_AGG_ENABLED`` is
+false). The kinds still to port raise NotImplementedError naming their
+ROADMAP item: Unnest (A.6), TableWrite and LocalPartition/LocalMerge
+(A.8), ArrowStream (A.5), Exchange, MergeExchange and PartitionedOutput
+(A.10).
 
 Scans take their splits from the device scan cache
 (connectors/cache.py) and, by default on a CUDA device, generate and
@@ -38,7 +46,8 @@ from velox_tpu_torch.exec.aggregation import AggregationOperator
 from velox_tpu_torch.exec.batch_utils import concat_batches
 from velox_tpu_torch.exec.fuse import chain_fn, collapse_chain
 from velox_tpu_torch.exec.join import (
-    HashBuildStage, HashJoinOperator, array_join_range, build_key_ranges,
+    HashBuildStage, HashJoinOperator, MergeBuildStage, MergeJoinOperator,
+    array_join_range, build_key_ranges,
 )
 from velox_tpu_torch.exec.operator import (
     FilterProjectOperator, LimitOperator, Operator, SourceOperator,
@@ -46,10 +55,44 @@ from velox_tpu_torch.exec.operator import (
 )
 from velox_tpu_torch.exec.memory import MemoryPool
 from velox_tpu_torch.exec.misc_ops import (
-    EnforceSingleRowOperator, NestedLoopJoinOperator,
+    AssignUniqueIdOperator, EnforceSingleRowOperator, ExpandOperator,
+    GroupIdOperator, MarkDistinctOperator, NestedLoopJoinOperator,
 )
 from velox_tpu_torch.exec.orderby import OrderByOperator, TopNOperator
+from velox_tpu_torch.exec.sort import packable_words
+from velox_tpu_torch.exec.streaming_agg import (
+    StreamingAggregationOperator, streaming_supported,
+)
+from velox_tpu_torch.exec.window import (
+    RowNumberOperator, TopNRowNumberOperator, WindowOperator,
+)
 from velox_tpu_torch.vector.device import DeviceBatch
+
+# single-source operators: node kind -> operator class
+_UNARY = {
+    P.EnforceSingleRowNode: EnforceSingleRowOperator,
+    P.MarkDistinctNode: MarkDistinctOperator,
+    P.AssignUniqueIdNode: AssignUniqueIdOperator,
+    P.ExpandNode: ExpandOperator,
+    P.GroupIdNode: GroupIdOperator,
+    P.WindowNode: WindowOperator,
+    P.RowNumberNode: RowNumberOperator,
+    P.TopNRowNumberNode: TopNRowNumberOperator,
+    P.TopNNode: TopNOperator,
+    P.OrderByNode: OrderByOperator,
+}
+
+# node kinds still to port, and their ROADMAP item
+_UNPORTED = {
+    P.UnnestNode: "A.6 (ARRAY columns)",
+    P.TableWriteNode: "A.8",
+    P.LocalPartitionNode: "A.8",
+    P.LocalMergeNode: "A.8",
+    P.ArrowStreamNode: "A.5",
+    P.ExchangeNode: "A.10",
+    P.MergeExchangeNode: "A.10",
+    P.PartitionedOutputNode: "A.10",
+}
 
 
 class QueryCtx:
@@ -163,6 +206,10 @@ class Task:
             yield from self._drive(chain.source, op)
         elif isinstance(node, P.AggregationNode):
             chain = collapse_chain(node.source)
+            if self._streams(node):
+                yield from self._drive(node.source,
+                                       StreamingAggregationOperator(node))
+                return
 
             def mk_agg(pre):
                 return AggregationOperator(node, self.ctx.device,
@@ -172,17 +219,14 @@ class Task:
             if op is None:
                 op = mk_agg(None if chain.is_identity else chain_fn(chain))
             yield from self._drive(chain.source, op)
-        elif isinstance(node, P.OrderByNode):
-            yield from self._drive(node.source, OrderByOperator(node))
-        elif isinstance(node, P.TopNNode):
-            yield from self._drive(node.source, TopNOperator(node))
+        elif type(node) in _UNARY:
+            yield from self._drive(node.source, _UNARY[type(node)](node))
         elif isinstance(node, P.HashJoinNode):
             yield from self._run_join(node)
+        elif isinstance(node, P.MergeJoinNode):
+            yield from self._run_merge_join(node)
         elif isinstance(node, P.NestedLoopJoinNode):
             yield from self._run_nested_loop_join(node)
-        elif isinstance(node, P.EnforceSingleRowNode):
-            yield from self._drive(node.source,
-                                   EnforceSingleRowOperator(node))
         elif isinstance(node, P.LimitNode):
             # OrderBy + Limit(offset=0) => TopN: a bounded key-only sort
             # per batch instead of a full sort (parity: the Limit-over-
@@ -197,19 +241,54 @@ class Task:
             else:
                 yield from self._drive(node.source, LimitOperator(node))
         else:
+            item = _UNPORTED.get(type(node), "A")
             raise NotImplementedError(
-                f"no operator for {type(node).__name__} in velox_tpu_torch")
+                f"no operator for {type(node).__name__} in velox_tpu_torch "
+                f"(ROADMAP {item})")
+
+    def _streams(self, node: P.AggregationNode) -> bool:
+        """An aggregation whose source is an OrderBy led by exactly its
+        grouping keys streams (velox StreamingAggregation.h:29, chosen
+        when the source declares its order)."""
+        src = node.source
+        if not isinstance(src, P.OrderByNode) or not \
+                self.ctx.query_config.get_bool(
+                    QueryConfig.STREAMING_AGG_ENABLED, True):
+            return False
+        knames = {k.name for k in node.grouping_keys}
+        prefix = {k.name for k in src.keys[:len(knames)]}
+        return (len(src.keys) >= len(knames) and prefix == knames
+                and streaming_supported(node))
 
     def _run_join(self, node: P.HashJoinNode) -> Iterator[DeviceBatch]:
+        return self._build_then_probe(
+            node, HashBuildStage(node.right_keys,
+                                 array_range=array_join_range(node),
+                                 key_ranges=build_key_ranges(node)),
+            HashJoinOperator(node))
+
+    def _run_merge_join(self, node: P.MergeJoinNode
+                        ) -> Iterator[DeviceBatch]:
+        """The presorted build's order is checked once; probes
+        binary-search it. Key tuples beyond one packed lane run as a hash
+        join."""
+        if not packable_words([k.dtype for k in node.right_keys]):
+            return self._run_join(P.HashJoinNode(
+                node.id, left=node.left, right=node.right,
+                join_type=node.join_type, left_keys=node.left_keys,
+                right_keys=node.right_keys, filter=node.filter,
+                output_columns=node.output_columns))
+        return self._build_then_probe(node, MergeBuildStage(node.right_keys),
+                                      MergeJoinOperator(node))
+
+    def _build_then_probe(self, node, build, probe
+                          ) -> Iterator[DeviceBatch]:
         """The build pipeline runs to completion (JoinBridge parity), then
-        the probe pipeline streams through the join."""
+        the probe pipeline streams through the join; the probe side's
+        scans start first."""
         self._prewarm_probe_scans(node.left)
-        build = HashBuildStage(node.right_keys,
-                               array_range=array_join_range(node),
-                               key_ranges=build_key_ranges(node))
         for batch in self._run_node(node.right):
             build.add_input(self._strip_errors(batch))
-        probe = HashJoinOperator(node)
         probe.set_built_table(build.finish())
         yield from self._drive(node.left, probe)
 
