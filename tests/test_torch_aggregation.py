@@ -408,9 +408,17 @@ def test_long_decimal_group_keys_keep_their_high_limb(kind):
 @pytest.mark.parametrize("agg", ["approx_distinct(l_quantity)",
                                  "stddev(l_quantity)"])
 def test_unported_aggregates_raise(agg):
-    with pytest.raises(NotImplementedError, match=agg.split("(")[0]):
-        (PlanBuilder().table_scan("lineitem", ["l_quantity"])
-         .single_aggregation([], [f"{agg} as x"]).plan())
+    """Two aggregates that raised before they were ported: they now run,
+    and give the reference's value over SF 0.01's lineitem."""
+    jax_register_tpch(0.01)
+    register_tpch(0.01)
+    got, want = (
+        run(B().table_scan("lineitem", ["l_quantity"])
+            .single_aggregation([], [f"{agg} as x"]).plan())
+        .column("x")[0].as_py()
+        for B, run in ((PlanBuilder, lambda p: Task(p, CPU).run()),
+                       (JPlanBuilder, lambda p: JTask(p).run())))
+    assert got == pytest.approx(want, rel=1e-9)
 
 
 def test_global_min_max_of_a_narrowed_decimal_are_exact():
@@ -536,9 +544,18 @@ def test_long_decimal_min_is_single_step_only():
 
 @pytest.mark.parametrize("agg", ["array_agg(k)", "approx_percentile(w, 0.5)"])
 def test_other_collect_aggregates_raise_naming_the_roadmap(agg):
-    with pytest.raises(NotImplementedError, match="A.5"):
-        (PlanBuilder().values([_long_decimal_table(4, 10)])
-         .single_aggregation([], [f"{agg} as x"]).plan())
+    """array_agg's ARRAY result waits for the complex types (ROADMAP
+    A.6); approx_percentile, once in the same list, now runs: exact in a
+    single step."""
+    t = _long_decimal_table(4, 10)
+    plan = lambda: (PlanBuilder().values([t])  # noqa: E731
+                    .single_aggregation([], [f"{agg} as x"]).plan())
+    if agg.startswith("array_agg"):
+        with pytest.raises(NotImplementedError, match="A.6"):
+            plan()
+        return
+    w = np.sort(np.asarray(t.column("w")))
+    assert Task(plan(), CPU).run().column("x").to_pylist() == [w[4]]
 
 
 def test_sorted_group_info_vals_matches_reference():
@@ -576,9 +593,9 @@ def test_sorted_group_info_vals_matches_reference():
                                    cap)
     want = JG.sorted_group_info_vals([jkey], [jval], jnp.asarray(active),
                                      cap)
-    assert len(got) == 5
+    assert len(got) == 6
     for g, w, what in zip(got, want, ("perm", "gid", "boundary", "active",
-                                      "groups")):
+                                      "groups", "value runs")):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w),
                                       err_msg=what)
     assert 1 < int(got[4]) < cap

@@ -312,5 +312,5 @@ def test_raw_string_compare_raises_naming_the_roadmap():
     _, trt = _cmp_row_types()
     _, tbatch, _ = _cmp_batches(7)
     tbatch.columns["s"].dictionary = None
-    with pytest.raises(NotImplementedError, match="A.11"):
+    with pytest.raises(NotImplementedError, match="A.6"):
         TExprSet([tparse("s = 'fig'", trt)], trt).eval_batch(tbatch)

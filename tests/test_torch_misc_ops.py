@@ -331,3 +331,59 @@ def test_merge_join_anti():
         ["k"], ["rk"], jbb, output=["k", "lv"], join_type="anti")
         .plan()).run()
     assert _rows(got) == _rows(want) == [(5, 3), (9, 6)]
+
+
+def test_arrow_stream_source():
+    """ArrowStreamNode: record batches pulled from a RecordBatchReader and
+    staged on the query's device, in order."""
+    from velox_tpu import types as JT
+    from velox_tpu_torch import types as T
+    t = pa.table({"x": pa.array(range(100), pa.int64())})
+
+    def reader():
+        return pa.RecordBatchReader.from_batches(
+            t.schema, t.to_batches(max_chunksize=30))
+    want = JTask(JP.ArrowStreamNode("as0", reader=reader(),
+                                    row_type=JT.row(["x"],
+                                                    [JT.BIGINT]))).run()
+    node = P.ArrowStreamNode("as0", reader=reader(),
+                             row_type=T.row(["x"], [T.BIGINT]))
+    got = Task(node, CPU).run()
+    assert got.equals(want)
+    assert got.column("x").to_pylist() == list(range(100))
+    # a callable reader and an aggregation over the stream
+    node = P.ArrowStreamNode("as1", reader=reader,
+                             row_type=T.row(["x"], [T.BIGINT]))
+    plan = P.AggregationNode(
+        "agg", source=node, step=P.AggregationStep.SINGLE,
+        grouping_keys=(), aggregate_names=("s",),
+        aggregates=(P.AggregateCall("sum", (E.field("x", T.BIGINT),),
+                                    T.BIGINT),))
+    assert Task(plan, CPU).run().column("s").to_pylist() == [4950]
+
+
+def test_arrow_stream_batch_on_another_device_raises():
+    from velox_tpu_torch import types as T
+    from velox_tpu_torch.exec.operator import ArrowStreamOperator
+    from velox_tpu_torch.vector.device import from_arrow
+    b = from_arrow(pa.table({"x": pa.array([1, 2], pa.int64())}),
+                   device="cpu")
+    node = P.ArrowStreamNode("as0", reader=[b],
+                             row_type=T.row(["x"], [T.BIGINT]))
+    assert ArrowStreamOperator(node, "cpu").get_output() is b
+    with pytest.raises(ValueError, match="query runs on meta"):
+        ArrowStreamOperator(node, "meta").get_output()
+
+
+@pytest.mark.parametrize("limit", [None, 1, 3])
+def test_row_number_without_keys(limit):
+    """ROW_NUMBER() OVER () over several batches: the rows numbered 1..n
+    in stream order (its limit form keeps the first `limit`)."""
+    rng = np.random.default_rng(5)
+    tables = [_table(v=rng.integers(0, 100, n).tolist())
+              for n in (120, 1, 0, 179)]
+    got = _both(lambda B: B().values(tables).row_number(
+        [], limit=limit).plan())
+    n = 300 if limit is None else limit
+    assert sorted(got.column("row_number").to_pylist()) == list(
+        range(1, n + 1))

@@ -438,7 +438,7 @@ def test_prefetch_depth_comes_from_the_config(monkeypatch, small_splits):
     made = []
 
     class Recorder:
-        def __init__(self, node, source, splits, prefetch):
+        def __init__(self, node, source, splits, prefetch, gate=None):
             made.append((node.table, str(source._device), prefetch))
 
     monkeypatch.setattr(task_mod, "TableScanOperator", Recorder)

@@ -150,7 +150,7 @@ def _needs_unported(query: int):
     return (b.table_scan("lineitem", ["l_returnflag", "l_linestatus",
                                       "l_quantity"])
             .partial_aggregation(["l_returnflag", "l_linestatus"],
-                                 ["stddev(l_quantity) as s"])
+                                 ["array_agg(l_quantity) as s"])
             .final_aggregation().plan())
 
 

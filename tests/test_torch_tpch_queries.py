@@ -70,3 +70,38 @@ def test_query_cold_and_warm_equal_reference(q):
     # (Q21's lineitem); the warm one takes every split from the cache
     assert cold_misses > 0 and warm_misses == 0
     assert warm_hits == cold_misses + cold_hits
+
+
+@pytest.fixture
+def _small_splits():
+    """Both engines' "tpch" connector at SF 0.01 with 4,096-row splits:
+    lineitem in 15 batches, orders in 4."""
+    from velox_tpu.connectors.connector import (
+        register_connector as jax_register_connector,
+    )
+    from velox_tpu.connectors.tpch import TpchConnector as JTpchConnector
+    from velox_tpu_torch.connectors import tpch as tt
+    from velox_tpu_torch.connectors.connector import register_connector
+    DataCache.instance().clear()
+    jax_register_connector(JTpchConnector("tpch", SF, 4096))
+    register_connector(tt.TpchConnector("tpch", SF, 4096))
+    yield
+    jax_register_tpch(SF)
+    register_tpch(SF)
+    DataCache.instance().clear()
+
+
+# Q4, Q5, Q10, Q19, Q21 and the six queries without a numpy oracle at
+# SF10 in chip_smoke.py; all 22 take about 70 s on one CPU worker, so the
+# other 11 wait (ROADMAP A.3)
+SMALL_SPLIT_QUERIES = (2, 4, 5, 7, 8, 9, 10, 16, 19, 20, 21)
+
+
+@pytest.mark.parametrize("q", SMALL_SPLIT_QUERIES)
+def test_query_in_small_splits_equal_reference(q, _small_splits):
+    """A query over 4,096-row splits: many batches a scan, so the
+    aggregations compact and the joins probe batch after batch."""
+    params = PARAMS.get(q, {})
+    want = JTask(jax_tpch_plan(q, **params)).run()
+    got = Task(tpch_plan(q, **params), QueryCtx("cpu")).run()
+    _assert_matches(got, want, TOLERANCES.get(q, (1e-9, 1))[0])

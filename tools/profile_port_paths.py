@@ -4,12 +4,17 @@
 Usage: python3 tools/profile_port_paths.py [--sf N] [--paths q3,q18,...]
                                            [--table-dir DIR]
 
-For each path (q6, q1, q3, q18, topn, sort_full, q6_generic,
-tpch_rest's queries q2, q7, q8, q9, q11, q12, q13, q14, q15, q16, q17,
-q20, q22, and the analytic phase's plans win_lineitem,
-win_orders_frames, topn_row_number, row_number_hash, distinct_counts,
-q1_rollup, merge_join, streaming_agg; default q3,q18) it clears the scan
-cache and runs chip_smoke.py's plan of that name cold (every split generated and uploaded) and warm
+For each path (q6, q1, q3, q18, topn, sort_full, q6_generic;
+tpch_rest's queries q2, q4, q5, q7, q8, q9, q10, q11, q12, q13, q14,
+q15, q16, q17, q19, q20, q21, q22; the analytic phase's plans
+win_lineitem, win_orders_frames, topn_row_number, row_number_hash,
+distinct_counts, q1_rollup, merge_join, streaming_agg; the aggregates
+phase's plans agg_moments, agg_stddev_supp, agg_sketch_flag,
+agg_sketch_global, agg_sketch_linenumber, agg_pct_single,
+agg_pct_split, agg_min_by, agg_abandon, dyn_filter, dyn_filter_empty,
+wide_join; default q3,q18) it clears the scan cache and runs
+chip_smoke.py's plan of that name cold (every split generated and
+uploaded) and warm
 (every split from the cache), then warm once more under torch.profiler
 with CPU and CUDA activities: the regime of the reference's benchmark,
 which reports a query's second run. It prints one JSON line: the card's

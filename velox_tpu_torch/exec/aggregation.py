@@ -12,17 +12,27 @@ the reference's sorted spill-run merge (GroupingSet.cpp:1043).
 
 SINGLE, FINAL and INTERMEDIATE steps with keys buffer per-row state
 batches and group once at the end (single-shot), folding the buffer into
-one grouped run past ``_SINGLE_MERGE_MAX_ROWS``.
+one grouped run past ``_SINGLE_MERGE_MAX_ROWS``. A SINGLE step with a
+vector state (approx_distinct's 512 registers a group) groups each batch
+instead: its per-row states would be 2 KB a row.
+
+*Abandonment* (velox kAbandonPartialAggregationMinRows/Pct): a PARTIAL
+step whose groups reach ``abandon_min_pct`` of its input rows, once it
+has seen ``abandon_min_rows``, emits its compacted run and passes every
+later batch through as per-row states for the FINAL step to group. The
+check rides each compaction's one host read.
 
 Collect mode (the reference's collect pathway): when an aggregate has no
-segment-combinable state (min_by/max_by, and min/max over a long
-decimal), the operator retains each batch's keys and aggregate inputs and
-computes every aggregate at the end from one radix sort of the rows by
-(group keys, value). Single-step only, as in the reference.
+segment-combinable state (min_by/max_by over wide types, min/max over a
+long decimal, mode, approx_percentile), the operator retains each
+batch's keys and aggregate inputs and computes every aggregate at the end
+from one radix sort of the rows by (group keys, value). Single-step only,
+except one approx_percentile, whose PARTIAL step emits at most K
+weighted quantile knots a group and whose FINAL step re-selects by
+weighted rank (``_pct_compress``, ``_pct_final``).
 
-Not ported: the other collect aggregates (array_agg, approx_percentile,
-...; ROADMAP A.5), host offload of partial runs, partial-aggregation
-abandonment, and the reference's compiled-program caches.
+Not ported: host offload of partial runs (ROADMAP A.7) and the
+reference's compiled-program caches.
 """
 
 from __future__ import annotations
@@ -38,10 +48,15 @@ from velox_tpu_torch.exec import groupby as G
 from velox_tpu_torch.exec.batch_utils import concat_batches, slice_batch
 from velox_tpu_torch.exec.operator import Operator
 from velox_tpu_torch.expression.eval import (
-    EvalCtx, ExprSet, value_from_column,
+    EvalCtx, EvalValue, ExprSet, value_from_column,
 )
 from velox_tpu_torch.functions.aggregates import (
-    CollectAgg, masked, resolve_aggregate,
+    ApproxPercentileAgg, CollectAgg, RegisterAddend, masked,
+    resolve_aggregate,
+)
+from velox_tpu_torch.ops.gather import take_rows
+from velox_tpu_torch.ops.wide import (
+    scatter_unique_set, segment_offsets, segmented_reduce_sorted,
 )
 from velox_tpu_torch.vector.device import DeviceBatch, DeviceColumn
 
@@ -52,15 +67,29 @@ def _state_col_name(out_name: str, agg, suffix: str) -> str:
     return f"{out_name}${suffix}"
 
 
+def _const_arg(call, i: int, what: str) -> float:
+    """A constant argument's value (a DECIMAL literal unscaled)."""
+    from velox_tpu_torch.core import expressions as ex
+    c = call.inputs[i]
+    if not isinstance(c, ex.Constant):
+        raise NotImplementedError(
+            f"approx_percentile: {what} must be a constant")
+    v = float(c.value)
+    if c.dtype.kind is T.TypeKind.DECIMAL:
+        v /= 10.0 ** c.dtype.scale
+    return v
+
+
 class AggregationOperator(Operator):
     """Group-by or global aggregation over one plan node."""
 
-    # fold accumulated partial runs when this many pile up
-    _COMPACT_THRESHOLD = 8
     # single-shot buffers fold into one grouped run past this many rows
     _SINGLE_MERGE_MAX_ROWS = 1 << 24
 
-    def __init__(self, node: P.AggregationNode, device, pre_fn=None):
+    def __init__(self, node: P.AggregationNode, device, pre_fn=None,
+                 compact_threshold: int = 8,
+                 abandon_min_rows: int = 100_000,
+                 abandon_min_pct: float = 0.8):
         super().__init__(node)
         self._device = torch.device(device)
         # the fused upstream Filter/Project chain (exec/fuse.py), applied
@@ -80,25 +109,78 @@ class AggregationOperator(Operator):
         self._agg_names = list(node.aggregate_names)
         self._aggs = [resolve_aggregate(a.name, [i.dtype for i in a.inputs])
                       for a in self._agg_calls]
+        self._vector = any(st.width > 1 for a in self._aggs
+                           for st in a.states)
         # collect mode: retain rows, aggregate once at the end
         self._collect_mode = any(isinstance(a, CollectAgg)
                                  for a in self._aggs)
-        if self._collect_mode and self._step is not P.AggregationStep.SINGLE:
-            raise NotImplementedError(
-                "collect aggregates (min_by/max_by, min/max over "
-                "DECIMAL(19..38)) support single-step aggregation only")
+        self._pct_split = False
+        if self._collect_mode:
+            self._init_collect()
         self._collect_rows: List[DeviceBatch] = []
         self._partials: List[DeviceBatch] = []
         self._outputs: List[DeviceBatch] = []
         self.error_scalars: List[torch.Tensor] = []  # read by the Task
         # single-shot: one sort over every buffered row beats a sort per
         # batch plus a sort of the concatenated partials
-        self._single_shot = (bool(self._keys) and not self._collect_mode
-                             and self._step is not P.AggregationStep.PARTIAL)
+        self._single_shot = (
+            bool(self._keys) and not self._collect_mode
+            and self._step is not P.AggregationStep.PARTIAL
+            and not (self._vector
+                     and self._step is P.AggregationStep.SINGLE))
         self._buffered_rows = 0
         # string aggregate outputs carry the input dictionary over
         self._agg_dicts: List = [None] * len(self._aggs)
         self._global_state: Optional[List[torch.Tensor]] = None
+        # fold accumulated partial runs when this many pile up
+        self._compact_threshold = compact_threshold
+        # partial-aggregation abandonment: input rows (device scalars,
+        # read at compaction time) against the compacted group count
+        self._abandon_min_rows = abandon_min_rows
+        self._abandon_min_pct = abandon_min_pct
+        self._in_rows: List[torch.Tensor] = []
+        self._abandoned = False
+        # (input rows, groups, batches) when it abandoned, and the batches
+        # passed through since: what a run reports
+        self.abandoned_at: Optional[Tuple[int, int, int]] = None
+        self.passthrough_batches = 0
+        self._batches_in = 0
+
+    def _init_collect(self):
+        if any(st.width > 1 for a in self._aggs for st in a.states):
+            raise NotImplementedError(
+                "vector-state aggregates cannot mix with collect "
+                "aggregates")
+        self._pct_split = self._step is not P.AggregationStep.SINGLE
+        if self._pct_split and not (
+                len(self._aggs) == 1
+                and isinstance(self._aggs[0], ApproxPercentileAgg)):
+            raise NotImplementedError(
+                "collect aggregates support single-step aggregation only "
+                "(but for one approx_percentile, which splits through its "
+                "mergeable knot summary)")
+        for a, call in zip(self._aggs, self._agg_calls):
+            if not isinstance(a, ApproxPercentileAgg):
+                continue
+            a.percentile = _const_arg(call, 1, "percentage")
+            if len(call.inputs) > 2:
+                acc = _const_arg(call, 2, "accuracy")
+                if not 0.0 < acc < 1.0:
+                    from velox_tpu_torch.common.errors import (
+                        VeloxUserError,
+                    )
+                    raise VeloxUserError(
+                        "approx_percentile accuracy must be in (0, 1), "
+                        f"got {acc}")
+                a.accuracy = acc
+        # knots a group: a compression's rank error is at most W/K and
+        # there are two (the partials, then the final re-select), so the
+        # normalized rank error stays within 2/K; with an accuracy, K is
+        # chosen so that 2/K <= accuracy
+        self._pct_k = 1024
+        acc = getattr(self._aggs[0], "accuracy", None)
+        if acc:
+            self._pct_k = min(1 << 20, max(2, int(np.ceil(2.0 / acc))))
 
     # ---- per-batch steps -----------------------------------------------------
 
@@ -145,8 +227,8 @@ class AggregationOperator(Operator):
                     keep = active
                     if col.validity is not None:
                         keep = keep & col.full_validity(cap)
-                    addends.append((masked(col.full_data(cap), keep,
-                                           st.identity()), st.combine))
+                    addends.append((_masked_state(col.full_data(cap), keep,
+                                                  st), st.combine))
         return keys, addends, active
 
     def _group(self, keys, addends, active, cap):
@@ -158,7 +240,7 @@ class AggregationOperator(Operator):
             return gk, gs, gmask, domain
         gk, gs, gmask = G.reduce_sort_mode(keys, addends, active, cap,
                                            ranges=self._key_ranges)
-        return gk, gs, gmask, cap
+        return gk, gs, gmask, gmask.shape[0]
 
     def _with_errors(self, out: DeviceBatch, errs: list) -> DeviceBatch:
         if errs:
@@ -178,7 +260,8 @@ class AggregationOperator(Operator):
             self._make_state_batch(gk, gs, gmask, out_cap), errs)
 
     def _passthrough_step(self, batch: DeviceBatch) -> DeviceBatch:
-        """Per-row states without grouping (single-shot SINGLE input)."""
+        """Per-row states without grouping: a single-shot SINGLE step's
+        input, and an abandoned PARTIAL step's output."""
         errs: list = []
         batch = self._pre(batch, errs)
         keys, addends, active = self._eval_keys_and_addends(
@@ -209,7 +292,7 @@ class AggregationOperator(Operator):
             for st in agg.states:
                 data = cols[_state_col_name(out_name, agg,
                                             st.suffix)].full_data(cap)
-                addends.append((masked(data, active, st.identity()),
+                addends.append((_masked_state(data, active, st),
                                 st.combine))
         return self._group(keys, addends, active, cap)
 
@@ -245,6 +328,15 @@ class AggregationOperator(Operator):
 
     # ---- collect mode --------------------------------------------------------
 
+    def _collect_inputs(self, i: int):
+        """The inputs a collect row keeps for aggregate i: approx_
+        percentile's value only (its percentage and accuracy are
+        constants)."""
+        call = self._agg_calls[i]
+        if isinstance(self._aggs[i], ApproxPercentileAgg):
+            return [call.inputs[0]]
+        return list(call.inputs)
+
     def _collect_prep(self, batch: DeviceBatch) -> DeviceBatch:
         """The rows to retain: grouping keys, every aggregate's evaluated
         inputs (``__a{i}_{j}``) and masks (``__m{i}``)."""
@@ -254,10 +346,10 @@ class AggregationOperator(Operator):
         out: Dict[str, DeviceColumn] = {
             k.name: batch.columns[k.name] for k in self._keys}
         for i, call in enumerate(self._agg_calls):
-            if call.inputs:
+            exprs = self._collect_inputs(i)
+            if exprs:
                 sink: list = []
-                vals = ExprSet(list(call.inputs), None).eval_batch(
-                    batch, err_sink=sink)
+                vals = ExprSet(exprs, None).eval_batch(batch, err_sink=sink)
                 if sink and sink[0] is not None:
                     errs.append((sink[0] & batch.mask).sum(
                         dtype=torch.int32))
@@ -272,7 +364,6 @@ class AggregationOperator(Operator):
         """Group the retained rows (one radix sort by the keys) and compute
         each aggregate: collect kinds from their own (keys, value) sort,
         the others by segmented reduction over the group runs."""
-        from velox_tpu_torch.ops.wide import segmented_reduce_sorted
         cap = merged.capacity
         active = merged.mask
         cols = {n: value_from_column(c) for n, c in merged.columns.items()}
@@ -297,8 +388,11 @@ class AggregationOperator(Operator):
             while f"__a{i}_{len(args)}" in cols:
                 args.append(cols[f"__a{i}_{len(args)}"])
             if isinstance(agg, CollectAgg):
-                out_cols[out_name] = self._collect_min_max_by(
-                    agg, args, row_active, keys, active, gmask, cap)
+                collect = {"mode": self._collect_mode_value,
+                           "approx_percentile": self._collect_percentile,
+                           }.get(agg.collect_kind, self._collect_min_max_by)
+                out_cols[out_name] = collect(agg, args, row_active, keys,
+                                             active, gmask, cap)
                 continue
             arrays = agg.map_raw(ctx, args, row_active)
             gs = [segmented_reduce_sorted(a[perm], gid, boundary, act_s,
@@ -306,14 +400,16 @@ class AggregationOperator(Operator):
                   for a, st in zip(arrays, agg.states)]
             out_cols[out_name] = self._result_column(
                 agg.extract(gs, gmask), cap, self._agg_dicts[i])
-        mask_out = gmask
-        if not self._keys:
-            # a global aggregation has exactly one output row (NULL
-            # results when no row passed)
-            mask_out = torch.zeros((cap,), dtype=torch.bool,
-                                   device=merged.device)
-            mask_out[0] = True
-        return DeviceBatch(out_cols, mask_out)
+        return DeviceBatch(out_cols, self._collect_mask(gmask))
+
+    def _collect_mask(self, gmask: torch.Tensor) -> torch.Tensor:
+        """The group mask; a global aggregation has exactly one output
+        row (NULL results when no row passed)."""
+        if self._keys:
+            return gmask
+        one = torch.zeros_like(gmask)
+        one[0] = True
+        return one
 
     def _collect_min_max_by(self, agg, args, row_active, keys, active,
                             gmask, cap: int) -> DeviceColumn:
@@ -322,11 +418,8 @@ class AggregationOperator(Operator):
         decimal pass one argument, both x and y. The group numbering is
         the skeleton's: the same key words and active flag lead the
         sort."""
-        from velox_tpu_torch.ops.wide import (
-            scatter_unique_set, segment_offsets, segmented_reduce_sorted,
-        )
         x, y = (args[0], args[0]) if len(args) == 1 else args
-        perm, gid, boundary, act_s, _ = G.sorted_group_info_vals(
+        perm, gid, boundary, act_s, _, _ = G.sorted_group_info_vals(
             keys, [y], active, cap, self._key_ranges)
         pass_ = row_active[perm] & act_s
         if y.validity is not None:
@@ -343,21 +436,178 @@ class AggregationOperator(Operator):
         else:
             sel = pass_ & (within == n_pass[gid] - 1)
         tgt = torch.where(sel, gid, cap)
-
-        def pick(rows: torch.Tensor) -> torch.Tensor:
-            return scatter_unique_set(cap + 1, tgt, rows[perm])[:cap]
-
         gvalid = gmask & (n_pass > 0)
         if x.validity is not None:
             xv = torch.ones((cap + 1,), dtype=torch.bool, device=perm.device)
             xv[tgt] = x.full_validity(cap)[perm]
             gvalid = gvalid & xv[:cap]
-        children = ()
-        if x.dtype.is_long_decimal:
-            # the high limb goes through the same gather and scatter
-            children = (DeviceColumn(pick(x.full_hi(cap)), None, T.BIGINT),)
-        return DeviceColumn(pick(x.full_data(cap)), gvalid,
-                            agg.result_type, x.dictionary, children)
+        return _picked(x, perm, tgt, None, gvalid, agg.result_type)
+
+    def _run_counts(self, keys, v, row_active, active, cap: int):
+        """The (group, value) sort of the rows and, per sorted row, the
+        passing rows of its (group, value) run: (perm, pass_, count)."""
+        perm, gid, boundary, act_s, _, vb = G.sorted_group_info_vals(
+            keys, [v], active, cap, self._key_ranges)
+        pass_ = row_active[perm] & act_s
+        if v.validity is not None:
+            pass_ = pass_ & v.full_validity(cap)[perm]
+        p64 = pass_.to(torch.int64)
+        run_id = torch.cumsum(vb.to(torch.int64), 0) - 1
+        c = torch.cumsum(p64, 0)
+        ce = c - p64
+        rs_ce = scatter_unique_set(cap + 1, torch.where(vb, run_id, cap),
+                                   ce)[:cap]
+        is_end = torch.cat([vb[1:], torch.ones((1,), dtype=torch.bool,
+                                               device=vb.device)])
+        re_c = scatter_unique_set(cap + 1, torch.where(is_end, run_id, cap),
+                                  c)[:cap]
+        return perm, take_rows(re_c - rs_ce, run_id)
+
+    def _collect_mode_value(self, agg, args, row_active, keys, active,
+                            gmask, cap: int) -> DeviceColumn:
+        """mode(x): each row's (group, value) run count, then a second
+        sort by (group, -count, value), whose first passing row of each
+        group is the most frequent value, the smallest of a tie."""
+        (v,) = args
+        perm, run_cnt = self._run_counts(keys, v, row_active, active, cap)
+        cnt = torch.zeros((cap,), dtype=torch.int64, device=perm.device)
+        cnt[perm] = run_cnt
+        negc = EvalValue(-cnt, None, T.BIGINT)
+        perm2, gid2, b2, act2, _, _ = G.sorted_group_info_vals(
+            keys, [negc, v], active, cap, self._key_ranges)
+        pass2 = row_active[perm2] & act2
+        if v.validity is not None:
+            pass2 = pass2 & v.full_validity(cap)[perm2]
+        p64 = pass2.to(torch.int64)
+        before = torch.cumsum(p64, 0) - p64  # passing rows before a row
+        grp_start = torch.arange(cap, device=perm2.device) \
+            - segment_offsets(b2, cap)
+        take = pass2 & (before == take_rows(before, grp_start))
+        tgt = torch.where(take, gid2, cap)
+        has = torch.zeros((cap + 1,), dtype=torch.bool, device=tgt.device)
+        has[tgt] = True
+        return _picked(v, perm2, tgt, None, gmask & has[:cap],
+                       agg.result_type)
+
+    def _collect_percentile(self, agg, args, row_active, keys, active,
+                            gmask, cap: int) -> DeviceColumn:
+        """approx_percentile in one step, exact: the passing values of
+        each group compacted in (group, value) order, and the one of rank
+        ceil(p * n) taken."""
+        (v,) = args
+        perm, gid, boundary, act_s, _, _ = G.sorted_group_info_vals(
+            keys, [v], active, cap, self._key_ranges)
+        keep = row_active[perm] & act_s
+        if v.validity is not None:
+            keep = keep & v.full_validity(cap)[perm]
+        k64 = keep.to(torch.int64)
+        tgt = torch.where(keep, torch.cumsum(k64, 0) - 1, cap)
+        n = segmented_reduce_sorted(k64, gid, boundary, act_s, cap, "sum")
+        starts = torch.cumsum(n, 0) - n
+        rank = torch.ceil(agg.percentile * n.to(torch.float64)).to(
+            torch.int64) - 1
+        rank = torch.minimum(torch.clamp(rank, min=0),
+                             torch.clamp(n - 1, min=0))
+        idx = torch.clamp(starts + rank, 0, cap - 1)
+        return _picked(v, perm, tgt, idx, gmask & (n > 0), agg.result_type)
+
+    # ---- approx_percentile split into PARTIAL and FINAL -------------------
+    #
+    # PARTIAL compresses its rows into at most K knots a group: rows sorted
+    # by value within their group, cumulative weight cw, and the first row
+    # crossing each of K evenly spaced weight thresholds kept with weight
+    # cw - cw(previous knot). A knot's cumulative weight is its exact local
+    # rank, so a compression errs by at most W/K ranks; weights add under
+    # concatenation, so FINAL merges the knots and re-selects by weighted
+    # rank.
+
+    def _pct_sorted(self, merged: DeviceBatch):
+        """Rows (or knots) sorted by (group, value), with their weights,
+        the within-group cumulative weight and each group's total."""
+        cap = merged.capacity
+        active = merged.mask
+        cols = {n: value_from_column(c) for n, c in merged.columns.items()}
+        keys = [cols[k.name] for k in self._keys]
+        name = self._agg_names[0]
+        if self._step is P.AggregationStep.PARTIAL:
+            v, w = cols["__a0_0"], None
+        else:
+            v, w = cols[f"{name}$v"], cols[f"{name}$w"]
+        perm, gid, boundary, act_s, num_groups, _ = \
+            G.sorted_group_info_vals(keys, [v], active, cap,
+                                     self._key_ranges)
+        pass_ = act_s
+        if v.validity is not None:
+            pass_ = pass_ & v.full_validity(cap)[perm]
+        wd = (torch.ones((cap,), dtype=torch.int64, device=perm.device)
+              if w is None else take_rows(w.full_data(cap).to(torch.int64),
+                                          perm))
+        wd = torch.where(pass_, wd, 0)
+        run_start = torch.arange(cap, device=perm.device) \
+            - segment_offsets(boundary, cap)
+        cs = torch.cumsum(wd, 0)
+        cw = cs - take_rows(cs - wd, run_start)  # inclusive, in the group
+        W = segmented_reduce_sorted(wd, gid, boundary, act_s, cap, "sum")
+        return dict(cap=cap, keys=keys, v=v, perm=perm, gid=gid,
+                    boundary=boundary, act_s=act_s, num_groups=num_groups,
+                    v_s=_gather_value(v, perm, cap), pass_=pass_,
+                    wd=wd, cw=cw, W=W, run_start=run_start)
+
+    def _pct_compress(self, merged: DeviceBatch) -> DeviceBatch:
+        """PARTIAL: rows -> at most K weighted knots a group."""
+        s = self._pct_sorted(merged)
+        cap, K = s["cap"], self._pct_k
+        cw, wd, pass_ = s["cw"], s["wd"], s["pass_"]
+        safe = torch.clamp(take_rows(s["W"], s["gid"]), min=1)
+        # keep the first row crossing each ceil(cw * K / W) threshold
+        bk = (cw * K + safe - 1) // safe
+        bk_prev = ((cw - wd) * K + safe - 1) // safe
+        keep = pass_ & (wd > 0) & (bk > bk_prev)
+        iota = torch.arange(cap, device=keep.device)
+        incl = torch.cummax(torch.where(keep, iota, -1), 0).values
+        prev = torch.cat([incl.new_full((1,), -1), incl[:-1]])
+        prev = torch.where(prev >= s["run_start"], prev, -1)
+        prev_cw = torch.where(prev >= 0,
+                              take_rows(cw, torch.clamp(prev, min=0)), 0)
+        new_w = torch.where(keep, cw - prev_cw, 0)
+        out: Dict[str, DeviceColumn] = {}
+        for k, kv in zip(self._keys, s["keys"]):
+            out[k.name] = _gather_value(kv, s["perm"], cap)
+        name = self._agg_names[0]
+        v_s = s["v_s"]
+        out[f"{name}$v"] = DeviceColumn(v_s.data, keep,
+                                        self._aggs[0].input_type,
+                                        v_s.dictionary, v_s.children)
+        out[f"{name}$w"] = DeviceColumn(new_w, None, T.BIGINT)
+        return DeviceBatch(out, keep)
+
+    def _pct_final(self, merged: DeviceBatch) -> DeviceBatch:
+        """FINAL: the weighted rank-select over the merged knots."""
+        s = self._pct_sorted(merged)
+        cap = s["cap"]
+        agg = self._aggs[0]
+        W = s["W"]
+        r = torch.clamp(torch.ceil(agg.percentile * W.to(torch.float64))
+                        .to(torch.int64), min=1)
+        r_row = take_rows(r, s["gid"])
+        cw, wd, pass_ = s["cw"], s["wd"], s["pass_"]
+        crossing = pass_ & (wd > 0) & (cw >= r_row) & ((cw - wd) < r_row)
+        tgt = torch.where(crossing, s["gid"], cap)
+
+        def pick(rows: torch.Tensor) -> torch.Tensor:
+            return scatter_unique_set(cap + 1, tgt, rows)[:cap]
+        v_s = s["v_s"]
+        out_keys, gmask = G.group_keys_sorted(
+            s["keys"], s["perm"], s["gid"], s["boundary"], s["act_s"],
+            s["num_groups"], cap)
+        out_cols: Dict[str, DeviceColumn] = {
+            k.name: kv.to_column(cap) for k, kv in zip(self._keys,
+                                                       out_keys)}
+        out_cols[self._agg_names[0]] = DeviceColumn(
+            pick(v_s.data), gmask & (W > 0), agg.result_type,
+            v_s.dictionary, tuple(DeviceColumn(pick(c.data), None, c.dtype)
+                                  for c in v_s.children))
+        return DeviceBatch(out_cols, self._collect_mask(gmask))
 
     # ---- operator contract -------------------------------------------------
 
@@ -372,8 +622,13 @@ class AggregationOperator(Operator):
                     if col is not None:
                         self._agg_dicts[j] = col.dictionary
         if self._collect_mode:
-            self._collect_rows.append(self._strip_errs(
-                self._collect_prep(batch)))
+            if self._pct_split \
+                    and self._step is not P.AggregationStep.PARTIAL:
+                # INTERMEDIATE/FINAL inputs already are knot batches
+                self._collect_rows.append(batch)
+            else:
+                self._collect_rows.append(self._strip_errs(
+                    self._collect_prep(batch)))
             return
         if not self._keys:
             self._accumulate_global(batch)
@@ -391,8 +646,16 @@ class AggregationOperator(Operator):
                 self._partials = [merged]
                 self._buffered_rows = merged.capacity
             return
+        if self._abandoned:
+            self.passthrough_batches += 1
+            self._outputs.append(self._strip_errs(
+                self._passthrough_step(batch)))
+            return
+        self._batches_in += 1
+        if self._step is P.AggregationStep.PARTIAL:
+            self._in_rows.append(batch.num_active())
         self._partials.append(self._strip_errs(self._partial_step(batch)))
-        if len(self._partials) >= self._COMPACT_THRESHOLD:
+        if len(self._partials) >= self._compact_threshold:
             self._compact_partials()
 
     def _strip_errs(self, out: DeviceBatch) -> DeviceBatch:
@@ -401,11 +664,38 @@ class AggregationOperator(Operator):
             out = DeviceBatch(out.columns, out.mask)
         return out
 
+    def _may_abandon(self) -> bool:
+        # vector states are never passed through: a row's HLL state is
+        # 2 KB
+        return (self._step is P.AggregationStep.PARTIAL
+                and not self._abandoned and not self._vector
+                and bool(self._in_rows))
+
     def _compact_partials(self):
         """Fold all pending partial runs into one right-sized state
-        batch (the analogue of HashTable::decideHashMode's resize)."""
+        batch (the analogue of HashTable::decideHashMode's resize). One
+        host read gives the group count, the shrink's tails and, for a
+        PARTIAL step, the input rows that decide abandonment."""
         merged = self._compact_step(concat_batches(self._partials))
-        self._partials = [self._shrink(merged)]
+        counts = self._pow2_suffix_actives(merged.mask)
+        rows = None
+        if self._may_abandon():
+            counts = torch.cat([counts, sum(self._in_rows).reshape(1).to(
+                counts.dtype)])
+        host = counts.tolist()
+        if self._may_abandon():
+            rows = host.pop()
+        num_groups, tails = host[0], host[1:]
+        if rows is not None and rows >= self._abandon_min_rows \
+                and num_groups >= self._abandon_min_pct * rows:
+            # grouping does not reduce the rows: emit the run and pass
+            # every later batch through
+            self._abandoned = True
+            self.abandoned_at = (rows, num_groups, self._batches_in)
+            self._outputs.append(merged)
+            self._partials = []
+            return
+        self._partials = [self._shrink(merged, num_groups, tails)]
 
     @staticmethod
     def _pow2_suffix_actives(mask: torch.Tensor):
@@ -421,12 +711,15 @@ class AggregationOperator(Operator):
         idx = torch.tensor([b - 1 for b in bounds], device=mask.device)
         return torch.cat([total, total - cm[idx]])
 
-    def _shrink(self, merged: DeviceBatch) -> DeviceBatch:
+    def _shrink(self, merged: DeviceBatch, num_groups: Optional[int] = None,
+                tails=None) -> DeviceBatch:
         """Cut a compacted run down to a power-of-two capacity near its
-        group count when no active row lies past it (one host read)."""
+        group count when no active row lies past it (one host read, unless
+        the caller read the counts already)."""
         cap = merged.capacity
-        counts = self._pow2_suffix_actives(merged.mask).tolist()
-        num_groups, tails = counts[0], counts[1:]
+        if num_groups is None:
+            counts = self._pow2_suffix_actives(merged.mask).tolist()
+            num_groups, tails = counts[0], counts[1:]
         want = max(1024, 1 << max(1, num_groups - 1).bit_length())
         if want < cap:
             # array mode scatters groups over the domain: cut only when
@@ -443,7 +736,12 @@ class AggregationOperator(Operator):
             if self._collect_rows:
                 merged = concat_batches(self._collect_rows)
                 self._collect_rows = []
-                self._outputs.append(self._collect_finalize(merged))
+                if not self._pct_split:
+                    self._outputs.append(self._collect_finalize(merged))
+                elif self._step is P.AggregationStep.FINAL:
+                    self._outputs.append(self._pct_final(merged))
+                else:  # PARTIAL/INTERMEDIATE: the knot summary
+                    self._outputs.append(self._pct_compress(merged))
             return
         if not self._keys:
             self._outputs = [self._extract_global()]
@@ -490,7 +788,10 @@ class AggregationOperator(Operator):
                                                     err_sink=errs)
         new_state = []
         for (data, combine), s in zip(addends, self._global_state):
-            if combine == "sum":
+            if isinstance(data, RegisterAddend):
+                new_state.append(s.scatter_reduce(0, data.reg, data.val,
+                                                  reduce="amax"))
+            elif combine == "sum":
                 new_state.append(s + data.sum(0, dtype=s.dtype))
             elif combine == "min":
                 new_state.append(torch.minimum(s, data.min(0).values))
@@ -501,10 +802,18 @@ class AggregationOperator(Operator):
             self.error_scalars.append(sum(errs))
 
     def _identity_state(self) -> List[torch.Tensor]:
-        return [torch.as_tensor(np.asarray(st.identity(),
-                                           st.dtype.np_dtype()),
-                                device=self._device)
-                for agg in self._aggs for st in agg.states]
+        out = []
+        for agg in self._aggs:
+            for st in agg.states:
+                if st.width > 1:  # registers: >= 0, so max starts at 0
+                    out.append(torch.zeros((st.width,),
+                                           dtype=st.dtype.torch_dtype(),
+                                           device=self._device))
+                    continue
+                out.append(torch.as_tensor(
+                    np.asarray(st.identity(), st.dtype.np_dtype()),
+                    device=self._device))
+        return out
 
     def _extract_global(self) -> DeviceBatch:
         state = self._global_state
@@ -518,14 +827,55 @@ class AggregationOperator(Operator):
             for out_name, agg in zip(self._agg_names, self._aggs):
                 for st in agg.states:
                     out_cols[_state_col_name(out_name, agg, st.suffix)] = \
-                        DeviceColumn(state[i].reshape(1), None, st.dtype)
+                        DeviceColumn(state[i].unsqueeze(0), None, st.dtype)
                     i += 1
             return DeviceBatch(out_cols, one)
         for out_name, agg, d in zip(self._agg_names, self._aggs,
                                     self._agg_dicts):
             n_states = len(agg.states)
-            res = agg.extract([s.reshape(1) for s in state[i:i + n_states]],
-                              one)
+            res = agg.extract([s.unsqueeze(0)
+                               for s in state[i:i + n_states]], one)
             i += n_states
             out_cols[out_name] = self._result_column(res, 1, d)
         return DeviceBatch(out_cols, one)
+
+
+def _masked_state(data: torch.Tensor, keep: torch.Tensor,
+                  st) -> torch.Tensor:
+    """An intermediate state column with its inactive rows at the
+    combine's identity; a vector state's rows at 0 (registers are >=
+    0)."""
+    if data.dim() > 1:
+        return torch.where(keep[:, None], data, 0)
+    return masked(data, keep, st.identity())
+
+
+def _picked(v: EvalValue, perm: torch.Tensor, tgt: torch.Tensor,
+            idx: Optional[torch.Tensor], valid: torch.Tensor,
+            dtype: T.DataType) -> DeviceColumn:
+    """A collect kind's result column: the value's rows in ``perm``
+    order scattered to ``tgt`` (one a group, or a compaction), then taken
+    at ``idx`` when given; a long decimal's high limb the same way."""
+    cap = perm.shape[0]
+
+    def pick(rows: torch.Tensor) -> torch.Tensor:
+        out = scatter_unique_set(cap + 1, tgt, take_rows(rows, perm))[:cap]
+        return out if idx is None else take_rows(out, idx)
+    children = ()
+    if v.dtype.is_long_decimal:
+        children = (DeviceColumn(pick(v.full_hi(cap)), None, T.BIGINT),)
+    return DeviceColumn(pick(v.full_data(cap)), valid, dtype, v.dictionary,
+                        children)
+
+
+def _gather_value(v: EvalValue, perm: torch.Tensor, cap: int
+                  ) -> DeviceColumn:
+    """A value's rows in ``perm`` order as a column (B5 for its 4- and
+    8-byte arrays, a long decimal's high limb with it)."""
+    validity = None if v.validity is None else v.full_validity(cap)[perm]
+    children = ()
+    if v.dtype.is_long_decimal:
+        children = (DeviceColumn(take_rows(v.full_hi(cap), perm), None,
+                                 T.BIGINT),)
+    return DeviceColumn(take_rows(v.full_data(cap), perm), validity,
+                        v.dtype, v.dictionary, children)

@@ -7,12 +7,21 @@ HashTable.cpp's kArray / kNormalizedKey modes):
   known domain (dictionary strings, booleans), the group id is the
   mixed-radix combination of the key ids, and each state reduces by id.
 * **sort mode**: rows are radix-sorted by their packed key words
-  (exec/sort.py, whose passes run the kernels of ops/radix.py), equal-key
-  runs become groups, and states reduce over the runs (ops/wide.py).
-  Groups come out as a dense prefix in key order.
+  (exec/sort.py, whose passes run the kernels of ops/radix.py), the
+  addends are gathered into sorted order through kernel B5 (eight to a
+  launch), equal-key runs become groups, and states reduce over the runs
+  (ops/wide.py). Groups come out as a dense prefix in key order.
 
 ``sorted_group_info_vals`` sorts each group's rows by values too, for
 the collect aggregates (exec/aggregation.py).
+
+Vector states (``StateSpec.width`` > 1: approx_distinct's registers) are
+(groups x width) tensors. A raw row contributes a
+``functions/aggregates.py`` ``RegisterAddend``, reduced straight into the
+group buffer by one ``scatter_reduce_`` at ``group * width + register``;
+intermediate (rows x width) states reduce by rows.
+In sort mode a batch with vector states is cut to a power of two above
+its group count (one host read), so the group buffers stay that size.
 
 Not ported: the reference's payload-riding ``lax.sort`` form of sort mode
 (a TPU gather workaround; this is its gather formulation, with the same
@@ -27,6 +36,8 @@ import torch
 
 from velox_tpu_torch import types as T
 from velox_tpu_torch.expression.eval import EvalValue
+from velox_tpu_torch.functions.aggregates import RegisterAddend
+from velox_tpu_torch.ops.gather import take_many_rows, take_rows
 
 
 def _dtype_max(dt: torch.dtype):
@@ -100,6 +111,9 @@ def reduce_array_mode(keys: List[EvalValue],
     masked = domain <= _MASKED_MAX_DOMAIN and capacity >= _MASKED_MIN_ROWS
     masks = [ids == d for d in range(domain)] if masked else None
     for data, combine in addends:
+        if isinstance(data, RegisterAddend) or data.dim() > 1:
+            out_states.append(_reduce_vector(data, ids, domain))
+            continue
         if masked and data.dim() == 1:
             if combine == "sum":
                 per = [torch.where(m, data, 0).sum(dtype=data.dtype)
@@ -142,6 +156,25 @@ def reduce_array_mode(keys: List[EvalValue],
     return out_keys, out_states, occupied
 
 
+def _reduce_vector(data, gids: torch.Tensor, n_groups: int
+                   ) -> torch.Tensor:
+    """A vector state's (n_groups x width) max, from a RegisterAddend or
+    (rows x width) states; rows with ``gids`` == n_groups are dropped.
+    Registers are >= 0, so the buffer starts at 0."""
+    if isinstance(data, RegisterAddend):
+        w = data.width
+        out = torch.zeros(((n_groups + 1) * w,), dtype=data.val.dtype,
+                          device=data.val.device)
+        out.scatter_reduce_(0, gids.to(torch.int64) * w + data.reg,
+                            data.val, reduce="amax")
+        return out.view(n_groups + 1, w)[:n_groups]
+    out = torch.zeros((n_groups + 1, data.shape[1]), dtype=data.dtype,
+                      device=data.device)
+    out.scatter_reduce_(0, gids.to(torch.int64)[:, None].expand_as(data),
+                        data, reduce="amax")
+    return out[:n_groups]
+
+
 def _run_boundaries(words: List[torch.Tensor], perm: torch.Tensor,
                     capacity: int) -> torch.Tensor:
     """True at sorted position i when its key words differ from i-1's."""
@@ -181,10 +214,10 @@ def sorted_group_info_vals(keys: Sequence[EvalValue],
                            ranges=None):
     """Like sorted_group_info, but rows within each key run are further
     sorted by ``vals`` (ascending, nulls first), through the same counting
-    radix sort. Returns sorted_group_info's 5-tuple: the value words follow
-    the key words, so group numbering is the same. (The reference also
-    returns the (key, value) run starts, which only its set_agg/histogram
-    kinds read; the port has no such kind yet, ROADMAP A.5.)"""
+    radix sort. Returns sorted_group_info's 5-tuple plus ``vboundary``,
+    True where sorted position i starts a new (key, value) run (mode's
+    run counts read it). The value words follow the key words, so group
+    numbering is the same."""
     from velox_tpu_torch.exec.sort import sort_perm_key, sort_words, \
         value_words
 
@@ -199,10 +232,11 @@ def sorted_group_info_vals(keys: Sequence[EvalValue],
         bits.extend([32] * len(vw))
     perm, _ = sort_perm_key(words, bits, capacity)
     boundary = _run_boundaries(words[:n_key_words], perm, capacity)
+    vboundary = _run_boundaries(words, perm, capacity)
     gid = torch.cumsum(boundary.to(torch.int64), 0) - 1
     active_sorted = active[perm]
     num_groups = (boundary & active_sorted).sum()
-    return perm, gid, boundary, active_sorted, num_groups
+    return perm, gid, boundary, active_sorted, num_groups, vboundary
 
 
 def group_keys_sorted(keys: Sequence[EvalValue], perm, gid, boundary,
@@ -236,21 +270,57 @@ def group_keys_sorted(keys: Sequence[EvalValue], perm, gid, boundary,
     return out_keys, group_mask
 
 
-def reduce_sort_mode(keys: List[EvalValue],
-                     addends: List[Tuple[torch.Tensor, str]],
-                     active, capacity: int, ranges=None):
+def _head(v: EvalValue, n: int) -> EvalValue:
+    """The first n rows of a dense group-key value."""
+    from velox_tpu_torch.vector.device import DeviceColumn
+    children = tuple(DeviceColumn(c.data[:n], None, c.dtype)
+                     for c in v.children)
+    return EvalValue(v.data[:n], None if v.validity is None
+                     else v.validity[:n], v.dtype, v.dictionary,
+                     children=children)
+
+
+def reduce_sort_mode(keys: List[EvalValue], addends, active,
+                     capacity: int, ranges=None):
     """Generic grouping: radix sort by packed key words + run reduce.
 
     Returns (group_keys, group_states, group_mask), with groups as a
-    dense prefix of length `capacity`, in key-sorted order.
+    dense prefix in key-sorted order, of length `capacity`; with vector
+    states, of a power of two at or above the group count.
     """
     from velox_tpu_torch.ops.wide import segmented_reduce_sorted
 
     perm, gid, boundary, active_sorted, num_groups = sorted_group_info(
         keys, active, capacity, ranges)
-    out_states = [segmented_reduce_sorted(data[perm], gid, boundary,
-                                          active_sorted, capacity, combine)
-                  for data, combine in addends]
+    vector = [isinstance(d, RegisterAddend) or d.dim() > 1
+              for d, _ in addends]
+    out_cap = capacity
+    if any(vector):
+        out_cap = min(capacity, 1 << max(0, int(num_groups) - 1)
+                      .bit_length())
+        out_gid = torch.where(active_sorted, gid, out_cap)
+    # the rows' addends in sorted order: B5's multi-column gather, up to
+    # eight addends a launch through the one permutation
+    flat = iter(take_many_rows([d for (d, _), vec in zip(addends, vector)
+                                if not vec], perm))
+    out_states = []
+    for (data, combine), vec in zip(addends, vector):
+        if not vec:
+            out_states.append(segmented_reduce_sorted(
+                next(flat), gid, boundary, active_sorted, capacity,
+                combine)[:out_cap])
+        elif isinstance(data, RegisterAddend):
+            # the rows' registers and values in sorted order: one B5
+            # launch for both
+            reg, val = take_many_rows([data.reg, data.val], perm)
+            out_states.append(_reduce_vector(
+                RegisterAddend(reg, val, data.width), out_gid, out_cap))
+        else:
+            out_states.append(_reduce_vector(take_rows(data, perm),
+                                             out_gid, out_cap))
     out_keys, group_mask = group_keys_sorted(
         keys, perm, gid, boundary, active_sorted, num_groups, capacity)
+    if out_cap < capacity:
+        out_keys = [_head(v, out_cap) for v in out_keys]
+        group_mask = group_mask[:out_cap]
     return out_keys, out_states, group_mask

@@ -41,10 +41,11 @@ The merge join (``MergeJoinOperator``, velox MergeJoin.h) shares all of
 it; its presorted build compacts without a sort, and a probe row's run
 comes from two binary searches over the packed build keys.
 
-Not ported: the hash-join build for key tuples beyond ``sortable_words``
-(the reference's scatter-probe table; ``build_table`` raises),
-raw-string keys, dynamic filters and build-side offload (ROADMAP A.5,
-A.10).
+Key tuples of any width take the sorted build and the merge-rank: the
+counting radix sort takes any number of key words, so the reference's
+scatter-probe hash-join build past seven words is not needed (the rows
+are the same as a set). Not ported: raw-string keys (ROADMAP A.6) and
+build-side offload (A.7).
 """
 
 from __future__ import annotations
@@ -65,7 +66,7 @@ from velox_tpu_torch.exec.batch_utils import (
 from velox_tpu_torch.exec.operator import Operator
 from velox_tpu_torch.exec.sort import (
     pack_key_u64, packable_words, sort_perm_key, sort_words,
-    sort_words_layout, sortable_words,
+    sort_words_layout,
 )
 from velox_tpu_torch.expression.eval import (
     EvalValue, ExprSet, value_from_column,
@@ -104,11 +105,11 @@ class SortedBuild(NamedTuple):
     n_usable: Optional[torch.Tensor] = None   # 0-dim int64
 
 
-def _key_values(batch: DeviceBatch, key_fields) -> List[EvalValue]:
+def key_values(batch: DeviceBatch, key_fields) -> List[EvalValue]:
     return [value_from_column(batch.columns[k.name]) for k in key_fields]
 
 
-def _usable(batch: DeviceBatch, keys: List[EvalValue]) -> torch.Tensor:
+def usable_rows(batch: DeviceBatch, keys: List[EvalValue]) -> torch.Tensor:
     """Active rows with fully non-null keys (SQL join null semantics)."""
     ok = batch.mask
     for v in keys:
@@ -152,14 +153,14 @@ def build_sorted_table(b: DeviceBatch, key_fields, array_range=None,
     of the classic loop (B2). An order-preserving narrowing leaves the
     stable permutation unchanged.
 
-    Wide keys (value words beyond one packed lane, up to sortable_words)
+    Wide keys (value words beyond one packed lane, any number of them)
     still sort; their probes go through the merge-rank, which never reads
     ``sorted_key``, and only duplicate detection needs the sorted words,
     gathered through the permutation."""
     cap = b.capacity
     dev = b.device
-    keys = _key_values(b, key_fields)
-    usable = _usable(b, keys)
+    keys = key_values(b, key_fields)
+    usable = usable_rows(b, keys)
     # usable rows first, ordered by key words (stable)
     words, bits, _ = sort_words_layout(keys, None, cap, usable, key_ranges)
     perm, _ = sort_perm_key(words, bits, cap)
@@ -196,7 +197,7 @@ def build_sorted_table(b: DeviceBatch, key_fields, array_range=None,
                        arr_start, arr_count, arr_base, arr_row1)
 
 
-def _has_raw_key(b: DeviceBatch, key_fields) -> bool:
+def has_raw_key(b: DeviceBatch, key_fields) -> bool:
     """A string key without a dictionary (the reference's raw byte-matrix
     strings)."""
     return any(b.columns[k.name].dtype.is_string
@@ -205,19 +206,18 @@ def _has_raw_key(b: DeviceBatch, key_fields) -> bool:
 
 def build_table(b: DeviceBatch, key_fields, array_range=None,
                 key_ranges=None) -> SortedBuild:
+    """The build table of ``b``: key tuples of one packed lane get the
+    packed sorted build (and array mode when ``array_range`` is given);
+    wider tuples, of any number of value words, sort through the same
+    counting radix sort and probe through the merge-rank."""
     dtypes = [k.dtype for k in key_fields]
-    if _has_raw_key(b, key_fields):
+    if has_raw_key(b, key_fields):
         raise NotImplementedError(
             "raw (dictionary-less) string join keys are not ported to "
-            "velox_tpu_torch (ROADMAP A.10)")
+            "velox_tpu_torch (ROADMAP A.6)")
     if packable_words(dtypes):
         return build_sorted_table(b, key_fields, array_range, key_ranges)
-    if sortable_words(dtypes):
-        return build_sorted_table(b, key_fields, None, key_ranges)
-    raise NotImplementedError(
-        "join keys of more than seven value words need the reference's "
-        "scatter-probe hash-join build, which is not ported to "
-        "velox_tpu_torch (ROADMAP A.5)")
+    return build_sorted_table(b, key_fields, None, key_ranges)
 
 
 # Max dense direct-address domain for array-mode joins: 1 << 26 entries,
@@ -286,8 +286,8 @@ def build_sorted_table_presorted(b: DeviceBatch, key_fields) -> SortedBuild:
     no sort (velox MergeJoin accumulates its right side without hashing
     or sorting). Callers check the order with ``presorted_is_sorted``."""
     cap = b.capacity
-    keys = _key_values(b, key_fields)
-    usable = _usable(b, keys)
+    keys = key_values(b, key_fields)
+    usable = usable_rows(b, keys)
     n = usable.sum(dtype=torch.int64)
     tgt = torch.where(usable, torch.cumsum(usable.to(torch.int64), 0) - 1,
                       cap)
@@ -428,8 +428,8 @@ class HashJoinOperator(Operator):
         """(probe_ok, loc, counts, hit): ``loc`` is each probe row's run
         start in sorted build positions (match m of row r is build row
         perm[loc[r] + m]); ``counts`` its number of matches."""
-        keys = _key_values(batch, self._node.left_keys)
-        probe_ok = _usable(batch, keys)
+        keys = key_values(batch, self._node.left_keys)
+        probe_ok = usable_rows(batch, keys)
         if bt.arr_start is not None:
             # array mode: two lookups into the dense domain tables
             in_range, idx = self._domain_index(batch, keys,
@@ -451,8 +451,8 @@ class HashJoinOperator(Operator):
         bcap = bt.batch.capacity
         m = bcap + cap
         dev = batch.device
-        bkeys = _key_values(bt.batch, self._node.right_keys)
-        busable = _usable(bt.batch, bkeys)
+        bkeys = key_values(bt.batch, self._node.right_keys)
+        busable = usable_rows(bt.batch, bkeys)
         both_ok = torch.cat([busable, probe_ok])
         merged_keys = []
         for bv, pv in zip(bkeys, pkeys):
@@ -572,8 +572,8 @@ class HashJoinOperator(Operator):
         node = self._node
         if bt.arr_row1 is not None and self._unique_build:
             # one lookup gives the build row (arr_row1 = row + 1, 0 absent)
-            keys = _key_values(batch, node.left_keys)
-            probe_ok = _usable(batch, keys)
+            keys = key_values(batch, node.left_keys)
+            probe_ok = usable_rows(batch, keys)
             in_range, idx = self._domain_index(batch, keys,
                                                bt.arr_row1.shape[0])
             row1 = take_rows(bt.arr_row1, idx)
@@ -790,8 +790,8 @@ class MergeJoinOperator(HashJoinOperator):
     side need not be sorted: each row searches on its own."""
 
     def _lookup(self, batch: DeviceBatch, bt: SortedBuild):
-        keys = _key_values(batch, self._node.left_keys)
-        probe_ok = _usable(batch, keys)
+        keys = key_values(batch, self._node.left_keys)
+        probe_ok = usable_rows(batch, keys)
         sk = _unsigned_order(bt.sorted_key)
         pk = _unsigned_order(pack_key_u64(keys, batch.capacity))
         lo = torch.searchsorted(sk, pk)

@@ -3,12 +3,13 @@
 Counterpart of ``velox_tpu/exec/operator.py``: the needs_input /
 add_input / get_output / no_more_input / is_finished contract
 (velox/exec/Operator.h), the Values and TableScan sources, and the fused
-Filter/Project operator. Each operator's per-batch work is eager torch
-code on the batch's device; the driver loop in exec/task.py only moves
-batch handles. The scan can generate and upload its next splits on a
-producer thread while the query works on the current one.
+Filter/Project operator, and the Arrow stream source. Each operator's
+per-batch work is eager torch code on the batch's device; the driver
+loop in exec/task.py only moves batch handles. The scan can generate and
+upload its next splits on a producer thread while the query works on the
+current one.
 
-Not ported yet: the Values ingest cache and the Arrow stream source.
+Not ported yet: the Values ingest cache (ROADMAP A.7).
 """
 
 from __future__ import annotations
@@ -110,6 +111,43 @@ class ValuesOperator(SourceOperator):
         return self._i >= len(self._tables)
 
 
+class ArrowStreamOperator(SourceOperator):
+    """Streaming source: pulls record batches from a pyarrow
+    RecordBatchReader (or any iterable of batches, tables or
+    DeviceBatches, or a callable returning one) and stages them on the
+    query's device. A DeviceBatch on another device raises: it is not
+    moved. Parity: velox/exec/ArrowStream.h:23."""
+
+    def __init__(self, node: P.ArrowStreamNode, device):
+        super().__init__(node)
+        r = node.reader
+        self._it = iter(r() if callable(r) else r)
+        self._device = torch.device(device)
+        self._done = False
+
+    def get_output(self):
+        if self._done:
+            return None
+        try:
+            t = next(self._it)
+        except StopIteration:
+            self._done = True
+            return None
+        if isinstance(t, DeviceBatch):
+            if t.device != self._device:
+                raise ValueError(
+                    f"ArrowStream batch on {t.device}, the query runs on "
+                    f"{self._device}")
+            return t
+        import pyarrow as pa
+        if isinstance(t, pa.RecordBatch):
+            t = pa.table(t)
+        return from_arrow(t, device=self._device)
+
+    def is_finished(self):
+        return self._done
+
+
 def _column_tensors(col: DeviceColumn) -> Iterator[torch.Tensor]:
     yield col.data
     if col.validity is not None:
@@ -147,8 +185,11 @@ class TableScanOperator(SourceOperator):
     _DONE = object()
 
     def __init__(self, node: P.TableScanNode, data_source, splits,
-                 prefetch: int):
+                 prefetch: int, gate: Optional[threading.Event] = None):
         super().__init__(node)
+        # a producer waits for ``gate`` before its first split: a probe
+        # scan started before its join's build, which may finish early
+        self._gate = gate
         self._source = data_source
         self._splits = list(splits)
         self._i = 0
@@ -177,6 +218,9 @@ class TableScanOperator(SourceOperator):
 
     def _produce(self) -> None:
         try:
+            while self._gate is not None and not self._gate.wait(0.1):
+                if self._stop.is_set():
+                    return
             for split in self._splits:
                 TV.adjust("TableScan::prefetch", split)
                 if self._stop.is_set():

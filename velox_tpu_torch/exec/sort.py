@@ -512,14 +512,6 @@ def packable_words(dtypes: Sequence[T.DataType]) -> bool:
     return sum(num_value_words(dt) for dt in dtypes) <= 2
 
 
-def sortable_words(dtypes: Sequence[T.DataType]) -> bool:
-    """True if the key tuple has at most seven value words: the wide-key
-    sorted build, probed through the merge-rank sort (exec/join.py). The
-    reference's bound, kept so both engines pick the same join mode;
-    wider tuples take its scatter-probe hash table, not ported."""
-    return sum(num_value_words(dt) for dt in dtypes) <= 7
-
-
 def pack_key_u64(keys: Sequence[EvalValue], capacity: int) -> torch.Tensor:
     """One order-preserving 64-bit key per row from at most two value
     words, as an int64 holding the reference's uint64 bits: compare it

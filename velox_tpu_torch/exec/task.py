@@ -6,24 +6,35 @@ of the query lives on ``QueryCtx.device``; the host loop only moves batch
 handles, and reads a device value once at the end (the error total and
 the output rows).
 
-Ported node kinds: Values, TableScan (with a pushed-down filter),
-Filter/Project chains (fused, exec/fuse.py), Aggregation (the filter-sum
-kernel for a Q6-shaped global ``sum(a * b)``, ops/filter_reduce.py, and
-the generic operator of exec/aggregation.py for every other plan of
-sum/count/avg/min/max), OrderBy, TopN and Limit (a Limit over an OrderBy
-runs as a TopN), HashJoin (exec/join.py: the build pipeline runs to
-completion, then the probe pipeline streams; the probe side's scans
-start before the build runs), NestedLoopJoin (exec/misc_ops.py, built and
-probed the same way), EnforceSingleRow, MergeJoin (the presorted build
-compacts without a sort, and probes binary-search it; key tuples beyond
-one packed lane take the hash join), MarkDistinct, AssignUniqueId,
-Expand, GroupId (exec/misc_ops.py), Window, RowNumber and TopNRowNumber
-(exec/window.py). An aggregation over an OrderBy on its grouping keys
-streams (exec/streaming_agg.py, unless ``STREAMING_AGG_ENABLED`` is
-false). The kinds still to port raise NotImplementedError naming their
-ROADMAP item: Unnest (A.6), TableWrite and LocalPartition/LocalMerge
-(A.8), ArrowStream (A.5), Exchange, MergeExchange and PartitionedOutput
-(A.10).
+Ported node kinds: Values, ArrowStream, TableScan (with a pushed-down
+filter), Filter/Project chains (fused, exec/fuse.py), Aggregation (the
+filter-sum kernel for a Q6-shaped global ``sum(a * b)``,
+ops/filter_reduce.py, and the generic operator of exec/aggregation.py
+for every other plan, with partial-aggregation abandonment), OrderBy,
+TopN and Limit (a Limit over an OrderBy runs as a TopN), HashJoin
+(exec/join.py: the build pipeline runs to completion, then the probe
+pipeline streams; the probe side's scans start before the build runs),
+NestedLoopJoin (exec/misc_ops.py, built and probed the same way),
+EnforceSingleRow, MergeJoin (the presorted build compacts without a
+sort, and probes binary-search it; key tuples beyond one packed lane
+take the hash join), MarkDistinct, AssignUniqueId, Expand, GroupId
+(exec/misc_ops.py), Window, RowNumber and TopNRowNumber (exec/window.py).
+An aggregation over an OrderBy on its grouping keys streams
+(exec/streaming_agg.py, unless ``STREAMING_AGG_ENABLED`` is false). The
+kinds still to port raise NotImplementedError naming their ROADMAP item:
+Unnest (A.6), TableWrite and LocalPartition/LocalMerge (A.8), Exchange,
+MergeExchange and PartitionedOutput (A.10).
+
+*Dynamic filters* (``DYNAMIC_FILTERS``, HashProbe.cpp:393): once an
+inner or semi join's build is done, the build keys' ``IN`` list (at most
+64 usable rows) or ``[min, max]`` range becomes a Filter over the probe
+side, which fuses into the probe scan's chain; not for an array-mode
+join over a unique build, whose domain lookup rejects such rows anyway.
+*The early finish* (``HASH_PROBE_FINISH_EARLY_ON_EMPTY_BUILD``): such a
+join over a build without a usable row runs no probe pipeline at all.
+Its probe scans, started before the build, wait to read their first
+split until a build batch holds a row, so an empty build leaves them
+unread.
 
 Scans take their splits from the device scan cache
 (connectors/cache.py) and, by default on a CUDA device, generate and
@@ -32,6 +43,7 @@ upload the next splits on a producer thread (``SCAN_PREFETCH_DEPTH``).
 
 from __future__ import annotations
 
+import threading
 import time
 from typing import Dict, Iterator, List, Optional
 
@@ -40,18 +52,21 @@ import torch
 from velox_tpu_torch import types as T
 from velox_tpu_torch.common import metrics as M
 from velox_tpu_torch.connectors.connector import get_connector
+from velox_tpu_torch.core import expressions as ex
 from velox_tpu_torch.core import plan as P
 from velox_tpu_torch.core.config import QueryConfig
+from velox_tpu_torch.core.stats import resolve_column_unique
 from velox_tpu_torch.exec.aggregation import AggregationOperator
 from velox_tpu_torch.exec.batch_utils import concat_batches
 from velox_tpu_torch.exec.fuse import chain_fn, collapse_chain
 from velox_tpu_torch.exec.join import (
     HashBuildStage, HashJoinOperator, MergeBuildStage, MergeJoinOperator,
-    array_join_range, build_key_ranges,
+    SortedBuild, array_join_range, build_key_ranges, has_raw_key,
+    key_values, usable_rows,
 )
 from velox_tpu_torch.exec.operator import (
-    FilterProjectOperator, LimitOperator, Operator, SourceOperator,
-    TableScanOperator, ValuesOperator,
+    ArrowStreamOperator, FilterProjectOperator, LimitOperator, Operator,
+    SourceOperator, TableScanOperator, ValuesOperator,
 )
 from velox_tpu_torch.exec.memory import MemoryPool
 from velox_tpu_torch.exec.misc_ops import (
@@ -82,13 +97,15 @@ _UNARY = {
     P.OrderByNode: OrderByOperator,
 }
 
+# joins whose unmatched probe rows are dropped: they take dynamic filters
+_FILTERED_JOINS = (P.JoinType.INNER, P.JoinType.LEFT_SEMI_FILTER)
+
 # node kinds still to port, and their ROADMAP item
 _UNPORTED = {
     P.UnnestNode: "A.6 (ARRAY columns)",
     P.TableWriteNode: "A.8",
     P.LocalPartitionNode: "A.8",
     P.LocalMergeNode: "A.8",
-    P.ArrowStreamNode: "A.5",
     P.ExchangeNode: "A.10",
     P.MergeExchangeNode: "A.10",
     P.PartitionedOutputNode: "A.10",
@@ -195,6 +212,9 @@ class Task:
         if isinstance(node, P.ValuesNode):
             yield from self._drive_source(
                 ValuesOperator(node, self.ctx.device))
+        elif isinstance(node, P.ArrowStreamNode):
+            yield from self._drive_source(
+                ArrowStreamOperator(node, self.ctx.device))
         elif isinstance(node, P.TableScanNode) and node.filter is None:
             yield from self._drive_source(self._make_scan(node))
         elif isinstance(node, (P.TableScanNode, P.FilterNode,
@@ -211,9 +231,17 @@ class Task:
                                        StreamingAggregationOperator(node))
                 return
 
+            qc = self.ctx.query_config
+
             def mk_agg(pre):
-                return AggregationOperator(node, self.ctx.device,
-                                           pre_fn=pre)
+                return AggregationOperator(
+                    node, self.ctx.device, pre_fn=pre,
+                    compact_threshold=qc.get_int(
+                        QueryConfig.AGG_COMPACT_THRESHOLD, 8),
+                    abandon_min_rows=qc.get_int(
+                        QueryConfig.ABANDON_PARTIAL_AGG_MIN_ROWS, 100_000),
+                    abandon_min_pct=float(qc.get(
+                        QueryConfig.ABANDON_PARTIAL_AGG_MIN_PCT, 0.8)))
             # the fused one-pass kernel for Q6-shaped global sums
             op = self._try_filter_sum(node, chain, mk_agg)
             if op is None:
@@ -260,37 +288,143 @@ class Task:
         return (len(src.keys) >= len(knames) and prefix == knames
                 and streaming_supported(node))
 
-    def _run_join(self, node: P.HashJoinNode) -> Iterator[DeviceBatch]:
+    def _run_join(self, node: P.HashJoinNode, dynamic: bool = True
+                  ) -> Iterator[DeviceBatch]:
         return self._build_then_probe(
             node, HashBuildStage(node.right_keys,
                                  array_range=array_join_range(node),
                                  key_ranges=build_key_ranges(node)),
-            HashJoinOperator(node))
+            HashJoinOperator(node), dynamic)
 
     def _run_merge_join(self, node: P.MergeJoinNode
                         ) -> Iterator[DeviceBatch]:
         """The presorted build's order is checked once; probes
         binary-search it. Key tuples beyond one packed lane run as a hash
-        join."""
+        join (with no dynamic filter: the reference's merge join pushes
+        none)."""
         if not packable_words([k.dtype for k in node.right_keys]):
             return self._run_join(P.HashJoinNode(
                 node.id, left=node.left, right=node.right,
                 join_type=node.join_type, left_keys=node.left_keys,
                 right_keys=node.right_keys, filter=node.filter,
-                output_columns=node.output_columns))
+                output_columns=node.output_columns), dynamic=False)
         return self._build_then_probe(node, MergeBuildStage(node.right_keys),
                                       MergeJoinOperator(node))
 
-    def _build_then_probe(self, node, build, probe
+    def _build_then_probe(self, node, build, probe, dynamic: bool = False
                           ) -> Iterator[DeviceBatch]:
         """The build pipeline runs to completion (JoinBridge parity), then
         the probe pipeline streams through the join; the probe side's
-        scans start first."""
-        self._prewarm_probe_scans(node.left)
+        scans start first. With ``dynamic``, the build may push a filter
+        onto the probe side or finish the join early: the probe scans
+        then wait for a build batch that holds a row."""
+        gate = threading.Event() if (
+            dynamic and self._pushes_dynamic_filter(node)
+            and self.ctx.query_config.get_bool(
+                QueryConfig.HASH_PROBE_FINISH_EARLY_ON_EMPTY_BUILD, True)
+        ) else None
+        started = self._prewarm_probe_scans(node.left, gate)
         for batch in self._run_node(node.right):
-            build.add_input(self._strip_errors(batch))
-        probe.set_built_table(build.finish())
-        yield from self._drive(node.left, probe)
+            batch = self._strip_errors(batch)
+            if gate is not None and not gate.is_set() \
+                    and bool(batch.mask.any()):
+                gate.set()
+            build.add_input(batch)
+        table = build.finish()
+        probe.set_built_table(table)
+        left = (self._maybe_push_dynamic_filter(node, table) if dynamic
+                else node.left)
+        if left is None:  # an empty build: no probe pipeline at all
+            for scan_id in started:
+                scan = self._prewarmed_scans.pop(scan_id, None)
+                if scan is not None:
+                    scan.close()
+            return
+        if gate is not None:
+            gate.set()
+        yield from self._drive(left, probe)
+
+    def _pushes_dynamic_filter(self, node: P.HashJoinNode) -> bool:
+        """Dynamic filters are on, the join drops unmatched probe rows
+        (inner, left semi), and it is not an array-mode join over a
+        unique build, whose domain lookup rejects out-of-range keys at no
+        cost."""
+        return (self.ctx.query_config.get_bool(QueryConfig.DYNAMIC_FILTERS,
+                                               True)
+                and node.join_type in _FILTERED_JOINS
+                and not (array_join_range(node) is not None and any(
+                    resolve_column_unique(node.right, k.name)
+                    for k in node.right_keys)))
+
+    def _maybe_push_dynamic_filter(self, node: P.HashJoinNode,
+                                   table: SortedBuild
+                                   ) -> Optional[P.PlanNode]:
+        """The probe side with the build keys' summary as a filter, or
+        None when an inner/semi join's build has no usable row (the early
+        finish). Parity: the reference's Task._maybe_push_dynamic_filter
+        (HashProbe dynamic filters, exec/HashProbe.cpp:393, and
+        Driver::pushdownFilters, exec/Driver.cpp:613).
+
+        Only joins ``_pushes_dynamic_filter`` accepts get one; raw-string
+        keys have no summary. The summaries (the usable row count, each
+        key's min, max and first 64 usable values) are reduced on the
+        device and read in one host read."""
+        qc = self.ctx.query_config
+        left = node.left
+        if not self._pushes_dynamic_filter(node) \
+                or has_raw_key(table.batch, node.right_keys):
+            return left
+        batch = table.batch
+        cap = batch.capacity
+        keys = key_values(batch, node.right_keys)
+        ok = usable_rows(batch, keys)
+        # keys whose summary can become a predicate: integral, DATE and
+        # short DECIMAL (a long decimal's summary would need both limbs)
+        summarized = [i for i, lk in enumerate(node.left_keys)
+                      if (lk.dtype.is_integral
+                          or lk.dtype.kind in (T.TypeKind.DATE,
+                                               T.TypeKind.DECIMAL))
+                      and not lk.dtype.is_long_decimal]
+        parts = [ok.sum(dtype=torch.int64).reshape(1)]
+        pos = torch.cumsum(ok.to(torch.int64), 0) - 1
+        tgt = torch.where(ok & (pos < 64), pos, 64)
+        for i in summarized:
+            d = keys[i].full_data(cap).to(torch.int64)
+            big = torch.iinfo(torch.int64).max
+            first = torch.zeros((65,), dtype=torch.int64, device=d.device)
+            first[tgt] = d
+            parts += [torch.where(ok, d, big).min().reshape(1),
+                      torch.where(ok, d, -big).max().reshape(1),
+                      first[:64]]
+        host = torch.cat(parts).tolist()
+        n_usable = host[0]
+        if n_usable == 0:
+            if qc.get_bool(QueryConfig.HASH_PROBE_FINISH_EARLY_ON_EMPTY_BUILD,
+                           True):
+                return None
+            return left
+        lt = left.output_type()
+        preds = []
+        for j, i in enumerate(summarized):
+            lk = node.left_keys[i]
+            lo, hi = host[1 + 66 * j], host[2 + 66 * j]
+            small = host[3 + 66 * j:3 + 66 * j + min(n_usable, 64)]
+            f = ex.field(lk.name, lt.field_type(lk.name))
+            if n_usable <= 64:
+                preds.append(ex.Call(T.BOOLEAN, "in", (f,) + tuple(
+                    ex.Constant(lk.dtype, v) for v in sorted(set(small)))))
+            else:
+                preds.append(ex.Call(T.BOOLEAN, "between", (
+                    f, ex.Constant(lk.dtype, lo),
+                    ex.Constant(lk.dtype, hi))))
+        if not preds:
+            return left
+        pred = preds[0]
+        for p in preds[1:]:
+            pred = ex.Call(T.BOOLEAN, "and", (pred, p))
+        M.record_counter(M.K_JOIN_DYN_FILTERS)
+        return P.FilterNode(f"{node.id}-dynfilter", source=left,
+                            predicate=pred)
 
     def _run_nested_loop_join(self, node: P.NestedLoopJoinNode
                               ) -> Iterator[DeviceBatch]:
@@ -334,21 +468,30 @@ class Task:
         return FilterSumOperator(node, spec, self.ctx.device,
                                  lambda: mk_agg(chain_fn(chain)))
 
-    def _prewarm_probe_scans(self, left: P.PlanNode) -> None:
+    def _prewarm_probe_scans(self, left: P.PlanNode,
+                             gate: Optional[threading.Event] = None
+                             ) -> List[str]:
         """Start the probe side's scans (and their producer threads)
         before the build side runs, so that the probe's generation and
         upload overlap the build: the analogue of velox running HashBuild
-        and the probe pipeline as concurrent drivers."""
+        and the probe pipeline as concurrent drivers. Their producers wait
+        for ``gate``, when given. Returns the scans' node ids."""
+        started: List[str] = []
+
         def walk(n: P.PlanNode) -> None:
             if isinstance(n, P.TableScanNode) \
                     and n.id not in self._prewarmed_scans:
-                self._prewarmed_scans[n.id] = self._make_scan(n)
+                self._prewarmed_scans[n.id] = self._make_scan(n, gate)
+                started.append(n.id)
                 M.record_counter(M.K_SCAN_PREWARMED)
             for s in n.sources:
                 walk(s)
         walk(left)
+        return started
 
-    def _make_scan(self, node: P.TableScanNode) -> TableScanOperator:
+    def _make_scan(self, node: P.TableScanNode,
+                   gate: Optional[threading.Event] = None
+                   ) -> TableScanOperator:
         warm = self._prewarmed_scans.pop(node.id, None)
         if warm is not None:
             return warm
@@ -361,7 +504,8 @@ class Task:
         default = 2 if self.ctx.device.type == "cuda" else 0
         depth = self.ctx.query_config.get_int(
             QueryConfig.SCAN_PREFETCH_DEPTH, default)
-        return TableScanOperator(node, source, splits, prefetch=depth)
+        return TableScanOperator(node, source, splits, prefetch=depth,
+                                 gate=gate)
 
     # ---- driver loop (Driver::runInternal parity) ---------------------------
 

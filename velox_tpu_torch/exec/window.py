@@ -535,10 +535,25 @@ class RowNumberOperator(Operator):
         self._node = node
         self._out: Optional[DeviceBatch] = None
         self._table = H.StreamTable(n_states=1)  # running counts
+        # no partition keys: one running count of the rows seen, on the
+        # device
+        self._seen: Optional[torch.Tensor] = None
+
+    def _numbers_without_keys(self, batch: DeviceBatch) -> torch.Tensor:
+        if self._seen is None:
+            self._seen = torch.zeros((), dtype=torch.int64,
+                                     device=batch.device)
+        prefix = torch.cumsum(batch.mask.to(torch.int64), 0)
+        rn = self._seen + prefix
+        self._seen = self._seen + prefix[-1]
+        return rn
 
     def add_input(self, batch: DeviceBatch):
         node = self._node
         cap = batch.capacity
+        if not node.partition_keys:
+            self._emit(batch, self._numbers_without_keys(batch))
+            return
         keys = [value_from_column(batch.columns[k.name])
                 for k in node.partition_keys]
         slots, _ = self._table.insert(keys, batch.mask, cap)
@@ -561,6 +576,10 @@ class RowNumberOperator(Operator):
         first = (newg & (s_sorted < S)).nonzero().squeeze(1)
         hit = take_rows(s_sorted, first)
         counts[hit] += take_rows(gend - gstart + 1, first)
+        self._emit(batch, rn)
+
+    def _emit(self, batch: DeviceBatch, rn: torch.Tensor):
+        node = self._node
         mask = batch.mask
         if node.limit is not None:
             mask = mask & (rn <= node.limit)

@@ -326,7 +326,7 @@ def _compare_strings(a: EvalValue, b: EvalValue, op: str) -> EvalValue:
     if _is_raw(a) or _is_raw(b):
         raise NotImplementedError(
             "raw (dictionary-less) string comparison is not ported to "
-            "velox_tpu_torch (ROADMAP A.11)")
+            "velox_tpu_torch (ROADMAP A.6)")
     validity = merge_validity(a, b)
     if op not in ("eq", "neq"):
         # a constant absent from the dictionary has no id to order by

@@ -176,13 +176,31 @@ def gather_rows(columns: Sequence[torch.Tensor],
 gather_rows.launches = 0
 
 
+def _take_vector_rows(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``a[idx]`` of a (rows x width) tensor whose rows are whole 8- or
+    4-byte lanes (the HLL registers: 512 int32 = 256 8-byte lanes):
+    through B5 with the flat indices ``row * lanes + j``."""
+    row_bytes = a.shape[1] * a.element_size()
+    lane = torch.int64 if row_bytes % 8 == 0 else torch.int32
+    flat = a.contiguous().view(lane)
+    k = flat.shape[1]
+    fidx = (idx.to(torch.int64)[:, None] * k
+            + torch.arange(k, device=idx.device)).reshape(-1)
+    out = flat_gather(flat.reshape(-1), fidx)
+    return out.view(idx.shape[0], k).view(a.dtype)
+
+
 def take_rows(a: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``a[idx]`` of a 1-D row-aligned tensor: through B5 when ``a`` has
-    4- or 8-byte elements and ``idx`` is an int32/int64 index tensor,
-    plain indexing otherwise (bool validity and narrower columns lie
-    outside B5's contract)."""
-    if _is_gatherable(a) and idx.dtype in _INDEX_DTYPES:
-        return flat_gather(a.contiguous(), idx.contiguous())
+    """``a[idx]`` of a row-aligned tensor: through B5 when ``a`` has 4- or
+    8-byte elements (or is 2-D with rows of whole 4-byte lanes) and
+    ``idx`` is an int32/int64 index tensor, plain indexing otherwise
+    (bool validity and narrower columns lie outside B5's contract)."""
+    if idx.dtype in _INDEX_DTYPES:
+        if _is_gatherable(a):
+            return flat_gather(a.contiguous(), idx.contiguous())
+        if a.dim() == 2 and a.shape[1] > 0 and a.dtype != torch.bool \
+                and (a.shape[1] * a.element_size()) % 4 == 0:
+            return _take_vector_rows(a, idx)
     return a[idx]
 
 
@@ -203,5 +221,5 @@ def take_many_rows(arrays: Sequence[torch.Tensor],
             out[i] = g
     for i, a in enumerate(arrays):
         if out[i] is None:
-            out[i] = a[idx]
+            out[i] = take_rows(a, idx)
     return out

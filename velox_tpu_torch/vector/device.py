@@ -173,7 +173,7 @@ def batch_from_numpy(columns: Dict[str, Sequence[np.ndarray]],
                      mask: np.ndarray,
                      dtypes: Dict[str, T.DataType],
                      dictionaries: Optional[Dict[str, Dictionary]] = None,
-                     device="cpu") -> DeviceBatch:
+                     *, device) -> DeviceBatch:
     """Build a batch from host arrays, e.g. a reference batch after
     ``jax.device_get``.
 
@@ -196,7 +196,7 @@ def batch_from_numpy(columns: Dict[str, Sequence[np.ndarray]],
 
 def column_from_arrow(arr, capacity: int,
                       dictionary: Optional[Dictionary] = None,
-                      device="cpu") -> DeviceColumn:
+                      *, device) -> DeviceColumn:
     """One pyarrow Array/ChunkedArray -> DeviceColumn (flat types only)."""
     import pyarrow as pa
     import pyarrow.compute as pc
@@ -266,7 +266,7 @@ def column_from_arrow(arr, capacity: int,
 
 def from_arrow(table, capacity: Optional[int] = None,
                dictionaries: Optional[Dict[str, Dictionary]] = None,
-               device="cpu") -> DeviceBatch:
+               *, device) -> DeviceBatch:
     """pyarrow Table/RecordBatch -> DeviceBatch (padded, masked)."""
     n = table.num_rows
     cap = capacity if capacity is not None else default_capacity(n)
@@ -274,7 +274,7 @@ def from_arrow(table, capacity: Optional[int] = None,
         raise ValueError(f"{n} rows exceed capacity {cap}")
     dictionaries = dictionaries or {}
     cols = {name: column_from_arrow(table.column(name), cap,
-                                    dictionaries.get(name), device)
+                                    dictionaries.get(name), device=device)
             for name in table.schema.names}
     return DeviceBatch(cols, prefix_mask(n, cap, device))
 
