@@ -141,6 +141,25 @@ Phases, each printing one line; any failure raises and exits non-zero:
    (eight key words through the merge-rank). Each prints its walls, peak
    device memory, launches (B4 and B5 on every path, B2 on agg_percentile
    and wide_join) and dynamic filters.
+17. types: raw (byte-matrix) strings, TIMESTAMP and DECIMAL(38) x short
+   decimal, each path cold and warm with equal launches and exact against
+   numpy and pyarrow oracles. The raw tables are made from the SF10
+   orders and customer columns and --seed: o_cust_name and c_name
+   ('Customer#%09d', class 32) and o_text (seeded ASCII text of 10-79
+   bytes, class 128, a 1% of rows carrying 'special ... requests'), fed
+   to Values with string_encoding "raw". Paths: raw_group (group by
+   o_cust_name), raw_join (o_cust_name = c_name, then per c_nationkey),
+   raw_topn (o_text, o_orderkey LIMIT 1000), raw_sort (the full sort of
+   o_text), raw_filter (Q13's LIKE, then length, substr, strpos, upper,
+   trim, concat and an ordered compare), raw_functions (the functions
+   over every row, summed); over the lineitem scan dt_month
+   (date_trunc/date_diff), dt_week_hour (a TIMESTAMP built by date_add,
+   grouped by week and hour with min/max and to_unixtime), dt_zone
+   (timezone_hour and at_timezone in America/New_York against Python's
+   zoneinfo) and decimal_mul (a DECIMAL(38) sum of products and that sum
+   times 3, against Python integers). Each prints its walls, peak device
+   memory, launches (B2, B4 and B5 on the raw sort, group and join paths)
+   and the rows upper/lower/trim sent to the host.
 
 Every number a phase prints is measured in this run, on this card; bounds
 are bytes over the H100's 3.35 TB/s.
@@ -156,6 +175,7 @@ from __future__ import annotations
 
 import argparse
 import datetime
+import functools
 import json
 import math
 import statistics
@@ -3292,6 +3312,510 @@ def aggregates_phase(conn, ctx, li) -> dict:
     return by_path
 
 
+# ---------------------------------------------------------------------------
+# types: raw strings, TIMESTAMP and the datetime functions, DECIMAL(38) x
+# short decimal, at SF10
+# ---------------------------------------------------------------------------
+
+NAME_PREFIX = b"Customer#"
+TEXT_ALPHA = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz ", np.uint8)
+TEXT_LEN = (10, 79)  # TPC-H's O_COMMENT is at most 79 characters
+NAME_CUT = "Customer#000500000"
+NY = "America/New_York"
+
+
+def _arrow_strings(data: np.ndarray, offsets: np.ndarray):
+    """A pyarrow string array over a uint8 data buffer and int32
+    offsets."""
+    import pyarrow as pa
+    return pa.Array.from_buffers(pa.string(), len(offsets) - 1, [
+        None, pa.py_buffer(offsets.astype(np.int32).tobytes()),
+        pa.py_buffer(data.tobytes())])
+
+
+def customer_names(keys: np.ndarray):
+    """'Customer#%09d' % key for every key, as a pyarrow string array
+    (18 bytes each), built with numpy."""
+    n = len(keys)
+    mat = np.empty((n, 18), np.uint8)
+    mat[:, :9] = np.frombuffer(NAME_PREFIX, np.uint8)
+    k = keys.astype(np.int64)
+    for j in range(9):
+        mat[:, 17 - j] = 48 + (k // 10 ** j) % 10
+    return _arrow_strings(mat.reshape(-1), np.arange(n + 1) * 18)
+
+
+def order_texts(n: int, rng):
+    """Seeded ASCII text of lengths uniform in TEXT_LEN; a seeded 1% of
+    rows start with 'special' and end with 'requests' (Q13's pattern).
+    Returns (pyarrow array, lengths, the special rows)."""
+    lens = rng.integers(TEXT_LEN[0], TEXT_LEN[1] + 1, n)
+    offs = np.zeros(n + 1, np.int64)
+    np.cumsum(lens, out=offs[1:])
+    data = TEXT_ALPHA[rng.integers(0, len(TEXT_ALPHA), int(offs[-1]),
+                                   dtype=np.uint8)]
+    special = np.flatnonzero(rng.random(n) < 0.01)
+    special = special[lens[special] >= 16]
+    for j, ch in enumerate(b"special"):
+        data[offs[special] + j] = ch
+    for j, ch in enumerate(b"requests"):
+        data[offs[special + 1] - 8 + j] = ch
+    return _arrow_strings(data, offs), lens, special
+
+
+def _raw_rows(batches, name):
+    """A raw string column's active rows as a host (rows, W) byte matrix
+    and lengths (the widest size class of the batches)."""
+    from velox_tpu_torch.vector import strings as VS
+    mats, lens = [], []
+    w = max(b.columns[name].data.shape[1] for b in batches)
+    for b in batches:
+        col = b.columns[name]
+        if not VS.is_raw(col):
+            raise AssertionError(f"{name}: not a raw string column")
+        m = b.mask
+        mats.append(VS.pad_width(col.data[m], w).cpu().numpy())
+        lens.append(VS.lens_of(col)[m].cpu().numpy())
+    return np.concatenate(mats), np.concatenate(lens)
+
+
+def _name_keys(mat: np.ndarray, lens: np.ndarray) -> np.ndarray:
+    """The key of each 'Customer#%09d' row of a byte matrix."""
+    if not ((lens == 18).all() and (mat[:, :9] == np.frombuffer(
+            NAME_PREFIX, np.uint8)).all()):
+        raise AssertionError("a customer name is malformed")
+    digits = mat[:, 9:18].astype(np.int64) - 48
+    return digits @ (10 ** np.arange(8, -1, -1, dtype=np.int64))
+
+
+def _nondecreasing(mat: np.ndarray) -> bool:
+    """Adjacent rows of a zero-padded byte matrix in byte order (no text
+    holds a zero byte, so equal padded rows are equal strings)."""
+    w = mat.view(">u8") if mat.shape[1] % 8 == 0 else mat
+    a, b = w[:-1], w[1:]
+    ne = a != b
+    first = ne.argmax(axis=1)
+    rows = np.arange(len(a))
+    return bool((~ne.any(axis=1) | (a[rows, first] < b[rows, first])).all())
+
+
+def _ny_offsets(lo_us: int, hi_us: int):
+    """America/New_York's UTC offset (seconds) at every UTC hour from
+    lo_us to hi_us, from Python's zoneinfo (the zone changes offset on
+    whole UTC hours): (first hour, offsets)."""
+    from zoneinfo import ZoneInfo
+    h0, h1 = lo_us // 3_600_000_000, hi_us // 3_600_000_000 + 1
+    tz = ZoneInfo(NY)
+    epoch = datetime.datetime(1970, 1, 1, tzinfo=datetime.timezone.utc)
+    offs = np.array([int((epoch + datetime.timedelta(hours=int(h)))
+                          .astimezone(tz).utcoffset().total_seconds())
+                     for h in range(h0, h1 + 1)], np.int64)
+    return h0, offs
+
+
+def types_paths(conn, seed: int):
+    """(the raw-string tables, the string paths' plans and oracle inputs)
+    at the connector's scale: orders (o_orderkey, o_custkey, o_totalprice
+    in cents) with the raw o_cust_name and o_text, and customer's c_name
+    (raw) and c_nationkey."""
+    import pyarrow as pa
+    rng = np.random.default_rng(seed)
+    od = table_columns(conn, "orders", ["o_orderkey", "o_custkey",
+                                        "o_totalprice"])
+    cu = table_columns(conn, "customer", ["c_custkey", "c_nationkey"])
+    text, text_lens, special = order_texts(len(od["o_orderkey"]), rng)
+    orders = pa.table({"o_orderkey": od["o_orderkey"],
+                       "o_custkey": od["o_custkey"],
+                       "price": od["o_totalprice"],
+                       "o_cust_name": customer_names(od["o_custkey"]),
+                       "o_text": text})
+    customer = pa.table({"c_custkey": cu["c_custkey"],
+                         "c_nationkey": cu["c_nationkey"],
+                         "c_name": customer_names(cu["c_custkey"])})
+    return od, cu, orders, customer, text_lens, special
+
+
+RAW_ORDERS = {"o_cust_name": "raw", "o_text": "raw"}
+
+
+def types_plans(orders, customer):
+    """name -> plan of the types phase's string paths, in run order."""
+    def vo():
+        return PlanBuilder().values([orders], string_encoding=RAW_ORDERS)
+
+    b = PlanBuilder()
+    cust = b.new_builder().values([customer],
+                                  string_encoding={"c_name": "raw"})
+    join = (b.values([orders], string_encoding=RAW_ORDERS)
+            .hash_join(["o_cust_name"], ["c_name"], cust,
+                       output=["c_nationkey", "price"])
+            .single_aggregation(["c_nationkey"], ["count(*) as n",
+                                                  "sum(price) as s"])
+            .plan())
+    return {
+        "raw_group": vo().single_aggregation(
+            ["o_cust_name"], ["count(*) as n", "sum(price) as s"]).plan(),
+        "raw_join": join,
+        "raw_topn": vo().top_n(["o_text", "o_orderkey"], 1000).plan(),
+        "raw_sort": vo().project(["o_text", "o_orderkey"])
+        .order_by(["o_text"]).plan(),
+        "raw_filter": vo().filter("o_text like '%special%requests%'")
+        .project(["o_orderkey", "length(o_text) as ln",
+                  "substr(o_text, 3, 10) as sb",
+                  "strpos(o_text, 'ab') as sp",
+                  "upper(o_text) as up", "trim(o_text) as tr",
+                  "concat(o_cust_name, '/', o_text) as cc",
+                  f"o_cust_name < '{NAME_CUT}' as lt"]).plan(),
+        "raw_functions": vo().project([
+            "length(o_text) as ln", "strpos(o_text, 'ab') as sp",
+            "length(trim(o_text)) as lt",
+            "length(upper(substr(o_text, 5))) as lu",
+            f"o_cust_name < '{NAME_CUT}' as cut"])
+        .single_aggregation([], ["sum(ln) as ln", "sum(sp) as sp",
+                                 "sum(lt) as lt", "sum(lu) as lu",
+                                 "count_if(cut) as cut"]).plan(),
+    }
+
+
+def datetime_plans():
+    """name -> plan of the types phase's datetime and decimal paths over
+    the lineitem scan."""
+    li = PlanBuilder().table_scan
+    ts = ("date_add('second', l_orderkey % 86400, "
+          "cast(l_shipdate as timestamp))")
+    return {
+        "dt_month": li("lineitem", ["l_shipdate", "l_receiptdate"])
+        .project(["date_trunc('month', l_shipdate) as m",
+                  "date_diff('day', l_shipdate, l_receiptdate) as dd"])
+        .single_aggregation(["m"], ["count(*) as n", "sum(dd) as dd"])
+        .plan(),
+        "dt_week_hour": li("lineitem", ["l_orderkey", "l_shipdate"])
+        .project([f"{ts} as ts"])
+        .project(["week(ts) as w", "hour(ts) as h", "ts",
+                  "to_unixtime(ts) as u"])
+        .single_aggregation(["w", "h"], [
+            "count(*) as n", "min(ts) as lo", "max(ts) as hi",
+            "sum(u) as u"]).plan(),
+        "dt_zone": li("lineitem", ["l_orderkey", "l_shipdate"])
+        .project([f"{ts} as ts"])
+        .project([f"timezone_hour(ts, '{NY}') as th",
+                  f"hour(at_timezone(ts, '{NY}')) as lh"])
+        .single_aggregation([], ["sum(th) as th", "sum(lh) as lh"])
+        .plan(),
+        "decimal_mul": li("lineitem", ["l_returnflag", "l_linestatus",
+                                       "l_extendedprice", "l_quantity"])
+        .project(["l_returnflag", "l_linestatus",
+                  "cast(l_extendedprice as decimal(38,2)) * l_quantity "
+                  "as pq"])
+        .single_aggregation(["l_returnflag", "l_linestatus"],
+                            ["sum(pq) as s"])
+        .project(["l_returnflag", "l_linestatus", "s", "s * 3 as s3"])
+        .plan(),
+    }
+
+
+@functools.lru_cache(maxsize=1)
+def _types_tables(seed: int = 0):
+    """The raw-string tables of the registered "tpch" connector (for the
+    profile tool's plans)."""
+    from velox_tpu_torch.connectors.connector import get_connector
+    _, _, orders, customer, _, _ = types_paths(get_connector("tpch"), seed)
+    return orders, customer
+
+
+TYPES_STRING_PATHS = ("raw_group", "raw_join", "raw_topn", "raw_sort",
+                      "raw_filter", "raw_functions")
+PATH_PLANS.update({n: (lambda n=n: types_plans(*_types_tables())[n])
+                   for n in TYPES_STRING_PATHS})
+PATH_PLANS.update({n: (lambda n=n: datetime_plans()[n])
+                   for n in ("dt_month", "dt_week_hour", "dt_zone",
+                             "decimal_mul")})
+
+
+def types_phase(conn, ctx, li, seed: int) -> dict:
+    """The types paths at the connector's scale, each cold and warm with
+    equal launches, exact against numpy and pyarrow oracles (doubles
+    within 1e-9 relative): raw-string group-by, join, TopN and full sort
+    keys, a filter and projection of every string function family, the
+    datetime functions over the lineitem scan and DECIMAL(38) x short
+    decimal. Each line: walls, peak device memory, launches, and the rows
+    sent to the host by upper/lower/trim (non-ASCII rows; 0 here)."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    from velox_tpu_torch.vector import strings as VS
+    t0 = time.perf_counter()
+    od, cu, orders, customer, text_lens, special = types_paths(conn, seed)
+    seconds = time.perf_counter() - t0
+    # one Values ingest of the orders table: the host pass into pinned
+    # memory, the uploads and the device pack (every orders path below
+    # pays it on each run: the Values ingest cache is not ported)
+    from velox_tpu_torch.vector.device import from_arrow
+    ingest = {}
+    for run in ("first", "second"):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        batch = from_arrow(orders, string_encoding=RAW_ORDERS,
+                           device=ctx.device)
+        torch.cuda.synchronize()
+        ingest[run] = time.perf_counter() - t1
+        nbytes = batch.nbytes
+        del batch
+    phase("types_tables", orders=orders.num_rows,
+          customers=customer.num_rows,
+          raw_bytes_on_card=orders.num_rows * (32 + 128)
+          + customer.num_rows * 32, orders_batch_bytes=nbytes,
+          ingest_s=ingest, seconds=seconds)
+    t0 = time.perf_counter()
+    # per-key and per-nation price sums stay far below 2^53: exact in
+    # bincount's float64
+    keys, price = od["o_custkey"], od["o_totalprice"]
+    counts = np.bincount(keys)
+    ukeys = np.flatnonzero(counts)
+    group_price = np.bincount(keys, weights=price)[ukeys].astype(np.int64)
+    counts = counts[ukeys]
+    nation = np.zeros(cu["c_custkey"].max() + 1, np.int64)
+    nation[cu["c_custkey"]] = cu["c_nationkey"]
+    on = nation[keys]
+    join_n = np.bincount(on, minlength=25)
+    join_s = np.bincount(on, weights=price, minlength=25).astype(np.int64)
+    text_col = orders.column("o_text")
+    like = pc.match_like(text_col, "%special%requests%").to_numpy(
+        zero_copy_only=False)
+    sel = np.flatnonzero(like)
+    sub = orders.take(pa.array(sel))
+    stx, sname = sub.column("o_text"), sub.column("o_cust_name")
+    filt_want = {
+        "o_orderkey": sub.column("o_orderkey").to_pylist(),
+        "ln": pc.utf8_length(stx).to_pylist(),
+        "sb": pc.utf8_slice_codeunits(stx, 2, 12).to_pylist(),
+        "sp": [x + 1 for x in pc.find_substring(stx, "ab").to_pylist()],
+        "up": pc.utf8_upper(stx).to_pylist(),
+        "tr": pc.utf8_trim_whitespace(stx).to_pylist(),
+        "cc": pc.binary_join_element_wise(sname, stx, "/").to_pylist(),
+        "lt": pc.less(sname, NAME_CUT).to_pylist(),
+    }
+    fn_want = {
+        "ln": int(text_lens.sum()),
+        "sp": int(pc.sum(pc.add(pc.find_substring(text_col, "ab"), 1))
+                  .as_py()),
+        "lt": int(pc.sum(pc.utf8_length(pc.utf8_trim_whitespace(
+            text_col))).as_py()),
+        "lu": int(np.maximum(text_lens - 4, 0).sum()),
+        "cut": int(pc.sum(pc.less(orders.column("o_cust_name"),
+                                  NAME_CUT)).as_py()),
+    }
+    topn_idx = pc.select_k_unstable(
+        orders.select(["o_text", "o_orderkey"]), 1000,
+        [("o_text", "ascending"), ("o_orderkey", "ascending")])
+    topn_keys = orders.column("o_orderkey").take(topn_idx).to_numpy()
+    # datetime and decimal oracles over the same generated lineitem
+    extra = _li_extra(conn, ["l_receiptdate"])
+    ship, rcpt = li["l_shipdate"], extra["l_receiptdate"]
+    month = ship.astype("datetime64[D]").astype("datetime64[M]") \
+        .astype(np.int64)
+    mi = month - month.min()
+    n_m = np.bincount(mi)
+    used = np.flatnonzero(n_m)
+    first_days = (used + month.min()).astype("datetime64[M]") \
+        .astype("datetime64[D]").astype(np.int64)
+    dt_month = {"m": first_days, "n": n_m[used],
+                "dd": np.bincount(mi, weights=rcpt - ship)[used]
+                .astype(np.int64)}
+    ts_us = ship * 86_400_000_000 + (li["l_orderkey"] % 86400) * 1_000_000
+    days = ts_us // 86_400_000_000
+    thu = days - (days + 3) % 7 + 3
+    year = thu.astype("datetime64[D]").astype("datetime64[Y]")
+    jan1 = year.astype("datetime64[D]").astype(np.int64)
+    week = (thu - jan1) // 7 + 1
+    hour = (ts_us // 3_600_000_000) % 24
+    agg = pa.table({"w": week, "h": hour, "ts": ts_us,
+                    "u": ts_us / 1e6}).group_by(["w", "h"]).aggregate(
+        [("ts", "count"), ("ts", "min"), ("ts", "max"), ("u", "sum")])
+    h0, ny = _ny_offsets(int(ts_us.min()), int(ts_us.max()))
+    off = ny[ts_us // 3_600_000_000 - h0]
+    local = ts_us + off * 1_000_000
+    zone_want = (int(_psum(np.where(off < 0, -(np.abs(off) // 3600),
+                                    off // 3600))),
+                 int(_psum((local // 3_600_000_000) % 24)))
+    fs = li["l_returnflag"] * 8 + li["l_linestatus"]
+    prod = li["l_extendedprice"] * li["l_quantity"]
+    dec_want = {(int(g) // 8, int(g) % 8): _psum(prod[fs == g])
+                for g in np.flatnonzero(np.bincount(fs))}
+    phase("types_oracles", seconds=time.perf_counter() - t0,
+          groups=len(ukeys), filtered=len(sel), special_rows=len(special))
+
+    def check_group(outs, info):
+        mat, lens = _raw_rows(outs, "o_cust_name")
+        got = _host_arrays(outs, ["n", "s"])
+        k = _name_keys(mat, lens)
+        o = np.argsort(k)
+        if not (np.array_equal(k[o], ukeys)
+                and np.array_equal(got["n"][o], counts)
+                and np.array_equal(got["s"][o], group_price)):
+            raise AssertionError("raw_group differs from numpy")
+        info["groups"] = len(k)
+
+    def check_join(outs, info):
+        got = _host_arrays(outs, ["c_nationkey", "n", "s"])
+        o = np.argsort(got["c_nationkey"])
+        want = np.flatnonzero(join_n)
+        if not (np.array_equal(got["c_nationkey"][o], want)
+                and np.array_equal(got["n"][o], join_n[want])
+                and [int(x) for x in got["s"][o]]
+                == [int(join_s[k]) for k in want]):
+            raise AssertionError("raw_join differs from numpy")
+
+    def check_topn(outs, info):
+        got = _host_arrays(outs, ["o_orderkey"])["o_orderkey"]
+        mat, lens = _raw_rows(outs, "o_text")
+        if not np.array_equal(got, topn_keys):
+            raise AssertionError("raw_topn differs from pyarrow")
+        pos = np.searchsorted(od["o_orderkey"], got)
+        want = VS.pack_arrow(text_col.take(pa.array(pos)), len(got),
+                             mat.shape[1])
+        if not (np.array_equal(mat, want[0]) and np.array_equal(lens,
+                                                                want[1])):
+            raise AssertionError("raw_topn: the texts differ")
+
+    def check_sort(outs, info):
+        mat, lens = _raw_rows(outs, "o_text")
+        keys_out = _host_arrays(outs, ["o_orderkey"])["o_orderkey"]
+        if not (len(keys_out) == len(od["o_orderkey"])
+                and np.array_equal(np.sort(keys_out),
+                                   np.sort(od["o_orderkey"]))):
+            raise AssertionError("raw_sort: not a permutation")
+        if not _nondecreasing(mat):
+            raise AssertionError("raw_sort: not in byte order")
+        # every row's length, and a seeded sample's bytes, are its key's
+        pos = np.searchsorted(od["o_orderkey"], keys_out)
+        if not np.array_equal(lens, text_lens[pos]):
+            raise AssertionError("raw_sort: lengths moved apart from keys")
+        sample = np.random.default_rng(seed).choice(len(pos), 100_000)
+        want = VS.pack_arrow(text_col.take(pa.array(pos[sample])),
+                             len(sample), mat.shape[1])
+        if not np.array_equal(mat[sample], want[0]):
+            raise AssertionError("raw_sort: rows moved apart from keys")
+        info["sampled_rows"] = len(sample)
+
+    def check_filter(outs, info):
+        got = {}
+        for name in filt_want:
+            col = outs[0].columns[name]
+            if VS.is_raw(col):
+                mat, lens = _raw_rows(outs, name)
+                got[name] = VS.unpack_numpy(mat, lens)
+            else:
+                got[name] = [x.item() if hasattr(x, "item") else x
+                             for x in _host_arrays(outs, [name])[name]]
+        o = np.argsort(got["o_orderkey"])
+        for name, want in filt_want.items():
+            g = [got[name][i] for i in o]
+            if g != want:
+                raise AssertionError(f"raw_filter {name} differs")
+        info["rows"] = len(o)
+
+    def check_functions(outs, info):
+        got = _host_arrays(outs, list(fn_want))
+        for name, want in fn_want.items():
+            if int(got[name][0]) != want:
+                raise AssertionError(f"raw_functions {name}: "
+                                     f"{got[name][0]} != {want}")
+
+    def check_month(outs, info):
+        got = _host_arrays(outs, ["m", "n", "dd"])
+        o = np.argsort(got["m"])
+        if not (np.array_equal(got["m"][o], dt_month["m"])
+                and np.array_equal(got["n"][o], dt_month["n"])
+                and np.array_equal(got["dd"][o], dt_month["dd"])):
+            raise AssertionError("dt_month differs from numpy")
+        info["groups"] = len(o)
+
+    def check_week_hour(outs, info):
+        got = _host_arrays(outs, ["w", "h", "n", "lo", "hi", "u"])
+        want = {tuple(r[:2]): r[2:] for r in zip(
+            *(agg.column(c).to_numpy() for c in
+              ("w", "h", "ts_count", "ts_min", "ts_max", "u_sum")))}
+        if len(got["w"]) != len(want):
+            raise AssertionError("dt_week_hour: group count differs")
+        worst = 0.0
+        for w_, h_, n_, lo, hi, u in zip(*got.values()):
+            wn, wlo, whi, wu = want[(int(w_), int(h_))]
+            if (n_, lo, hi) != (wn, wlo, whi):
+                raise AssertionError(f"dt_week_hour ({w_}, {h_}) differs")
+            worst = max(worst, abs(u - wu) / abs(wu))
+        if worst > 1e-9:
+            raise AssertionError(f"dt_week_hour: sum(u) off by {worst}")
+        info["groups"], info["max_rel_err"] = len(want), worst
+
+    def check_zone(outs, info):
+        got = _host_arrays(outs, ["th", "lh"])
+        if (int(got["th"][0]), int(got["lh"][0])) != zone_want:
+            raise AssertionError(f"dt_zone: {got} != {zone_want}")
+
+    def check_decimal(outs, info):
+        got = _host_rows(outs, ["l_returnflag", "l_linestatus", "s", "s3"])
+        gd = conn.gen.dictionaries("lineitem")
+        seen = {}
+        for f, st, s_, s3 in zip(*got.values()):
+            k = (gd["l_returnflag"].id_of(f), gd["l_linestatus"].id_of(st))
+            seen[k] = (s_, s3)
+        want = {k: (v, 3 * v) for k, v in dec_want.items()}
+        if seen != want:
+            raise AssertionError(f"decimal_mul: {seen} != {want}")
+        info["groups"] = len(seen)
+
+    def host_case_rows_now():
+        return M.reporter().snapshot()["counters"].get(VS.K_HOST_ROWS, 0)
+
+    checks = {"raw_group": check_group, "raw_join": check_join,
+              "raw_topn": check_topn, "raw_sort": check_sort,
+              "raw_filter": check_filter,
+              "raw_functions": check_functions, "dt_month": check_month,
+              "dt_week_hour": check_week_hour, "dt_zone": check_zone,
+              "decimal_mul": check_decimal}
+    plans = dict(types_plans(orders, customer))
+    plans.update(datetime_plans())
+    cache = DataCache.instance()
+    by_path = {}
+    for name, plan in plans.items():
+        runs = {}
+        for run in ("cold", "warm"):
+            if run == "cold":
+                cache.clear()
+            info = {}
+            torch.cuda.reset_peak_memory_stats()
+            host0 = host_case_rows_now()
+            out, wall, launched = _run(plan, ctx)
+            checks[name](out, info)
+            del out
+            runs[run] = {"wall_s": wall, "launches": launched,
+                         "max_memory_allocated":
+                             torch.cuda.max_memory_allocated(),
+                         "host_case_rows": host_case_rows_now() - host0,
+                         **info}
+        cold, warm = runs["cold"], runs["warm"]
+        if warm["launches"] != cold["launches"]:
+            raise AssertionError(f"{name}: warm launches {warm['launches']}"
+                                 f" != cold {cold['launches']}")
+        got = cold["launches"]
+        if name.startswith("raw_") and name not in ("raw_filter",
+                                                    "raw_functions"):
+            if not (got["radix_hist"] > 0 and got["radix_rank"] > 0
+                    and got["flat_gather"] + got["gather_rows"] > 0):
+                raise AssertionError(f"{name}: B2, B4 or B5 never "
+                                     f"launched: {got}")
+        by_path[name] = got
+        extra = {k: v for k, v in cold.items()
+                 if k not in ("wall_s", "launches", "max_memory_allocated")}
+        phase(name, wall_s={r: v["wall_s"] for r, v in runs.items()},
+              max_memory_allocated={r: v["max_memory_allocated"]
+                                    for r, v in runs.items()},
+              launches={k: v for k, v in got.items() if k != "filter_sum"},
+              **extra)
+    cache.clear()
+    return by_path
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sf", type=float, default=10.0,
@@ -3326,6 +3850,7 @@ def main() -> None:
     by_phase.update(tpch_rest_phase(conn, ctx, li))
     by_phase.update(analytic_phase(conn, ctx, li))
     by_phase.update(aggregates_phase(conn, ctx, li))
+    by_phase.update(types_phase(conn, ctx, li, args.seed))
 
     main_shape = kernel["timings"][FILTER_TIMED[0]]
     kernels = [{

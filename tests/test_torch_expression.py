@@ -308,9 +308,30 @@ def test_ordered_compare_with_an_absent_constant(text, op, const):
     np.testing.assert_array_equal(tv.validity.numpy(), arrays["s"][1])
 
 
-def test_raw_string_compare_raises_naming_the_roadmap():
-    _, trt = _cmp_row_types()
-    _, tbatch, _ = _cmp_batches(7)
-    tbatch.columns["s"].dictionary = None
-    with pytest.raises(NotImplementedError, match="A.6"):
-        TExprSet([tparse("s = 'fig'", trt)], trt).eval_batch(tbatch)
+@pytest.mark.parametrize("text", [
+    "s = 'fig'", "s <> 'fig'", "s < 'date'", "s >= 'cherry'",
+    "'elder' > s", "s = 'zzz'", "s < 'dat'", "s = t", "s <> t",
+    "s in ('apple', 'grape')", "s between 'banana' and 'fig'"])
+def test_raw_string_compare_raises_naming_the_roadmap(text):
+    """A raw (byte-matrix) ``s`` now compares on its bytes, against a
+    constant or a dictionary column, and equals the reference."""
+    from velox_tpu.vector import strings as JS
+    from velox_tpu_torch.vector import strings as TS
+    jrt, trt = _cmp_row_types()
+    jbatch, tbatch, arrays = _cmp_batches(7)
+    ids, valid = arrays["s"]
+    vals = [WORDS[i] if v else None for i, v in zip(ids, valid)]
+    b, ln = TS.pack_pylist(vals, CAP)
+    tbatch.columns["s"] = TS.raw_column(torch.from_numpy(b),
+                                        torch.from_numpy(ln),
+                                        torch.from_numpy(valid))
+    jbatch.columns["s"] = JS.raw_column(jnp.asarray(b), jnp.asarray(ln),
+                                        jnp.asarray(valid))
+    jv = JExprSet([jparse(text, jrt)], jrt).eval_batch(jbatch)[0]
+    tv = TExprSet([tparse(text, trt)], trt).eval_batch(tbatch)[0]
+    live = valid & (np.arange(CAP) < N_ACTIVE)
+    np.testing.assert_array_equal(
+        np.broadcast_to(tv.data.numpy(), (CAP,))[live],
+        np.broadcast_to(np.asarray(jv.data), (CAP,))[live])
+    assert 0 < int(tv.data.numpy()[live].sum()) < live.sum() \
+        or text == "s = 'zzz'", text

@@ -361,11 +361,131 @@ def test_division_by_zero_fails_the_query():
     assert Task(plan, QueryCtx("cpu")).run()["c"].to_pylist() == [2, None]
 
 
+def _raw_s(jbatch, tbatch, arrays):
+    """Both batches with ``s`` as a raw byte-matrix column of the same
+    values (vector/strings.py in each package)."""
+    from velox_tpu.vector import strings as JS
+    from velox_tpu_torch.vector import strings as TS
+    ids, valid = arrays["s"][:2]
+    vals = [WORDS[i] if v else None for i, v in zip(ids, valid)]
+    b, ln = TS.pack_pylist(vals, CAP)
+    tbatch.columns["s"] = TS.raw_column(torch.from_numpy(b),
+                                        torch.from_numpy(ln),
+                                        torch.from_numpy(valid))
+    jbatch.columns["s"] = JS.raw_column(jnp.asarray(b), jnp.asarray(ln),
+                                        jnp.asarray(valid))
+
+
 @pytest.mark.parametrize("text", ["substr(s, 1, 2)", "s like '%a%'",
                                   "cast(s as bigint)", "length(s)"])
 def test_raw_string_input_raises_naming_the_roadmap(text):
+    """Raw (byte-matrix) string input now runs through the raw forms and
+    equals the reference; a cast from a raw column raises in both, naming
+    no ROADMAP item."""
+    jrt, trt = _row_types()
+    jbatch, tbatch, arrays, _ = _batches(0)
+    _raw_s(jbatch, tbatch, arrays)
+    texpr = TExprSet([tparse(text, trt)], trt)
+    if text.startswith("cast"):
+        with pytest.raises(NotImplementedError) as err:
+            texpr.eval_batch(tbatch)
+        assert "A.6" not in str(err.value)
+        with pytest.raises(NotImplementedError):
+            JExprSet([jparse(text, jrt)], jrt).eval_batch(jbatch)
+        return
+    tv = texpr.eval_batch(tbatch)[0]
+    jv = JExprSet([jparse(text, jrt)], jrt).eval_batch(jbatch)[0]
+    live = np.asarray(arrays["s"][1]) & (np.arange(CAP) < N_ACTIVE)
+    np.testing.assert_array_equal(tv.validity.numpy()[live],
+                                  _np(jv.validity)[live])
+    np.testing.assert_array_equal(tv.data.numpy()[live], _np(jv.data)[live])
+    if tv.children:  # a raw result: the lengths too
+        np.testing.assert_array_equal(tv.children[0].data.numpy()[live],
+                                      _np(jv.children[0].data)[live])
+
+
+@pytest.mark.parametrize("text", ["d * i", "d * 2.5", "i * d", "d * p"])
+def test_multiply_long_by_short_exact(text):
+    """DECIMAL(38) x a short decimal or an integer through the limbs
+    (ops/int128.py ``mul128_i64``): the reference's limbs and exact
+    Python integers."""
+    import decimal as pydec
+    from velox_tpu.exec.task import Task as JTask
+    from velox_tpu.testing.plan_builder import PlanBuilder as JPB
+    from velox_tpu_torch.exec.task import QueryCtx, Task
+    from velox_tpu_torch.testing.plan_builder import PlanBuilder as TPB
+    import pyarrow as pa
+    rng = np.random.default_rng(3)
+    ints = [10 ** 25, -(10 ** 24), 777, None, 2 ** 100 + 12345, -(2 ** 90)]
+    ints += [int(x) * 10 ** 20 + int(y) for x, y in zip(
+        rng.integers(-10 ** 12, 10 ** 12, 50), rng.integers(0, 10 ** 12, 50))]
+    n = len(ints)
+    with pydec.localcontext() as c:
+        c.prec = 50
+        d = [None if v is None else pydec.Decimal(v).scaleb(-4)
+             for v in ints]
+    i_vals = rng.integers(-10 ** 6, 10 ** 6, n)
+    p_vals = [pydec.Decimal(int(x)).scaleb(-2)
+              for x in rng.integers(-10 ** 6, 10 ** 6, n)]
+    t = pa.table({"d": pa.array(d, pa.decimal128(38, 4)),
+                  "i": pa.array(i_vals, pa.int64()),
+                  "p": pa.array(p_vals, pa.decimal128(12, 2))})
+    want = JTask(JPB().values([t]).project([f"{text} as m"]).plan()).run()
+    got = Task(TPB().values([t]).project([f"{text} as m"]).plan(),
+               QueryCtx("cpu")).run()
+    assert got.schema == want.schema
+    assert got.column("m").to_pylist() == want.column("m").to_pylist()
+    other = {"d * i": i_vals, "i * d": i_vals,
+             "d * 2.5": [pydec.Decimal("2.5")] * n, "d * p": p_vals}[text]
+    with pydec.localcontext() as c:
+        c.prec = 60
+        exact = [None if a is None else a * pydec.Decimal(int(b)
+                                                          if not isinstance(
+                                                              b, pydec.Decimal)
+                                                          else b)
+                 for a, b in zip(d, other)]
+    assert got.column("m").to_pylist() == exact
+
+
+def test_multiply_long_by_long_raises():
+    import decimal as pydec
+    import pyarrow as pa
+    from velox_tpu.exec.task import Task as JTask
+    from velox_tpu.testing.plan_builder import PlanBuilder as JPB
+    from velox_tpu_torch.exec.task import QueryCtx, Task
+    from velox_tpu_torch.testing.plan_builder import PlanBuilder as TPB
+    t = pa.table({"d": pa.array([pydec.Decimal("1.5")],
+                                pa.decimal128(38, 2))})
+    with pytest.raises(NotImplementedError, match="int128"):
+        JTask(JPB().values([t]).project(["d * d as m"]).plan()).run()
+    with pytest.raises(NotImplementedError, match="int128"):
+        Task(TPB().values([t]).project(["d * d as m"]).plan(),
+             QueryCtx("cpu")).run()
+
+
+@pytest.mark.parametrize("text", ["q + q", "q - p", "p + q", "q - 1"])
+def test_long_decimal_plus_minus_match_reference(text):
+    _assert_matches(text)
+
+
+@pytest.mark.parametrize("text,fn", [
+    ("floor(q)", lambda v: v // 100), ("ceil(q)", lambda v: -(-v // 100)),
+    ("round(q)", lambda v: (abs(v) + 50) // 100 * 100 * (1 if v >= 0
+                                                         else -1)),
+    ("round(q, 1)", lambda v: (abs(v) + 5) // 10 * 10 * (1 if v >= 0
+                                                         else -1)),
+    ("sign(q)", lambda v: (v > 0) - (v < 0))])
+def test_long_decimal_rounding_is_exact(text, fn):
+    """ceil/floor/round/sign over DECIMAL(38,2) through both limbs, against
+    Python integers (the reference rounds the low limb alone; ROADMAP C)."""
     _, trt = _row_types()
-    _, tbatch, _, _ = _batches(0)
-    tbatch.columns["s"].dictionary = None
-    with pytest.raises(NotImplementedError, match="A.6"):
-        TExprSet([tparse(text, trt)], trt).eval_batch(tbatch)
+    _, tbatch, _, q = _batches(0)
+    tv = TExprSet([tparse(text, trt)], trt).eval_batch(tbatch)[0]
+    col = tv.to_column(CAP)
+    got = (col.data.numpy().tolist() if not col.dtype.is_long_decimal
+           else _long_ints(col))
+    live = (np.arange(CAP) < N_ACTIVE) & np.asarray(
+        tbatch.columns["q"].validity)
+    for g, v, ok in zip(got, q, live):
+        if ok:
+            assert g == fn(v), (text, v, g)

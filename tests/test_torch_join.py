@@ -318,17 +318,22 @@ def test_tpch_duplicate_key_array_join_equal_reference(_tpch):
 
 
 def test_unported_join_keys_raise():
-    t = pa.table({"k": pa.array([1, 2], pa.int64())})
-    b = D.from_arrow(t, device="cpu")
-    b.columns["s"] = D.DeviceColumn(torch.zeros(b.capacity,
-                                                dtype=torch.int32),
-                                    None, T.VARCHAR)
+    """A raw (byte-matrix) string key now builds the sorted table, with
+    the reference's permutation; key tuples past seven words too."""
+    vals = ["sku-9", None, "sku-1", "a", "sku-1", "", "é", "sku-10"]
+    t = pa.table({"k": pa.array(range(len(vals)), pa.int64()),
+                  "s": pa.array(vals)})
+    b = D.from_arrow(t, string_encoding={"s": "raw"}, device="cpu")
+    jb = JD.from_arrow(t, string_encoding={"s": "raw"})
 
     class KF:
         name, dtype = "s", T.VARCHAR
 
-    with pytest.raises(NotImplementedError, match="A.6"):
-        J.build_table(b, (KF(),))
+    bt = J.build_table(b, (KF(),))
+    jbt = JJ.build_table(jb, (KF(),))
+    np.testing.assert_array_equal(bt.perm.numpy(), np.asarray(jbt.perm))
+    assert bool(bt.has_dup_keys) and bool(bt.has_null_key)
+    assert bool(jbt.has_dup_keys) and bool(jbt.has_null_key)
 
     class Wide:
         name, dtype = "k", T.decimal(38, 2)

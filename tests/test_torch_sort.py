@@ -214,9 +214,31 @@ def test_sort_permutation_orders_active_rows_first(case):
     assert not active[perm.numpy()][N_ACTIVE:].any()
 
 
-def test_unported_key_words_raise():
+@pytest.mark.parametrize("width", [16, 64])
+def test_unported_key_words_raise(width):
+    """A raw (byte-matrix) string key now gives the reference's words:
+    W/4 big-endian byte words and the length word; a string key with
+    neither a dictionary nor bytes still raises."""
+    from velox_tpu.vector import strings as JSTR
+    from velox_tpu_torch.vector import strings as TSTR
+    vals = ["b", "a", "", "ab", "zz" * (width // 4), "é", None, "a"]
+    b, ln = TSTR.pack_pylist(vals, 8, width)
+    valid = np.array([v is not None for v in vals])
+    tv = TSTR.raw_value(torch.from_numpy(b), torch.from_numpy(ln),
+                        torch.from_numpy(valid))
+    jv = JSTR.raw_value(jnp.asarray(b), jnp.asarray(ln), jnp.asarray(valid))
+    words = S.value_words(tv, 8)
+    jwords = JS.value_words(jv, 8)
+    assert len(words) == len(jwords) == width // 4 + 1
+    for w, jw in zip(words, jwords):
+        np.testing.assert_array_equal(w.numpy(),
+                                      np.asarray(jw).astype(np.int64))
+    active = np.arange(8) < 7
+    perm = S.sort_permutation([tv], None, 8, torch.from_numpy(active))
+    jperm = JS.sort_permutation([jv], None, 8, jnp.asarray(active))
+    np.testing.assert_array_equal(perm.numpy(), np.asarray(jperm))
     v = EvalValue(torch.zeros(8, dtype=torch.int32), None, T.VARCHAR)
-    with pytest.raises(NotImplementedError, match="raw"):
+    with pytest.raises(ValueError, match="dictionary or raw"):
         S.value_words(v, 8)
 
 

@@ -12,7 +12,9 @@ distinct_counts, q1_rollup, merge_join, streaming_agg; the aggregates
 phase's plans agg_moments, agg_stddev_supp, agg_sketch_flag,
 agg_sketch_global, agg_sketch_linenumber, agg_pct_single,
 agg_pct_split, agg_min_by, agg_abandon, dyn_filter, dyn_filter_empty,
-wide_join; default q3,q18) it clears the scan cache and runs
+wide_join; the types phase's raw_group, raw_join, raw_topn, raw_sort,
+raw_filter, raw_functions, dt_month, dt_week_hour, dt_zone and
+decimal_mul; default q3,q18) it clears the scan cache and runs
 chip_smoke.py's plan of that name cold (every split generated and
 uploaded) and warm
 (every split from the cache), then warm once more under torch.profiler

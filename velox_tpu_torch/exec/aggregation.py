@@ -51,14 +51,35 @@ from velox_tpu_torch.expression.eval import (
     EvalCtx, EvalValue, ExprSet, value_from_column,
 )
 from velox_tpu_torch.functions.aggregates import (
-    ApproxPercentileAgg, CollectAgg, RegisterAddend, masked,
+    ApproxDistinctAgg, ApproxPercentileAgg, CollectAgg, CountAgg,
+    RegisterAddend, masked,
     resolve_aggregate,
 )
 from velox_tpu_torch.ops.gather import take_rows
 from velox_tpu_torch.ops.wide import (
     scatter_unique_set, segment_offsets, segmented_reduce_sorted,
 )
+from velox_tpu_torch.vector import strings as S
 from velox_tpu_torch.vector.device import DeviceBatch, DeviceColumn
+
+
+def check_raw_args(agg, args) -> None:
+    """Raise where a raw (byte-matrix) string reaches an aggregate the
+    reference cannot run over one either: only count, approx_distinct
+    (over the byte words) and the ordering argument of the sorted
+    min_by/max_by take it; min, max, arbitrary, first/last, mode and an
+    argument min_by/max_by would return fail there (ROADMAP C)."""
+    raw = [S.is_raw(a) for a in args]
+    if not any(raw):
+        return
+    if isinstance(agg, (CountAgg, ApproxDistinctAgg)):
+        return
+    if isinstance(agg, CollectAgg) and agg.collect_kind in (
+            "min_by", "max_by") and len(args) == 2 and not raw[0]:
+        return
+    raise NotImplementedError(
+        f"aggregate {type(agg).__name__} over a raw (dictionary-less) "
+        "string argument is not supported")
 
 
 def _state_col_name(out_name: str, agg, suffix: str) -> str:
@@ -216,6 +237,7 @@ class AggregationOperator(Operator):
                     if m.validity is not None:
                         mm = mm & m.full_validity(cap)
                     row_active = row_active & mm
+                check_raw_args(agg, args)
                 arrays = agg.map_raw(ctx, args, row_active)
                 for arr, st in zip(arrays, agg.states):
                     addends.append((arr, st.combine))
@@ -387,6 +409,7 @@ class AggregationOperator(Operator):
             args = []
             while f"__a{i}_{len(args)}" in cols:
                 args.append(cols[f"__a{i}_{len(args)}"])
+            check_raw_args(agg, args)
             if isinstance(agg, CollectAgg):
                 collect = {"mode": self._collect_mode_value,
                            "approx_percentile": self._collect_percentile,

@@ -5,9 +5,12 @@ active rows to the front) is done only at operator boundaries that profit
 (buffered sorts, aggregation runs), as in the reference. Every function
 keeps the batch on its device and never reads a device value on the host.
 
-A DECIMAL(19..38) column's high limb (``children[0]``) is row-aligned and
-moves with its parent. ARRAY/MAP/ROW columns and raw strings are not
-ported (vector/device.py) and raise here.
+A DECIMAL(19..38) column's high limb and a raw string's byte lengths
+(``children[0]``) are row-aligned and move with their parent; raw byte
+matrices of different size classes concatenate after zero-padding to the
+widest, and their row gathers run through kernel B5 as 8-byte lanes
+(ops/gather.py ``take_rows``). ARRAY/MAP/ROW columns are not ported
+(vector/device.py) and raise here.
 """
 
 from __future__ import annotations
@@ -16,7 +19,8 @@ from typing import Callable, Dict, List
 
 import torch
 
-from velox_tpu_torch.ops.gather import take_many_rows
+from velox_tpu_torch.ops.gather import take_many_rows, take_rows
+from velox_tpu_torch.vector import strings as S
 from velox_tpu_torch.vector.device import DeviceBatch, DeviceColumn
 
 
@@ -34,7 +38,11 @@ def concat_batches(batches: List[DeviceBatch]) -> DeviceBatch:
     def concat_cols(parts: List[DeviceColumn]) -> DeviceColumn:
         first = parts[0]
         _check_flat(first)
-        data = torch.cat([p.data for p in parts])
+        if S.is_raw(first):
+            w = max(p.data.shape[1] for p in parts)
+            data = torch.cat([S.pad_width(p.data, w) for p in parts])
+        else:
+            data = torch.cat([p.data for p in parts])
         if any(p.validity is not None for p in parts):
             validity = torch.cat([
                 p.validity if p.validity is not None
@@ -44,8 +52,8 @@ def concat_batches(batches: List[DeviceBatch]) -> DeviceBatch:
         else:
             validity = None
         children = first.children
-        if first.dtype.is_long_decimal:
-            # the high limb concatenates with the parent
+        if first.dtype.is_long_decimal or S.is_raw(first):
+            # the high limb (or the lengths) concatenates with the parent
             children = tuple(concat_cols([p.children[i] for p in parts])
                              for i in range(len(first.children)))
         return DeviceColumn(data, validity, first.dtype, first.dictionary,
@@ -61,12 +69,12 @@ def map_column_rows(col: DeviceColumn,
                     f: Callable[[torch.Tensor], torch.Tensor]
                     ) -> DeviceColumn:
     """Apply a row-axis transform to a column and to its row-aligned
-    children (the long-decimal high limb)."""
+    children (the long-decimal high limb, a raw string's lengths)."""
     _check_flat(col)
     data = f(col.data)
     validity = f(col.validity) if col.validity is not None else None
     children = col.children
-    if col.dtype.is_long_decimal:
+    if col.dtype.is_long_decimal or S.is_raw(col):
         children = tuple(map_column_rows(c, f) for c in col.children)
     return DeviceColumn(data, validity, col.dtype, col.dictionary, children)
 
@@ -110,9 +118,15 @@ def compact(batch: DeviceBatch) -> DeviceBatch:
     return DeviceBatch(cols, mask)
 
 
+def _take_any(a: torch.Tensor, indices) -> torch.Tensor:
+    """``a[indices]``: a raw byte matrix through B5 (its rows are whole
+    8-byte lanes), everything else by plain indexing."""
+    return take_rows(a, indices) if a.dim() == 2 else a[indices]
+
+
 def take(batch: DeviceBatch, indices, valid_rows) -> DeviceBatch:
     """Gather rows by index; `valid_rows` becomes the new mask."""
-    cols = {name: map_column_rows(col, lambda a: a[indices])
+    cols = {name: map_column_rows(col, lambda a: _take_any(a, indices))
             for name, col in batch.columns.items()}
     return DeviceBatch(cols, valid_rows)
 

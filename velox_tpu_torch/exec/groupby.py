@@ -242,16 +242,18 @@ def sorted_group_info_vals(keys: Sequence[EvalValue],
 def group_keys_sorted(keys: Sequence[EvalValue], perm, gid, boundary,
                       active_sorted, num_groups, capacity: int):
     """Dense per-group key columns (group g's key values), taken from each
-    group's first sorted row. A long decimal's high limb goes through the
-    same gather and scatter as its low limb."""
+    group's first sorted row. A long decimal's high limb and a raw
+    string's lengths go through the same gather and scatter as the data;
+    a raw string's byte matrix is gathered through B5 as 8-byte lanes."""
     from velox_tpu_torch.ops.wide import scatter_unique_set
+    from velox_tpu_torch.vector import strings as S
     from velox_tpu_torch.vector.device import DeviceColumn
     group_mask = torch.arange(capacity, device=perm.device) < num_groups
     target = torch.where(boundary & active_sorted, gid, capacity)
 
     def first_of_group(rows: torch.Tensor) -> torch.Tensor:
-        return scatter_unique_set(capacity + 1, target,
-                                  rows[perm])[:capacity]
+        ordered = take_rows(rows, perm) if rows.dim() == 2 else rows[perm]
+        return scatter_unique_set(capacity + 1, target, ordered)[:capacity]
 
     out_keys = []
     for v in keys:
@@ -265,6 +267,9 @@ def group_keys_sorted(keys: Sequence[EvalValue], perm, gid, boundary,
         if v.dtype.is_long_decimal:
             children = (DeviceColumn(first_of_group(v.full_hi(capacity)),
                                      None, T.BIGINT),)
+        elif S.is_raw(v):
+            children = (DeviceColumn(first_of_group(S.lens_of(v)), None,
+                                     T.INTEGER),)
         out_keys.append(EvalValue(gd, validity, v.dtype, v.dictionary,
                                   children=children))
     return out_keys, group_mask

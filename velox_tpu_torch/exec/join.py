@@ -44,8 +44,11 @@ comes from two binary searches over the packed build keys.
 Key tuples of any width take the sorted build and the merge-rank: the
 counting radix sort takes any number of key words, so the reference's
 scatter-probe hash-join build past seven words is not needed (the rows
-are the same as a set). Not ported: raw-string keys (ROADMAP A.6) and
-build-side offload (A.7).
+are the same as a set). Raw-string keys (vector/strings.py) always do:
+their byte words and length word are the key words, a dictionary or
+constant side converts to bytes (functions/raw_strings.py ``as_raw``),
+and the two sides' byte matrices pad to one size class. Not ported:
+build-side offload (ROADMAP A.7).
 """
 
 from __future__ import annotations
@@ -73,6 +76,7 @@ from velox_tpu_torch.expression.eval import (
 )
 from velox_tpu_torch.ops.gather import take_rows
 from velox_tpu_torch.ops.wide import scatter_unique_set
+from velox_tpu_torch.vector import strings as S
 from velox_tpu_torch.vector.device import DeviceBatch, DeviceColumn
 
 # the reference's uint64 MAX as the int64 holding the same bits
@@ -167,7 +171,8 @@ def build_sorted_table(b: DeviceBatch, key_fields, array_range=None,
     n = usable.sum(dtype=torch.int64)
     in_prefix = torch.arange(cap, device=dev) < n
     has_null = (b.mask & ~usable).any()
-    if not packable_words([k.dtype for k in key_fields]):
+    if has_raw_key(b, key_fields) \
+            or not packable_words([k.dtype for k in key_fields]):
         eq = torch.ones((cap - 1,), dtype=torch.bool, device=dev)
         for w in words:
             ws = take_rows(w, perm)
@@ -198,24 +203,19 @@ def build_sorted_table(b: DeviceBatch, key_fields, array_range=None,
 
 
 def has_raw_key(b: DeviceBatch, key_fields) -> bool:
-    """A string key without a dictionary (the reference's raw byte-matrix
-    strings)."""
-    return any(b.columns[k.name].dtype.is_string
-               and b.columns[k.name].dictionary is None for k in key_fields)
+    """A raw (byte-matrix) string key."""
+    return any(S.is_raw(b.columns[k.name]) for k in key_fields)
 
 
 def build_table(b: DeviceBatch, key_fields, array_range=None,
                 key_ranges=None) -> SortedBuild:
     """The build table of ``b``: key tuples of one packed lane get the
     packed sorted build (and array mode when ``array_range`` is given);
-    wider tuples, of any number of value words, sort through the same
-    counting radix sort and probe through the merge-rank."""
+    wider tuples, of any number of value words, and raw-string keys sort
+    through the same counting radix sort and probe through the
+    merge-rank."""
     dtypes = [k.dtype for k in key_fields]
-    if has_raw_key(b, key_fields):
-        raise NotImplementedError(
-            "raw (dictionary-less) string join keys are not ported to "
-            "velox_tpu_torch (ROADMAP A.6)")
-    if packable_words(dtypes):
+    if packable_words(dtypes) and not has_raw_key(b, key_fields):
         return build_sorted_table(b, key_fields, array_range, key_ranges)
     return build_sorted_table(b, key_fields, None, key_ranges)
 
@@ -287,6 +287,7 @@ def build_sorted_table_presorted(b: DeviceBatch, key_fields) -> SortedBuild:
     or sorting). Callers check the order with ``presorted_is_sorted``."""
     cap = b.capacity
     keys = key_values(b, key_fields)
+    S.reject_raw(keys, "MergeJoin")
     usable = usable_rows(b, keys)
     n = usable.sum(dtype=torch.int64)
     tgt = torch.where(usable, torch.cumsum(usable.to(torch.int64), 0) - 1,
@@ -332,32 +333,47 @@ _NEEDS_RIGHT_PHASE = (P.JoinType.RIGHT, P.JoinType.FULL,
 
 
 def _null_column(dt: T.DataType, cap: int, device,
-                 dictionary=None) -> DeviceColumn:
-    """An all-NULL column of type `dt` (a long decimal with its hi limb)."""
+                 dictionary=None, width: Optional[int] = None
+                 ) -> DeviceColumn:
+    """An all-NULL column of type `dt` (a long decimal with its hi limb;
+    with ``width``, a raw string of that size class)."""
     def zeros(t):
         return torch.zeros((cap,), dtype=t.torch_dtype(), device=device)
+    nulls = torch.zeros((cap,), dtype=torch.bool, device=device)
+    if width is not None:
+        return S.raw_column(torch.zeros((cap, width), dtype=torch.uint8,
+                                        device=device),
+                            zeros(T.INTEGER), nulls)
     children = (DeviceColumn(zeros(T.BIGINT), None, T.BIGINT),) \
         if dt.is_long_decimal else ()
-    return DeviceColumn(zeros(dt), torch.zeros((cap,), dtype=torch.bool,
-                                               device=device),
-                        dt, dictionary, children)
+    return DeviceColumn(zeros(dt), nulls, dt, dictionary, children)
+
+
+def null_like(col: DeviceColumn, cap: int, device) -> DeviceColumn:
+    """An all-NULL column shaped as ``col`` (its dictionary, or its raw
+    size class)."""
+    return _null_column(col.dtype, cap, device, col.dictionary,
+                        col.data.shape[1] if S.is_raw(col) else None)
 
 
 def emit_right_phase(node: P.HashJoinNode, bt: SortedBuild, matched,
-                     probe_dicts: Optional[Dict] = None) -> DeviceBatch:
+                     probe_cols: Optional[Dict] = None) -> DeviceBatch:
     """The build-side rows a right-side join emits after its last probe
     batch: matched rows (right semi), or unmatched rows with a NULL probe
-    side (right/full). String probe columns keep the dictionary the probe
-    batches carried (``probe_dicts``)."""
+    side (right/full). String probe columns keep the dictionary (or the
+    raw size class) the probe batches carried (``probe_cols``: name -> a
+    string column of a probe batch)."""
     jt = node.join_type
     cap = bt.batch.capacity
     if jt is P.JoinType.RIGHT_SEMI_FILTER:
         out = DeviceBatch(dict(bt.batch.columns), bt.batch.mask & matched)
     else:
         lt = node.left.output_type()
-        probe_dicts = probe_dicts or {}
-        out_cols = {name: _null_column(dt, cap, bt.batch.device,
-                                       probe_dicts.get(name))
+        probe_cols = probe_cols or {}
+        dev = bt.batch.device
+        out_cols = {name: (null_like(probe_cols[name], cap, dev)
+                           if name in probe_cols
+                           else _null_column(dt, cap, dev))
                     for name, dt in zip(lt.names, lt.children)}
         out_cols.update(bt.batch.columns)
         out = DeviceBatch(out_cols, bt.batch.mask & ~matched)
@@ -375,6 +391,23 @@ def _scatter_flags(size: int, hit: torch.Tensor,
     return out[:size]
 
 
+def _merged_raw(bv: EvalValue, bcap: int, pv: EvalValue, cap: int
+                ) -> EvalValue:
+    """The (build, probe) concatenation of a raw-string key: a dictionary
+    or constant side converts to bytes by one device gather, and the
+    narrower size class pads to the wider."""
+    from velox_tpu_torch.functions.raw_strings import as_raw
+    dev = (bv if S.is_raw(bv) else pv).data.device
+    bb, bl, bval = as_raw(bv, bcap, device=dev)
+    pb, pl, pval = as_raw(pv, cap, device=dev)
+    w = max(bb.shape[1], pb.shape[1])
+    validity = None
+    if bval is not None or pval is not None:
+        validity = torch.cat([bv.full_validity(bcap), pv.full_validity(cap)])
+    return S.raw_value(torch.cat([S.pad_width(bb, w), S.pad_width(pb, w)]),
+                       torch.cat([bl, pl]), validity)
+
+
 class HashJoinOperator(Operator):
     """Probe-side operator; the Task hands it the build's SortedBuild
     before the first probe batch."""
@@ -387,7 +420,7 @@ class HashJoinOperator(Operator):
         self._unique_build = True
         self._matched = None  # bool[build_cap] for right-side joins
         self._right_done = False
-        self._probe_dicts: Dict = {}
+        self._probe_cols: Dict = {}
         self._join_key_ranges = ()
 
     def set_built_table(self, bt: SortedBuild):
@@ -456,6 +489,9 @@ class HashJoinOperator(Operator):
         both_ok = torch.cat([busable, probe_ok])
         merged_keys = []
         for bv, pv in zip(bkeys, pkeys):
+            if S.is_raw(bv) or S.is_raw(pv):
+                merged_keys.append(_merged_raw(bv, bcap, pv, cap))
+                continue
             want = bv.dtype.torch_dtype()
             data = torch.cat([bv.full_data(bcap).to(want),
                               pv.full_data(cap).to(want)])
@@ -734,8 +770,8 @@ class HashJoinOperator(Operator):
         jt = self._node.join_type
         has_filter = self._node.filter is not None
         for name, col in batch.columns.items():
-            if col.dictionary is not None:
-                self._probe_dicts[name] = col.dictionary
+            if col.dictionary is not None or S.is_raw(col):
+                self._probe_cols[name] = col
         needs_count_path = has_filter or (not self._unique_build and jt in (
             P.JoinType.INNER, P.JoinType.LEFT, P.JoinType.RIGHT,
             P.JoinType.FULL, P.JoinType.RIGHT_SEMI_FILTER))
@@ -768,7 +804,7 @@ class HashJoinOperator(Operator):
         if self._matched is not None and not self._right_done:
             self._right_done = True
             self._outputs.append(emit_right_phase(
-                self._node, self._bt, self._matched, self._probe_dicts))
+                self._node, self._bt, self._matched, self._probe_cols))
 
     def get_output(self):
         if self._outputs:
@@ -791,6 +827,7 @@ class MergeJoinOperator(HashJoinOperator):
 
     def _lookup(self, batch: DeviceBatch, bt: SortedBuild):
         keys = key_values(batch, self._node.left_keys)
+        S.reject_raw(keys, "MergeJoin")
         probe_ok = usable_rows(batch, keys)
         sk = _unsigned_order(bt.sorted_key)
         pk = _unsigned_order(pack_key_u64(keys, batch.capacity))

@@ -33,10 +33,11 @@ from velox_tpu_torch.exec import hashtable as H
 from velox_tpu_torch.exec.batch_utils import (
     compact, concat_batches, take_columns_rows,
 )
-from velox_tpu_torch.exec.join import _null_column
+from velox_tpu_torch.exec.join import _null_column, null_like
 from velox_tpu_torch.exec.operator import Operator
 from velox_tpu_torch.expression.eval import ExprSet, value_from_column
 from velox_tpu_torch.vector.device import DeviceBatch, DeviceColumn
+from velox_tpu_torch.vector.strings import reject_raw
 
 
 def _project(node, out: DeviceBatch) -> DeviceBatch:
@@ -159,8 +160,7 @@ class NestedLoopJoinOperator(Operator):
         cap = batch.capacity
         cols = dict(batch.columns)
         for name, c in self._build.columns.items():
-            cols[name] = _null_column(c.dtype, cap, batch.device,
-                                      c.dictionary)
+            cols[name] = null_like(c, cap, batch.device)
         return _project(self._node, DeviceBatch(cols, batch.mask & ~matched))
 
     def _emit_build_unmatched(self):
@@ -168,17 +168,16 @@ class NestedLoopJoinOperator(Operator):
         build = self._build
         bcap, dev = build.capacity, build.device
         if self._probe_template is not None:
-            probe = {name: (c.dtype, c.dictionary)
-                     for name, c in self._probe_template.items()}
+            cols = {name: null_like(c, bcap, dev)
+                    for name, c in self._probe_template.items()}
         else:
             # the probe side gave no batch: its schema from the plan, a
             # string column with a one-value dictionary
             from velox_tpu_torch.vector.device import Dictionary
             lt = self._node.left.output_type()
-            probe = {name: (dt, Dictionary([""]) if dt.is_string else None)
-                     for name, dt in zip(lt.names, lt.children)}
-        cols = {name: _null_column(dt, bcap, dev, d)
-                for name, (dt, d) in probe.items()}
+            cols = {name: _null_column(dt, bcap, dev, Dictionary([""])
+                                       if dt.is_string else None)
+                    for name, dt in zip(lt.names, lt.children)}
         cols.update(build.columns)
         return _project(self._node,
                         DeviceBatch(cols, build.mask & ~self._build_matched))
@@ -237,6 +236,7 @@ class MarkDistinctOperator(Operator):
         node = self._node
         keys = [value_from_column(batch.columns[k.name])
                 for k in node.distinct_keys]
+        reject_raw(keys, "MarkDistinct")
         _, is_new = self._table.insert(keys, batch.mask, batch.capacity)
         cols = dict(batch.columns)
         cols[node.marker] = DeviceColumn(is_new, None, T.BOOLEAN)

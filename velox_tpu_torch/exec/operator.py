@@ -90,7 +90,9 @@ class SourceOperator(Operator):
 
 class ValuesOperator(SourceOperator):
     """Parity: velox/exec/Values.h:21. Uploads each pyarrow table (or
-    passes through a ready DeviceBatch) to the query's device."""
+    passes through a ready DeviceBatch) to the query's device, its VARCHAR
+    columns in the node's ``string_encoding`` ("dict", "raw", "auto", or a
+    dict of column name to one of them)."""
 
     def __init__(self, node: P.ValuesNode, device):
         super().__init__(node)
@@ -105,7 +107,8 @@ class ValuesOperator(SourceOperator):
         self._i += 1
         if isinstance(t, DeviceBatch):
             return t
-        return from_arrow(t, device=self._device)
+        return from_arrow(t, string_encoding=self.node.string_encoding,
+                          device=self._device)
 
     def is_finished(self):
         return self._i >= len(self._tables)

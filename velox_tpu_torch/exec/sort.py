@@ -27,7 +27,8 @@ Key encoding (the reference's):
                   lo2 = f32(x - hi - lo))
 * long decimal -> four words: the hi limb biased, then the lo limb's
                   halves
-* strings      -> sorted-dictionary ids
+* strings      -> sorted-dictionary ids; a raw string's W/4 big-endian
+                  byte words and its length word (vector/strings.py)
 * descending   -> every value word inverted
 * nulls        -> a leading 1-bit field per nullable key
 * active       -> the most significant bit: inactive rows sort last
@@ -52,6 +53,7 @@ from velox_tpu_torch.ops.gather import flat_gather
 from velox_tpu_torch.ops.radix import (RADIX, _destinations, radix_hist,
                                        radix_rank_scatter,
                                        radix_scatter_pass)
+from velox_tpu_torch.vector import strings as S
 
 _M32 = 0xFFFFFFFF
 _DIGIT_BITS = RADIX.bit_length() - 1  # bits a radix pass consumes
@@ -76,9 +78,11 @@ def value_words(v: EvalValue, capacity: int) -> List[torch.Tensor]:
     """Order-preserving unsigned words, most significant first."""
     dt = v.dtype
     if dt.is_string and v.dictionary is None:
-        raise NotImplementedError(
-            "raw (non-dictionary) string sort keys are not ported to "
-            "velox_tpu_torch")
+        if v.data is None or v.data.dim() != 2:
+            raise ValueError("a string sort key needs a dictionary or raw "
+                             "bytes")
+        words, _ = S.sort_key_words(v.data, S.lens_of(v))
+        return words
     data = v.full_data(capacity)
     if dt.is_long_decimal:
         # int128 limbs: the signed hi limb biased like an int64, then the
@@ -108,7 +112,7 @@ def _narrow_bits(v: EvalValue, rng) -> int:
     range, BOOLEAN to 1 bit, integral/DATE/DECIMAL keys to the span of
     their true (min, max) storage bounds (core/stats.py)."""
     dt = v.dtype
-    if dt.is_long_decimal:
+    if dt.is_long_decimal or S.is_raw(v):
         return -1
     if dt.kind is T.TypeKind.BOOLEAN:
         return 1
@@ -131,8 +135,9 @@ class KeyFieldLayout:
     enough to decode the key value back out of sorted lane words.
 
     kind: 'const' (no bits; value == base), 'narrow' (value = base +
-    bits), 'words' (full-width order-preserving words), 'opaque' (not
-    invertible: DOUBLE's three-f32 split, int128 limbs)."""
+    bits), 'words' (full-width order-preserving words), 'raw' (a raw
+    string's byte words and length word; base holds the width W),
+    'opaque' (not invertible: DOUBLE's three-f32 split, int128 limbs)."""
 
     __slots__ = ("kind", "off", "nb", "base", "desc", "null_off",
                  "null_is_one", "dtype", "arr_dtype", "dictionary")
@@ -228,10 +233,13 @@ def sort_words_layout(keys: Sequence[EvalValue], orders, capacity: int,
             vw = [x ^ _M32 for x in vw]
         fields.extend((x, 32) for x in vw)
         # DOUBLE's three-f32 split and int128 limbs are not invertible
-        kind = ("opaque" if v.dtype.kind is T.TypeKind.DOUBLE
-                or v.dtype.is_long_decimal else "words")
+        kind, base = "words", 0
+        if v.dtype.kind is T.TypeKind.DOUBLE or v.dtype.is_long_decimal:
+            kind = "opaque"
+        elif S.is_raw(v):
+            kind, base = "raw", int(v.data.shape[1])
         layout.append(KeyFieldLayout(
-            kind, off, 32 * len(vw), 0, desc, null_off, null_is_one,
+            kind, off, 32 * len(vw), base, desc, null_off, null_is_one,
             v.dtype, arr_dt, v.dictionary))
         off += 32 * len(vw)
 
@@ -322,6 +330,17 @@ def decode_key_field(f: KeyFieldLayout, lanes: List[torch.Tensor],
         if nwords == 2:  # biased-hi int64
             hi = ws[0] - _SIGN32
             return (hi * (1 << 32) + ws[1]).to(f.arr_dtype), isnull
+    if f.kind == "raw":
+        # W/4 big-endian byte words and the length word: the byte matrix
+        # comes back by shifts, with no gather
+        ws = [extract_lane_bits(lanes, lane_bits, f.off + 32 * j, 32)
+              for j in range(f.nb // 32)]
+        if f.desc:
+            ws = [w ^ _M32 for w in ws]
+        cols = [(ws[j] >> sh) & 0xFF for j in range(f.base // 4)
+                for sh in (24, 16, 8, 0)]
+        data = torch.stack(cols, dim=1).to(torch.uint8)
+        return (data, ws[-1].to(torch.int32)), isnull
     raise NotImplementedError(f"cannot decode key field kind {f.kind}")
 
 

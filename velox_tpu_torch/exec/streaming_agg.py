@@ -33,6 +33,7 @@ from velox_tpu_torch.expression.eval import EvalValue
 from velox_tpu_torch.functions.aggregates import CollectAgg, resolve_aggregate
 from velox_tpu_torch.ops.wide import scatter_unique_set, segmented_reduce_sorted
 from velox_tpu_torch.vector.device import DeviceBatch, DeviceColumn
+from velox_tpu_torch.vector.strings import reject_raw
 
 _COMBINE = {"sum": torch.add, "min": torch.minimum, "max": torch.maximum}
 
@@ -194,6 +195,8 @@ class StreamingAggregationOperator(Operator):
     def add_input(self, batch: DeviceBatch):
         # input dictionaries, for the string keys and aggregates
         from velox_tpu_torch.core import expressions as ex
+        reject_raw([batch.columns.get(k.name) for k in self._keys],
+                   "streaming aggregation")
         for i, k in enumerate(self._keys):
             col = batch.columns.get(k.name)
             if col is not None and self._key_dicts[i] is None:

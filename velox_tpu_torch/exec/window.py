@@ -51,6 +51,7 @@ from velox_tpu_torch.expression.eval import EvalValue, value_from_column
 from velox_tpu_torch.ops.gather import take_rows
 from velox_tpu_torch.ops.int128 import from_i64
 from velox_tpu_torch.vector.device import DeviceBatch, DeviceColumn
+from velox_tpu_torch.vector.strings import reject_raw
 
 
 class BoundType(enum.Enum):
@@ -237,6 +238,10 @@ class WindowOperator(Operator):
         if self._batches:
             merged = concat_batches(self._batches)
             self._batches = []
+            node = self._node
+            reject_raw([merged.columns[k.name] for k in
+                        tuple(node.partition_keys) + tuple(node.sort_keys)],
+                       "Window")
             self._out = self._compute(merged)
 
     def get_output(self):
@@ -556,6 +561,7 @@ class RowNumberOperator(Operator):
             return
         keys = [value_from_column(batch.columns[k.name])
                 for k in node.partition_keys]
+        reject_raw(keys, "RowNumber")
         slots, _ = self._table.insert(keys, batch.mask, cap)
         (counts,) = self._table.states
         S = counts.shape[0]
@@ -617,8 +623,11 @@ class TopNRowNumberOperator(Operator):
         if not self._batches:
             return
         node = self._node
-        s = _sorted_by(concat_batches(self._batches), node,
-                       node.partition_keys, node.sort_keys,
+        merged = concat_batches(self._batches)
+        # the reference sorts by a raw sort key but not a raw partition
+        reject_raw([merged.columns[k.name] for k in node.partition_keys],
+                   "TopNRowNumber partition")
+        s = _sorted_by(merged, node, node.partition_keys, node.sort_keys,
                        node.sort_orders)
         self._batches = []
         iota = torch.arange(s.capacity, dtype=torch.int64, device=s.device)

@@ -37,6 +37,7 @@ from velox_tpu_torch import types as T
 from velox_tpu_torch.core import expressions as ex
 from velox_tpu_torch.ops.int128 import from_python_int
 from velox_tpu_torch.vector.device import DeviceBatch, DeviceColumn, Dictionary
+from velox_tpu_torch.vector.strings import reject_raw
 
 
 @dataclass
@@ -317,6 +318,7 @@ def _if(expr, ctx, cache):
     els = (_eval(expr.args[2], ctx, cache) if len(expr.args) > 2
            else ex_null(expr.dtype, ctx.device))
     cap = ctx.capacity
+    reject_raw((then, els), "if")
     c, ck = _as_bool3(cond, ctx)
     take_then = c if ck is None else (c & ck)
     then, els = _align_strings(then, els)
@@ -337,6 +339,7 @@ def _if(expr, ctx, cache):
 def _coalesce(expr, ctx, cache):
     """The first non-NULL argument, row by row."""
     vals = [_eval(a, ctx, cache) for a in expr.args]
+    reject_raw(vals, "coalesce")
     cap = ctx.capacity
     out = vals[-1]
     for v in reversed(vals[:-1]):

@@ -6,8 +6,9 @@ types are dtype conversions on the batch's device; casts from a string
 run once over the column's dictionary on the host, then one device gather
 of the parsed table by the column's ids.
 
-Not ported: raw (dictionary-less) string columns (ROADMAP A.6) and casts
-to VARCHAR, which the reference performs at output extraction.
+A raw (dictionary-less) string column casts only to VARCHAR (itself);
+casts from it raise, as in the reference. Casts to VARCHAR are not
+ported: the reference performs them at output extraction.
 """
 
 from __future__ import annotations
@@ -161,7 +162,7 @@ def _cast_from_string(ctx, v: EvalValue, to: T.DataType, is_try: bool
             return _const_from_string(v.py_value, to, ctx.device)
         raise NotImplementedError(
             "cast from a raw (dictionary-less) string column is not "
-            "ported to velox_tpu_torch (ROADMAP A.6)")
+            "supported")
     parsed = [_parse(s, to, is_try) for s in v.dictionary.values]
     ok = np.array([p is not None for p in parsed], dtype=bool)
     table = np.array([0 if p is None else p for p in parsed],
@@ -183,9 +184,18 @@ def _const_from_string(s: str, to: T.DataType, dev) -> EvalValue:
         val = int(s) if to.is_integral else float(s)
         return EvalValue(torch.tensor(val, dtype=to.torch_dtype(),
                                       device=dev), None, to)
-    if to.kind is T.TypeKind.DECIMAL and not to.is_long_decimal:
-        val = int(pydec.Decimal(s).scaleb(to.scale)
-                  .to_integral_value(pydec.ROUND_HALF_UP))
-        return EvalValue(torch.tensor(val, dtype=torch.int64, device=dev),
-                         None, to)
+    if to.kind is T.TypeKind.DECIMAL:
+        with pydec.localcontext() as c:
+            c.prec = 50  # the default 28 digits would round 38-digit values
+            val = int(pydec.Decimal(s).scaleb(to.scale)
+                      .to_integral_value(pydec.ROUND_HALF_UP))
+        if not to.is_long_decimal:
+            return EvalValue(torch.tensor(val, dtype=torch.int64,
+                                          device=dev), None, to)
+        # both limbs (the reference keeps an int64 alone; ROADMAP C)
+        lo, hi = I.from_python_int(val)
+        return EvalValue(torch.tensor(lo, dtype=torch.int64, device=dev),
+                         None, to, children=(DeviceColumn(
+                             torch.tensor(hi, dtype=torch.int64,
+                                          device=dev), None, T.BIGINT),))
     raise NotImplementedError(f"cast constant varchar -> {to}")

@@ -2,26 +2,31 @@
 
 Counterpart of ``velox_tpu/functions/scalar.py``:
 
-* comparisons (eq, neq, lt, lte, gt, gte) over integers, DATE and short
-  DECIMAL, with decimal constants rescaled to the common scale; over long
-  decimals (DECIMAL(19..38), int128 limbs); and over dictionary strings
-  (ids; ordered compares need a sorted dictionary);
+* comparisons (eq, neq, lt, lte, gt, gte) over integers, DATE, TIMESTAMP
+  and short DECIMAL, with decimal constants rescaled to the common scale;
+  over long decimals (DECIMAL(19..38), int128 limbs); over dictionary
+  strings (ids; ordered compares need a sorted dictionary); and over raw
+  strings (bytes, functions/raw_strings.py);
 * plus, minus and multiply over integers and short decimals, with the
-  reference's checked-overflow flags for integer results; divide and mod
-  (integer division truncates toward zero, /0 and %0 are checked errors;
-  decimal division computes in DOUBLE), negate and abs (long decimals
-  through their limbs);
+  reference's checked-overflow flags for integer results, and over long
+  decimals through their limbs (a long decimal times a short one; both
+  long raises, as in the reference); divide and mod (integer division
+  truncates toward zero, /0 and %0 are checked errors; decimal division
+  computes in DOUBLE), negate, abs, ceil, floor, round and sign (long
+  decimals through their limbs);
 * the double-domain math block (sqrt ... tan, ceil/floor/round, power,
   sign, greatest/least);
 * dictionary-string functions (substr, like, lower, trim, strpos, ...):
   a host pass over the dictionary's values, then one device gather by id.
-  The reference's pyarrow.compute forms are replaced by its plain-Python
-  ones, which give the same dictionaries;
-* date parts (year, quarter, month, day, day_of_week, day_of_year).
+  lower, upper, length, the trims and reverse map the values through
+  pyarrow's ``utf8_*`` kernels, with the reference's plain-Python
+  fallback where pyarrow rejects them; raw columns take the forms of
+  functions/raw_strings.py;
+* date parts (year, quarter, month, day, day_of_week, day_of_year); the
+  rest of the date and time functions are in functions/datetime.py.
 
 Type resolution (promotion, result types) is the reference's, copied, so
-plans type identically in both engines. Long-decimal plus/minus/multiply
-and raw (dictionary-less) strings are not ported yet and raise.
+plans type identically in both engines.
 """
 
 from __future__ import annotations
@@ -38,6 +43,7 @@ from velox_tpu_torch.expression.eval import (
 )
 from velox_tpu_torch.functions.registry import _REGISTRY, register
 from velox_tpu_torch.ops import int128 as I
+from velox_tpu_torch.vector import strings as S
 from velox_tpu_torch.vector.device import Dictionary
 
 # ---------------------------------------------------------------------------
@@ -82,10 +88,13 @@ def _rescale_decimal(data, from_scale: int, to_scale: int):
 
 
 def _no_long(*vals):
+    """Raise where a long decimal reaches a computation the reference has
+    no limb form of either (mod, greatest/least, a non-float target)."""
     for v in vals:
         if v.dtype.is_long_decimal:
             raise NotImplementedError(
-                f"{v.dtype} (int128 limbs) is not ported to velox_tpu_torch")
+                f"{v.dtype} (int128 limbs) in this context is not "
+                "supported")
 
 
 def _numeric_data(v: EvalValue, target: T.DataType):
@@ -97,7 +106,7 @@ def _numeric_data(v: EvalValue, target: T.DataType):
     _no_long(v)
     if target.is_long_decimal:
         raise NotImplementedError(
-            f"{target} (int128 limbs) is not ported to velox_tpu_torch")
+            f"{target} (int128 limbs) in this context is not supported")
     data = v.data
     if v.dtype.kind is T.TypeKind.DECIMAL:
         if target.kind is T.TypeKind.DECIMAL:
@@ -192,6 +201,11 @@ def _ovf_mul(a, b, r):
 def _binary_arith(op_name, op, checked):
     def eval_fn(ctx, out_dtype, args):
         a, b = args
+        if out_dtype.is_long_decimal:
+            f = I.add128 if op_name == "plus" else I.sub128
+            lo, hi = f(*_limbs(a, out_dtype.scale, ctx),
+                       *_limbs(b, out_dtype.scale, ctx))
+            return _long_value(lo, hi, merge_validity(a, b), out_dtype)
         da, db = promote(_numeric_data(a, out_dtype),
                          _numeric_data(b, out_dtype))
         data = op(da, db)
@@ -211,15 +225,30 @@ def _decimal_operand(v: EvalValue):
     return _numeric_data(v, T.decimal(18, 0)), 0
 
 
+def _mul_long(ctx, out_dtype, a: EvalValue, b: EvalValue) -> EvalValue:
+    """A long decimal times a short decimal or an integer: the low 128
+    bits of the limbs times the int64 (ops/int128.py ``mul128_i64``), then
+    the scale; a product of two long decimals raises, as in the
+    reference (it may not fit 128 bits)."""
+    if a.dtype.is_long_decimal and b.dtype.is_long_decimal:
+        raise NotImplementedError(
+            "decimal multiply with both operands over 18 digits "
+            "overflows int128")
+    big, small = (a, b) if a.dtype.is_long_decimal else (b, a)
+    cap = ctx.capacity
+    lo, hi = I.mul128_i64(big.full_data(cap), big.full_hi(cap),
+                          small.full_data(cap).to(torch.int64))
+    lo, hi = I.rescale_up(lo, hi, out_dtype.scale - big.dtype.scale
+                          - _scale(small))
+    return _long_value(lo, hi, merge_validity(a, b), out_dtype)
+
+
 def _mul_eval(ctx, out_dtype, args):
     a, b = args
-    _no_long(a, b)
+    if out_dtype.is_long_decimal:
+        return _mul_long(ctx, out_dtype, a, b)
     if out_dtype.kind is T.TypeKind.DECIMAL:
         # exact decimal multiply: the scales add
-        if out_dtype.is_long_decimal:
-            raise NotImplementedError(
-                f"{out_dtype} (int128 limbs) is not ported to "
-                "velox_tpu_torch")
         (da, sa), (db, sb) = _decimal_operand(a), _decimal_operand(b)
         data = _rescale_decimal(da * db, sa + sb, out_dtype.scale)
         return EvalValue(data, merge_validity(a, b), out_dtype)
@@ -295,10 +324,6 @@ def compare_value(ctx, a: EvalValue, b: EvalValue, op: str) -> EvalValue:
     return EvalValue(_CMP_OPS[op](da, db), merge_validity(a, b), T.BOOLEAN)
 
 
-def _is_raw(v: EvalValue) -> bool:
-    return v.data is not None and v.dictionary is None
-
-
 def _require_sorted(d) -> None:
     if not d.is_sorted:
         vals = d.values
@@ -322,11 +347,11 @@ def _compare_strings(a: EvalValue, b: EvalValue, op: str) -> EvalValue:
     """Comparison of dictionary ids: eq/neq across any dictionaries (a
     second dictionary's ids translate into the first's through a host
     table), ordered compares within one sorted dictionary. Connectors and
-    the Arrow bridge build sorted dictionaries (vector/device.py)."""
-    if _is_raw(a) or _is_raw(b):
-        raise NotImplementedError(
-            "raw (dictionary-less) string comparison is not ported to "
-            "velox_tpu_torch (ROADMAP A.6)")
+    the Arrow bridge build sorted dictionaries (vector/device.py). A raw
+    side compares bytes (functions/raw_strings.py)."""
+    if S.is_raw(a) or S.is_raw(b):
+        from velox_tpu_torch.functions.raw_strings import raw_compare
+        return raw_compare(a, b, op)
     validity = merge_validity(a, b)
     if op not in ("eq", "neq"):
         # a constant absent from the dictionary has no id to order by
@@ -484,6 +509,26 @@ for _name, _fn in (("sqrt", torch.sqrt), ("cbrt", _cbrt), ("ln", torch.log),
     _unary_math(_name, _fn)
 
 
+def _long_ceil_floor(ctx, a: EvalValue, out_dtype, ceiling: bool):
+    """ceil/floor of a DECIMAL(19..38): |x| divided by 10^scale with its
+    remainder (ops/int128.py ``divmod128_u64``), the quotient moved one
+    away from zero where the rounding direction and the sign ask for it.
+    (The reference divides the low limb alone; ROADMAP C.)"""
+    cap = ctx.capacity
+    alo, ahi, neg = I.abs128(a.full_data(cap), a.full_hi(cap))
+    d = torch.full((cap,), 10 ** a.dtype.scale, dtype=torch.int64,
+                   device=ctx.device)
+    qlo, qhi, rem = I.divmod128_u64(alo, ahi, d)
+    bump = (rem != 0) & (neg if not ceiling else ~neg)
+    qlo, qhi = I.add128(qlo, qhi, bump.to(torch.int64),
+                        torch.zeros_like(qhi))
+    nlo, nhi = I.neg128(qlo, qhi)
+    lo, hi = torch.where(neg, nlo, qlo), torch.where(neg, nhi, qhi)
+    if out_dtype.is_long_decimal:
+        return _long_value(lo, hi, a.validity, out_dtype)
+    return EvalValue(lo, a.validity, out_dtype)
+
+
 def _ceil_floor(name, fn):
     def resolver(ts):
         if len(ts) != 1 or not ts[0].is_numeric:
@@ -496,8 +541,9 @@ def _ceil_floor(name, fn):
         (a,) = args
         if a.dtype.is_integral:
             return EvalValue(a.data, a.validity, out_dtype)
+        if a.dtype.is_long_decimal:
+            return _long_ceil_floor(ctx, a, out_dtype, name == "ceiling")
         if a.dtype.kind is T.TypeKind.DECIMAL:
-            _no_long(a)
             s = 10 ** a.dtype.scale
             d = a.data
             if name == "ceiling":
@@ -524,11 +570,17 @@ def _round_eval(ctx, out_dtype, args):
         nd = int(args[1].py_value if args[1].py_value is not None
                  else args[1].data)
     if a.dtype.kind is T.TypeKind.DECIMAL:
-        _no_long(a)
         diff = a.dtype.scale - nd
         if diff <= 0:
-            return EvalValue(a.data, a.validity, out_dtype)
+            return a
         p = 10 ** diff
+        if a.dtype.is_long_decimal:
+            lo, hi = I.div128_round_half_up(
+                a.full_data(ctx.capacity), a.full_hi(ctx.capacity),
+                torch.full((ctx.capacity,), p, dtype=torch.int64,
+                           device=ctx.device))
+            lo, hi = I.rescale_up(lo, hi, diff)
+            return _long_value(lo, hi, a.validity, out_dtype)
         return EvalValue(_half_up_div(a.data, p) * p, a.validity, out_dtype)
     if a.dtype.is_integral:
         return EvalValue(a.data, a.validity, out_dtype)
@@ -562,7 +614,11 @@ _REGISTRY["pow"] = _REGISTRY["power"]
 
 def _sign_eval(ctx, out_dtype, args):
     (a,) = args
-    _no_long(a)
+    if a.dtype.is_long_decimal:
+        lo, hi = a.full_data(ctx.capacity), a.full_hi(ctx.capacity)
+        sign = torch.where(hi < 0, -1, ((hi != 0) | (lo != 0)).to(
+            torch.int64))
+        return EvalValue(sign.to(torch.int64), a.validity, out_dtype)
     return EvalValue(torch.sign(a.data).to(out_dtype.torch_dtype()),
                      a.validity, out_dtype)
 
@@ -604,9 +660,10 @@ _minmax2("least", torch.minimum)
 
 def _require_dict(v: EvalValue, fname: str) -> Dictionary:
     if v.dictionary is None:
+        # the reference has no raw form of these either
         raise NotImplementedError(
-            f"{fname} over a raw (dictionary-less) string is not ported to "
-            "velox_tpu_torch (ROADMAP A.6)")
+            f"{fname} over a raw (dictionary-less) string column is not "
+            "supported")
     return v.dictionary
 
 
@@ -652,13 +709,51 @@ def _str_resolver(out):
     return resolver
 
 
-for _name, _f in (("lower", str.lower), ("upper", str.upper),
-                  ("trim", str.strip), ("ltrim", str.lstrip),
-                  ("rtrim", str.rstrip), ("reverse", lambda s: s[::-1])):
+def _pa_table(v: EvalValue, pa_name: str, fname: str):
+    """``pyarrow.compute.<pa_name>`` over the dictionary's values as a
+    Python list, or None where pyarrow rejects the input (the caller then
+    falls back to Python, as the reference does)."""
+    import pyarrow as pa
+    import pyarrow.compute as pc
+    d = _require_dict(v, fname)
+    try:
+        return getattr(pc, pa_name)(pa.array(list(d.values))).to_pylist()
+    except (pa.ArrowInvalid, pa.ArrowNotImplementedError):
+        return None
+
+
+def _dict_map_pa(v: EvalValue, pa_name: str, py_f, fname: str
+                 ) -> EvalValue:
+    """``_dict_map`` through pyarrow's kernel (the reference's mapping:
+    utf8proc's per-code-point case tables, Unicode whitespace)."""
+    out = _pa_table(v, pa_name, fname)
+    if out is None:
+        return _dict_map(v, py_f, fname)
+    it = iter(out)
+    return _dict_map(v, lambda s: next(it), fname)
+
+
+def _dict_lookup_pa(v: EvalValue, pa_name: str, py_f, out_dtype,
+                    fname: str) -> EvalValue:
+    out = _pa_table(v, pa_name, fname)
+    if out is None:
+        return _dict_lookup(v, py_f, out_dtype, fname)
+    it = iter(out)
+    return _dict_lookup(v, lambda s: next(it), out_dtype, fname)
+
+
+for _name, _pa, _f in (("lower", "utf8_lower", str.lower),
+                       ("upper", "utf8_upper", str.upper),
+                       ("trim", "utf8_trim_whitespace", str.strip),
+                       ("ltrim", "utf8_ltrim_whitespace", str.lstrip),
+                       ("rtrim", "utf8_rtrim_whitespace", str.rstrip),
+                       ("reverse", "utf8_reverse", lambda s: s[::-1])):
     register(_name, _str_resolver(T.VARCHAR),
-             lambda ctx, o, a, _f=_f, _n=_name: _dict_map(a[0], _f, _n))
+             lambda ctx, o, a, _p=_pa, _f=_f, _n=_name:
+             _dict_map_pa(a[0], _p, _f, _n))
 register("length", _str_resolver(T.BIGINT),
-         lambda ctx, o, a: _dict_lookup(a[0], len, T.BIGINT, "length"))
+         lambda ctx, o, a: _dict_lookup_pa(a[0], "utf8_length", len,
+                                           T.BIGINT, "length"))
 
 
 def _substr_eval(ctx, out_dtype, args):

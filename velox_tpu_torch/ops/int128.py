@@ -1,11 +1,13 @@
 """int128 limb arithmetic for long decimals (DECIMAL(19..38)).
 
 Counterpart of ``velox_tpu/ops/int128.py`` (velox/type/HugeInt.h +
-type/DecimalUtil.h), reduced to what the decimal ``sum``/``avg`` states,
-their extraction, and long-decimal comparisons and sort keys reach. A value is two int64 limbs: ``lo`` holds the low
-64 bits (an unsigned pattern stored in int64), ``hi`` the signed high 64
-bits. Columns keep lo as the data and hi as a child column
-(vector/device.py).
+type/DecimalUtil.h): the decimal ``sum``/``avg`` states and their
+extraction, long-decimal comparisons, sort keys, plus/minus, and the
+multiply of a long decimal by an int64 (``mul128_i64`` on the 64 x 64 ->
+128-bit products ``umul64_full`` and ``mul_i64_full``). A value is two
+int64 limbs: ``lo`` holds the low 64 bits (an unsigned pattern stored in
+int64), ``hi`` the signed high 64 bits. Columns keep lo as the data and
+hi as a child column (vector/device.py).
 
 This build of torch has no uint64 shifts or compares, so the unsigned
 operations are written on int64: a logical right shift is an arithmetic
@@ -64,6 +66,42 @@ def lt128(alo, ahi, blo, bhi):
     return (ahi < bhi) | ((ahi == bhi) & _ult(alo, blo))
 
 
+def umul64_full(ua, ub):
+    """Unsigned 64 x 64 -> (lo, hi) 128-bit product of two int64 bit
+    patterns, from 32-bit partial products (each wraps in int64 as its
+    uint64 counterpart does)."""
+    a0, a1 = ua & _M32, _shr(ua, 32)
+    b0, b1 = ub & _M32, _shr(ub, 32)
+    p00 = a0 * b0
+    p01 = a0 * b1
+    p10 = a1 * b0
+    mid = _shr(p00, 32) + (p01 & _M32) + (p10 & _M32)
+    lo = (p00 & _M32) | (mid << 32)
+    hi = a1 * b1 + _shr(p01, 32) + _shr(p10, 32) + _shr(mid, 32)
+    return lo, hi
+
+
+def mul_i64_full(a, b):
+    """Signed 64 x 64 -> the full 128-bit product as (lo, hi) limbs: the
+    unsigned product, then b subtracted from hi where a < 0 and a where
+    b < 0."""
+    lo, hi = umul64_full(a, b)
+    hi = hi - torch.where(a < 0, b, 0) - torch.where(b < 0, a, 0)
+    return lo, hi
+
+
+def mul128_i64(lo, hi, c):
+    """Signed (lo, hi) times a per-row signed int64 ``c``: the low 128 bits
+    of the product, through the magnitudes and one sign."""
+    alo, ahi, aneg = abs128(lo, hi)
+    uc = torch.abs(c)  # |INT64_MIN| wraps to 2^63's bit pattern: exact
+    plo, pmid = umul64_full(alo, uc)
+    phi = pmid + ahi * uc  # the low 64 bits of the high partial
+    neg = aneg ^ (c < 0)
+    nlo, nhi = neg128(plo, phi)
+    return torch.where(neg, nlo, plo), torch.where(neg, nhi, phi)
+
+
 def mul128_u64(lo, hi, c: int):
     """(lo, hi) * c for a Python int 0 <= c < 2^63 (e.g. 10^k), modulo
     2^128. The 32-bit partial products of the low limb wrap in int64 as
@@ -95,6 +133,16 @@ def from_python_int(v: int):
     if lo >= 1 << 63:
         lo -= 1 << 64
     return lo, v >> 64  # Python's >> is arithmetic
+
+
+def to_numpy_ints(lo_np, hi_np):
+    """Host: limb arrays -> an object array of exact Python ints."""
+    import numpy as np
+    lo_u = np.asarray(lo_np).astype(np.int64).view(np.uint64)
+    out = np.empty(len(lo_u), dtype=object)
+    for i in range(len(lo_u)):
+        out[i] = (int(hi_np[i]) << 64) | int(lo_u[i])
+    return out
 
 
 def abs128(lo, hi):

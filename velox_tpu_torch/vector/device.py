@@ -12,8 +12,13 @@ Scan batches keep the reference's prefix contract: ``mask`` is
 (``ops/filter_reduce.py``). Filters AND into the mask and keep rows in
 place, as in the reference.
 
-Not ported yet: ARRAY/MAP/ROW columns, raw (byte-matrix) strings and
-TIMESTAMP arithmetic. ``from_arrow`` and ``to_arrow`` raise on them.
+A VARCHAR column is either dictionary-encoded (int32 ids into a host
+``Dictionary``) or raw: a (capacity, W) uint8 byte matrix with its int32
+byte lengths as ``children[0]`` (vector/strings.py). ``from_arrow`` picks
+the encoding by ``string_encoding``.
+
+Not ported yet: ARRAY/MAP/ROW columns (ROADMAP A.6). ``from_arrow`` and
+``to_arrow`` raise on them.
 """
 
 from __future__ import annotations
@@ -71,8 +76,10 @@ class DeviceColumn:
     """One column: dense data tensor + optional validity (True = non-null).
 
     ``validity is None`` means no nulls. Strings are int32 dictionary ids
-    into ``dictionary``. A DECIMAL(19..38) column keeps its low int64 limb
-    in ``data`` and its high limb as ``children[0]`` (a BIGINT column).
+    into ``dictionary``, or, without a dictionary, a raw (rows x W) uint8
+    byte matrix with its int32 byte lengths as ``children[0]``. A
+    DECIMAL(19..38) column keeps its low int64 limb in ``data`` and its
+    high limb as ``children[0]`` (a BIGINT column).
     """
 
     def __init__(self, data: torch.Tensor, validity=None,
@@ -194,10 +201,31 @@ def batch_from_numpy(columns: Dict[str, Sequence[np.ndarray]],
     return DeviceBatch(cols, _upload(np.asarray(mask, bool), device))
 
 
+def _use_raw(arr, n: int, string_encoding: str) -> bool:
+    """Whether a VARCHAR array goes raw: "raw" always, "auto" when its
+    distinct count exceeds half the rows (a dictionary would hold about
+    the column) and its longest value fits a size class."""
+    import pyarrow.compute as pc
+    from velox_tpu_torch.vector import strings as S
+    if string_encoding == "raw":
+        return True
+    if string_encoding != "auto" or not n:
+        return False
+    distinct = pc.count_distinct(arr).as_py()
+    max_len = pc.max(pc.binary_length(arr)).as_py() or 0
+    return distinct > n // 2 and max_len <= S.MAX_WIDTH
+
+
 def column_from_arrow(arr, capacity: int,
                       dictionary: Optional[Dictionary] = None,
+                      string_encoding: str = "dict",
                       *, device) -> DeviceColumn:
-    """One pyarrow Array/ChunkedArray -> DeviceColumn (flat types only)."""
+    """One pyarrow Array/ChunkedArray -> DeviceColumn (flat types only).
+
+    ``string_encoding`` picks a VARCHAR column's layout: "dict" (sorted
+    dictionary ids), "raw" (a byte matrix packed on the device,
+    vector/strings.py) or "auto" (raw when the distinct count exceeds half
+    the rows). A dictionary-typed Arrow array stays a dictionary."""
     import pyarrow as pa
     import pyarrow.compute as pc
 
@@ -205,6 +233,11 @@ def column_from_arrow(arr, capacity: int,
         arr = arr.combine_chunks()
     dtype = T.from_arrow(arr.type)
     n = len(arr)
+    if dtype.is_string and dictionary is None \
+            and not pa.types.is_dictionary(arr.type) \
+            and _use_raw(arr, n, string_encoding):
+        from velox_tpu_torch.vector import strings as S
+        return S.raw_column(*S.pack_arrow_device(arr, capacity, device))
     validity_np = np.asarray(pc.is_valid(arr)) if arr.null_count else None
     children = ()
     col_dict = None
@@ -266,15 +299,23 @@ def column_from_arrow(arr, capacity: int,
 
 def from_arrow(table, capacity: Optional[int] = None,
                dictionaries: Optional[Dict[str, Dictionary]] = None,
-               *, device) -> DeviceBatch:
-    """pyarrow Table/RecordBatch -> DeviceBatch (padded, masked)."""
+               string_encoding="dict", *, device) -> DeviceBatch:
+    """pyarrow Table/RecordBatch -> DeviceBatch (padded, masked).
+    ``string_encoding`` is one encoding for every VARCHAR column or a dict
+    of column name to encoding ("dict" for the columns it omits)."""
     n = table.num_rows
     cap = capacity if capacity is not None else default_capacity(n)
     if n > cap:
         raise ValueError(f"{n} rows exceed capacity {cap}")
     dictionaries = dictionaries or {}
+
+    def enc(name):
+        if isinstance(string_encoding, dict):
+            return string_encoding.get(name, "dict")
+        return string_encoding
     cols = {name: column_from_arrow(table.column(name), cap,
-                                    dictionaries.get(name), device=device)
+                                    dictionaries.get(name), enc(name),
+                                    device=device)
             for name in table.schema.names}
     return DeviceBatch(cols, prefix_mask(n, cap, device))
 
@@ -295,7 +336,12 @@ def to_arrow(batch: DeviceBatch):
                 f"{col.dtype} columns are not ported to velox_tpu_torch")
         data = _host(col.data)[mask]
         valid = None if col.validity is None else _host(col.validity)[mask]
-        if col.dtype.is_long_decimal:
+        if col.dtype.is_string and col.dictionary is None \
+                and data.ndim == 2:
+            from velox_tpu_torch.vector import strings as S
+            lens = _host(col.children[0].data)[mask]
+            arrays.append(S.to_arrow(data, lens, valid))
+        elif col.dtype.is_long_decimal:
             hi = _host(col.children[0].data)[mask]
             arrays.append(_long_decimal_to_arrow(data, hi, valid, col.dtype))
         else:
@@ -331,9 +377,7 @@ def _np_to_arrow(data: np.ndarray, validity: Optional[np.ndarray],
     pa_mask = None if validity is None else ~validity
     if dt.is_string:
         if col.dictionary is None:
-            raise NotImplementedError(
-                "raw (non-dictionary) string columns are not ported to "
-                "velox_tpu_torch")
+            raise ValueError("a 1-D string column without a dictionary")
         out = col.dictionary.take(data)
         if validity is not None:
             out = out.copy()
