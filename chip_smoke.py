@@ -160,6 +160,28 @@ Phases, each printing one line; any failure raises and exits non-zero:
    times 3, against Python integers). Each prints its walls, peak device
    memory, launches (B2, B4 and B5 on the raw sort, group and join paths)
    and the rows upper/lower/trim sent to the host.
+18. complex: ARRAY and MAP columns over the lineitem and orders scans,
+   each plan cold and warm with equal launches, exact against numpy
+   oracles over the generator's columns (integers only): cx_array_agg
+   (array_agg of l_partkey and l_suppkey per l_orderkey, then
+   cardinality, element_at, array_max, array_sort, array_distinct,
+   reduce over transform, filter and any_match folded into sums; B4 and
+   B2 or B3 must launch), cx_unnest (the arrays unnested with their
+   ordinality: the count, sum(l_partkey), sum(l_partkey * l_linenumber)
+   and 7; B5 must launch), cx_maps (histogram, set_agg, map_agg,
+   multimap_agg and approx_most_frequent per l_suppkey, then map_keys,
+   map_values, transform_values, map_filter, flatten and reduce folded
+   into sums) and cx_map_union (map_union of the per-supplier histograms:
+   each ship mode's count at the first supplier holding it; map_union
+   keeps one arbitrary value of a repeated key, here the first), cx_join
+   (the per-order arrays joined to the orders before 1995-03-15:
+   cardinality, element_at and contains(p, o_custkey); B5 must launch)
+   and cx_join_topn (its top 100 by o_totalprice DESC carrying the
+   arrays, which the join and the TopN give explicit starts, out through
+   to_arrow), cx_bloom (bloom_filter_agg(o_orderkey) of each
+   o_orderpriority, as five filtered global aggregates, each sketch
+   equal bit for bit to a numpy form of bloom_hashes). Each prints its
+   walls, peak device memory and launches.
 
 Every number a phase prints is measured in this run, on this card; bounds
 are bytes over the H100's 3.35 TB/s.
@@ -219,6 +241,7 @@ from velox_tpu_torch.ops.gather import (
 from velox_tpu_torch.testing.plan_builder import PlanBuilder
 from velox_tpu_torch.tpch import tpch_plan
 from velox_tpu_torch.tpch.queries import q18
+from velox_tpu_torch.vector.device import to_arrow
 
 D94, D95, D950315, D980902 = 8766, 9131, 9204, 10471  # days since 1970
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM spec sheet
@@ -3816,6 +3839,326 @@ def types_phase(conn, ctx, li, seed: int) -> dict:
     return by_path
 
 
+# ---------------------------------------------------------------------------
+# complex: ARRAY/MAP columns, the array and map functions, Unnest, the
+# ARRAY/MAP aggregates and map_union, at the connector's scale
+# ---------------------------------------------------------------------------
+
+CX_PRIORITY_ITEMS = 3_000_000  # bloom sizing: ~8 bits an item, 2^23 bits
+CX_FOLD = ["cardinality(p) as n", "element_at(p, 1) as f",
+           "element_at(p, -1) as l", "array_max(p) as mx",
+           "element_at(array_sort(p), 1) as so",
+           "cardinality(array_distinct(s)) as ds",
+           "reduce(transform(p, x -> x % 7), 0, (a, x) -> a + x, a -> a) "
+           "as r",
+           "cardinality(filter(p, x -> x > 1000000)) as fc",
+           "any_match(p, x -> x < 100) as am"]
+CX_FOLD_SUMS = ["sum(n) as n", "sum(f) as f", "sum(l) as l", "sum(mx) as mx",
+                "sum(so) as so", "sum(ds) as ds", "sum(r) as r",
+                "sum(fc) as fc", "count_if(am) as am", "count(*) as rows"]
+CX_MAPS_AGGS = ["histogram(l_shipmode) as h", "set_agg(l_returnflag) as rf",
+                "map_agg(l_linenumber, l_partkey) as m",
+                "multimap_agg(l_returnflag, l_linenumber) as mm",
+                "approx_most_frequent(2, l_shipmode, 16) as f"]
+CX_MAPS_FOLD = [
+    "cardinality(h) as hn", "cardinality(map_keys(h)) as hk",
+    "reduce(map_values(h), 0, (a, x) -> a + x, a -> a) as hv",
+    "reduce(map_values(transform_values(h, (k, v) -> v * 2)), 0, "
+    "(a, x) -> a + x, a -> a) as tv",
+    "cardinality(map_filter(h, (k, v) -> v > 80)) as mf",
+    "cardinality(rf) as rfn", "cardinality(m) as mn",
+    "reduce(map_values(m), 0, (a, x) -> a + x, a -> a) as mv",
+    "cardinality(mm) as mmn",
+    "cardinality(flatten(map_values(mm))) as mmv",
+    "cardinality(f) as fn",
+    "reduce(map_values(f), 0, (a, x) -> a + x, a -> a) as fv"]
+
+
+def _order_arrays():
+    """lineitem folded into one row an order: l_partkey's and
+    l_suppkey's arrays, in scan order."""
+    return (PlanBuilder().table_scan("lineitem", ["l_orderkey", "l_partkey",
+                                                  "l_suppkey"])
+            .single_aggregation(["l_orderkey"],
+                                ["array_agg(l_partkey) as p",
+                                 "array_agg(l_suppkey) as s"]))
+
+
+def complex_plans():
+    """name -> plan of the complex phase's paths, in run order (cx_maps
+    has a second plan, cx_map_union)."""
+    unnest = (PlanBuilder().table_scan("lineitem", ["l_orderkey",
+                                                    "l_partkey"])
+              .single_aggregation(["l_orderkey"],
+                                  ["array_agg(l_partkey) as p"])
+              .unnest("p", element_name="e", ordinality="o")
+              .single_aggregation([], ["count(*) as n", "sum(e) as s",
+                                       "sum(e * o) as w", "max(o) as m"]))
+    b = _order_arrays()
+    orders = b.new_builder().table_scan(
+        "orders", ["o_orderkey", "o_custkey", "o_totalprice",
+                   "o_orderdate"]).filter("o_orderdate < date '1995-03-15'")
+    joined = b.hash_join(["l_orderkey"], ["o_orderkey"], orders,
+                         output=["l_orderkey", "p", "o_custkey",
+                                 "o_totalprice"])
+    b2 = _order_arrays()
+    orders2 = b2.new_builder().table_scan(
+        "orders", ["o_orderkey", "o_custkey", "o_totalprice",
+                   "o_orderdate"]).filter("o_orderdate < date '1995-03-15'")
+    top = (b2.hash_join(["l_orderkey"], ["o_orderkey"], orders2,
+                        output=["l_orderkey", "p", "o_totalprice"])
+           .top_n(["o_totalprice DESC", "l_orderkey"], 100))
+    prios = [f"bloom_filter_agg(o_orderkey, {CX_PRIORITY_ITEMS}) filter "
+             f"(where o_orderpriority = '{p}') as b{i}"
+             for i, p in enumerate(CX_PRIORITIES)]
+    li_maps = PlanBuilder().table_scan(
+        "lineitem", ["l_suppkey", "l_shipmode", "l_returnflag",
+                     "l_linenumber", "l_partkey"])
+    return {
+        "cx_array_agg": _order_arrays().project(CX_FOLD)
+        .single_aggregation([], CX_FOLD_SUMS).plan(),
+        "cx_unnest": unnest.plan(),
+        "cx_maps": li_maps.single_aggregation(["l_suppkey"], CX_MAPS_AGGS)
+        .project(CX_MAPS_FOLD)
+        .single_aggregation([], [f"sum({c}) as {c}" for c in (
+            "hn", "hk", "hv", "tv", "mf", "rfn", "mn", "mv", "mmn", "mmv",
+            "fn", "fv")]).plan(),
+        "cx_map_union": PlanBuilder().table_scan(
+            "lineitem", ["l_suppkey", "l_shipmode"])
+        .single_aggregation(["l_suppkey"], ["histogram(l_shipmode) as h"])
+        .single_aggregation([], ["map_union(h) as u"]).plan(),
+        "cx_join": joined.project([
+            "cardinality(p) as n", "element_at(p, 1) as f",
+            "contains(p, o_custkey) as c"])
+        .single_aggregation([], ["count(*) as rows", "sum(n) as n",
+                                 "sum(f) as f", "count_if(c) as c"]).plan(),
+        "cx_join_topn": top.plan(),
+        "cx_bloom": PlanBuilder().table_scan(
+            "orders", ["o_orderkey", "o_orderpriority"])
+        .single_aggregation([], prios).plan(),
+    }
+
+
+CX_PRIORITIES = ("1-URGENT", "2-HIGH", "3-MEDIUM", "4-NOT SPECIFIED",
+                 "5-LOW")
+PATH_PLANS.update({n: (lambda n=n: complex_plans()[n])
+                   for n in ("cx_array_agg", "cx_unnest", "cx_maps",
+                             "cx_map_union", "cx_join", "cx_join_topn",
+                             "cx_bloom")})
+
+
+def _runs_of(keys: np.ndarray):
+    """(first row of each run, run lengths) of a grouped key array."""
+    first = np.flatnonzero(np.diff(keys, prepend=keys[0] - 1))
+    return first, np.diff(np.append(first, len(keys)))
+
+
+def _np_bloom(keys: np.ndarray, m: int, k: int = 3) -> np.ndarray:
+    """exec/hashtable.py ``bloom_hashes`` and the aggregate's packing in
+    numpy: int32 words, bit j of word w set for bit 32 w + j."""
+    h1 = _np_hash(keys, torch.int64)
+    m32 = np.uint64(0xFFFFFFFF)
+    h = h1 ^ np.uint64(0xB5297A4D)
+    h = ((h ^ (h >> np.uint64(16))) * np.uint64(0x85EBCA6B)) & m32
+    h = ((h ^ (h >> np.uint64(13))) * np.uint64(0xC2B2AE35)) & m32
+    h2 = h ^ (h >> np.uint64(16))
+    bits = np.zeros(m, np.uint8)
+    for i in range(k):
+        bits[((h1 + np.uint64(i) * h2) & np.uint64(m - 1)).astype(
+            np.int64)] = 1
+    words = np.packbits(bits.reshape(-1, 32)[:, ::-1], axis=1)
+    words = words.view(">u4").reshape(-1).astype(np.int64)
+    return ((words ^ (1 << 31)) - (1 << 31)).astype(np.int32)
+
+
+def complex_oracles(conn, li) -> dict:
+    """Every complex path's expected values, from the generator's
+    columns (lineitem in order-key order, an order's lines in line-number
+    order)."""
+    ok, pk, sk = li["l_orderkey"], li["l_partkey"], li["l_suppkey"]
+    ln, rf = li["l_linenumber"], li["l_returnflag"]
+    sm = _li_extra(conn, ["l_shipmode"])["l_shipmode"]
+    first, lens = _runs_of(ok)
+    last = first + lens - 1
+    order_of = np.repeat(np.arange(len(first)), lens)
+    mx = np.maximum.reduceat(pk, first)
+    mn = np.minimum.reduceat(pk, first)
+    # distinct suppliers an order: its (at most 7) suppkeys sorted in a row
+    supp = np.full((len(first), 7), -1, np.int64)
+    supp[order_of, np.arange(len(pk)) - np.repeat(first, lens)] = sk
+    supp.sort(axis=1)
+    ds = int(((supp[:, 1:] != supp[:, :-1]) & (supp[:, 1:] >= 0)).sum()
+             + (supp[:, 0] >= 0).sum())
+    small = np.bincount(order_of[pk < 100], minlength=len(first)) > 0
+    fold = {"n": len(pk), "f": _psum(pk[first]), "l": _psum(pk[last]),
+            "mx": _psum(mx), "so": _psum(mn), "ds": ds,
+            "r": _psum(pk % 7), "fc": int((pk > 1_000_000).sum()),
+            "am": int(small.sum()), "rows": len(first)}
+    unnest = {"n": len(pk), "s": _psum(pk), "w": _psum(pk * ln), "m": 7}
+    # per supplier
+    n_sm = int(sm.max()) + 1
+    hist = np.bincount(sk * n_sm + sm, minlength=(int(sk.max()) + 1)
+                       * n_sm).reshape(-1, n_sm)
+    hist = hist[np.flatnonzero(hist.sum(1))]  # the suppliers, in key order
+    n_rf = int(rf.max()) + 1
+    supp_rf = int((np.bincount(sk * n_rf + rf) > 0).sum())
+    # map_agg keeps the first row (in scan order) of each (supplier, line)
+    _, first_ln = np.unique(sk * 8 + ln, return_index=True)
+    top2 = -np.sort(-hist, axis=1)[:, :2]
+    maps = {"hn": int((hist > 0).sum()), "hk": int((hist > 0).sum()),
+            "hv": len(sk), "tv": 2 * len(sk), "mf": int((hist > 80).sum()),
+            "rfn": supp_rf, "mn": len(first_ln), "mv": _psum(pk[first_ln]),
+            "mmn": supp_rf, "mmv": len(sk),
+            "fn": int((top2 > 0).sum()), "fv": _psum(top2)}
+    # map_union: the first supplier (by key) holding each ship mode
+    supp = np.unique(sk)
+    union = {}
+    for mode in range(n_sm):
+        i = int(np.flatnonzero(hist[:, mode])[0])
+        union[mode] = (int(supp[i]), int(hist[i, mode]))
+    # orders joined on o_orderdate < 1995-03-15
+    od = table_columns(conn, "orders", ["o_orderkey", "o_custkey",
+                                        "o_totalprice", "o_orderdate",
+                                        "o_orderpriority"])
+    sel = od["o_orderdate"] < _day("1995-03-15")
+    keys = od["o_orderkey"]
+    cust = np.zeros(int(keys.max()) + 1, np.int64)
+    cust[keys] = od["o_custkey"]
+    live = np.zeros(int(keys.max()) + 1, bool)
+    live[keys[sel]] = True
+    o_first = ok[first]
+    hit = np.bincount(order_of[pk == cust[ok]], minlength=len(first)) > 0
+    js = live[o_first]
+    join = {"rows": int(js.sum()), "n": int(lens[js].sum()),
+            "f": _psum(pk[first][js]), "c": int((hit & js).sum())}
+    price = od["o_totalprice"][sel]
+    topk = np.lexsort([keys[sel], -price])[:100]
+    top_keys = keys[sel][topk]
+    row_of = np.searchsorted(o_first, top_keys)
+    top_arrays = [pk[first[r]:first[r] + lens[r]].tolist() for r in row_of]
+    prio = od["o_orderpriority"]
+    pd_ = conn.gen.dictionaries("orders")["o_orderpriority"]
+    # the aggregate's size from its item count: 8 bits an item, rounded
+    # up to a power of two in [2^10, 2^23]
+    m = max(1 << 10, min(1 << 23, 1 << (8 * CX_PRIORITY_ITEMS
+                                         - 1).bit_length()))
+    bloom = [_np_bloom(keys[prio == pd_.id_of(p)], m)
+             for p in CX_PRIORITIES]
+    modes = conn.gen.dictionaries("lineitem")["l_shipmode"]
+    return {"fold": fold, "unnest": unnest, "maps": maps, "union": union,
+            "modes": modes, "join": join, "top_keys": top_keys,
+            "top_arrays": top_arrays, "bloom": bloom}
+
+
+def _one_row(outs) -> dict:
+    rows = [r for b in outs for r in to_arrow(b).to_pylist()]
+    if len(rows) != 1:
+        raise AssertionError(f"expected one row, got {len(rows)}")
+    return rows[0]
+
+
+def complex_phase(conn, ctx, li) -> dict:
+    """The complex paths at the connector's scale, each cold (the scan
+    cache cleared) and warm with equal launches, exact against numpy
+    oracles over the generator's columns (integers only). Each line:
+    walls, peak device memory and launches."""
+    t0 = time.perf_counter()
+    want = complex_oracles(conn, li)
+    phase("complex_oracles", seconds=time.perf_counter() - t0,
+          orders=want["fold"]["rows"], lineitems=want["fold"]["n"])
+
+    def check_fold(outs, info):
+        got = _one_row(outs)
+        if got != want["fold"]:
+            raise AssertionError(f"cx_array_agg: {got} != {want['fold']}")
+        info["orders"] = got["rows"]
+
+    def check_unnest(outs, info):
+        got = _one_row(outs)
+        if got != want["unnest"]:
+            raise AssertionError(f"cx_unnest: {got} != {want['unnest']}")
+        info["elements"] = got["n"]
+
+    def check_maps(outs, info):
+        got = _one_row(outs)
+        if got != want["maps"]:
+            raise AssertionError(f"cx_maps: {got} != {want['maps']}")
+
+    def check_union(outs, info):
+        got = dict(_one_row(outs)["u"])
+        modes = want["modes"]
+        exp = {modes.values[m]: c for m, (_, c) in want["union"].items()}
+        if got != exp:
+            raise AssertionError(f"cx_map_union: {got} != {exp}")
+        info["keys"] = len(got)
+
+    def check_join(outs, info):
+        got = _one_row(outs)
+        if got != want["join"]:
+            raise AssertionError(f"cx_join: {got} != {want['join']}")
+        info["rows"] = got["rows"]
+
+    def check_topn(outs, info):
+        rows = [r for b in outs for r in to_arrow(b).to_pylist()]
+        keys = [r["l_orderkey"] for r in rows]
+        if keys != want["top_keys"].tolist():
+            raise AssertionError("cx_join_topn: the order keys differ")
+        if [r["p"] for r in rows] != want["top_arrays"]:
+            raise AssertionError("cx_join_topn: the arrays differ")
+        info["rows"] = len(rows)
+
+    def check_bloom(outs, info):
+        got = _one_row(outs)
+        for i, w in enumerate(want["bloom"]):
+            if not np.array_equal(np.asarray(got[f"b{i}"], np.int32), w):
+                raise AssertionError(f"cx_bloom: sketch {i} differs")
+        info["bits_set"] = [int(np.unpackbits(w.view(np.uint8)).sum())
+                            for w in want["bloom"]]
+
+    checks = {"cx_array_agg": check_fold, "cx_unnest": check_unnest,
+              "cx_maps": check_maps, "cx_map_union": check_union,
+              "cx_join": check_join, "cx_join_topn": check_topn,
+              "cx_bloom": check_bloom}
+    cache = DataCache.instance()
+    by_path = {}
+    for name, plan in complex_plans().items():
+        runs = {}
+        for run in ("cold", "warm"):
+            if run == "cold":
+                cache.clear()
+            info = {}
+            torch.cuda.reset_peak_memory_stats()
+            out, wall, launched = _run(plan, ctx)
+            checks[name](out, info)
+            del out
+            runs[run] = {"wall_s": wall, "launches": launched,
+                         "max_memory_allocated":
+                             torch.cuda.max_memory_allocated(), **info}
+        cold, warm = runs["cold"], runs["warm"]
+        if warm["launches"] != cold["launches"]:
+            raise AssertionError(f"{name}: warm launches {warm['launches']}"
+                                 f" != cold {cold['launches']}")
+        got = cold["launches"]
+        if name == "cx_array_agg" and not (
+                got["radix_hist"] > 0
+                and got["radix_rank"] + got["radix_pos"] > 0):
+            raise AssertionError(f"{name}: B4 or B2/B3 never launched: "
+                                 f"{got}")
+        if name in ("cx_unnest", "cx_join") \
+                and got["flat_gather"] + got["gather_rows"] == 0:
+            raise AssertionError(f"{name}: B5 never launched: {got}")
+        by_path[name] = got
+        extra = {k: v for k, v in cold.items()
+                 if k not in ("wall_s", "launches", "max_memory_allocated")}
+        phase(name, wall_s={r: v["wall_s"] for r, v in runs.items()},
+              max_memory_allocated={r: v["max_memory_allocated"]
+                                    for r, v in runs.items()},
+              launches={k: v for k, v in got.items() if k != "filter_sum"},
+              **extra)
+    cache.clear()
+    return by_path
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sf", type=float, default=10.0,
@@ -3851,6 +4194,7 @@ def main() -> None:
     by_phase.update(analytic_phase(conn, ctx, li))
     by_phase.update(aggregates_phase(conn, ctx, li))
     by_phase.update(types_phase(conn, ctx, li, args.seed))
+    by_phase.update(complex_phase(conn, ctx, li))
 
     main_shape = kernel["timings"][FILTER_TIMED[0]]
     kernels = [{

@@ -3,8 +3,8 @@ counterparts of tests/test_functions.py's aggregate tests,
 tests/test_collect_aggs.py's scalar kinds and
 tests/test_approx_percentile_merge.py (its distributed test waits for the
 exchange, ROADMAP A.10), plus the HLL hash and bit length, the moments'
-NULL and constant groups, first/last and the names that wait for
-ROADMAP A.6.
+NULL and constant groups, first/last and the eight names with ARRAY or
+MAP results.
 
 Each plan is built by each package's own PlanBuilder over the same
 pyarrow tables and run by each package's Task. Integers and decimals
@@ -399,7 +399,7 @@ def test_accuracy_argument_validation():
         Task(plan, CPU).run()
 
 
-# ---- the hash, the bit length, moments, first/last, A.6 names -------------
+# ---- the hash, the bit length, moments, first/last, ARRAY/MAP results ------
 
 def _key_values(kind, rng, n):
     """(port EvalValue, reference EvalValue) of one key kind with NULLs."""
@@ -533,12 +533,38 @@ def test_first_last_over_batches_is_a_group_value():
         assert f in vals and last in vals
 
 
-@pytest.mark.parametrize("name", [
-    "array_agg", "set_agg", "map_agg", "multimap_agg", "map_union",
-    "histogram", "approx_most_frequent", "bloom_filter_agg"])
+_COMPLEX_CALLS = {
+    "array_agg": "array_agg(x)", "set_agg": "set_agg(x)",
+    "map_agg": "map_agg(k, x)", "multimap_agg": "multimap_agg(k, x)",
+    "map_union": "map_union(m)", "histogram": "histogram(x)",
+    "approx_most_frequent": "approx_most_frequent(2, x, 10)",
+    "bloom_filter_agg": "bloom_filter_agg(x)"}
+
+
+@pytest.mark.parametrize("name", sorted(_COMPLEX_CALLS))
 def test_array_and_map_results_wait_for_complex_types(name):
-    with pytest.raises(NotImplementedError, match="A.6"):
-        A.resolve_aggregate(name, [T.BIGINT, T.BIGINT, T.BIGINT])
+    """The eight names with an ARRAY or MAP result, once waiting for the
+    complex types (ROADMAP A.6), run and equal the reference: grouped
+    but for bloom_filter_agg, which is global only, over NULL values,
+    keys and maps (tests/test_torch_complex.py holds more cases)."""
+    rng = np.random.default_rng(7)
+    n = 120
+    t = pa.table({
+        "g": pa.array(rng.integers(0, 5, n), pa.int64()),
+        "x": pa.array([None if rng.random() < 0.1 else int(v)
+                       for v in rng.integers(0, 9, n)], pa.int64()),
+        "k": pa.array([None if rng.random() < 0.1 else "kqz"[i]
+                       for i in rng.integers(0, 3, n)]),
+        "m": pa.array([None if rng.random() < 0.1 else
+                       {"kqz"[int(i)]: int(i) for i in rng.integers(0, 3, 2)}
+                       for _ in range(n)], pa.map_(pa.string(), pa.int64())),
+    })
+    keys = [] if name == "bloom_filter_agg" else ["g"]
+    got = _both(_single(t, keys, [f"{_COMPLEX_CALLS[name]} as r"]))
+    assert isinstance(A.resolve_aggregate(
+        name, [t.schema.field("m").type if name == "map_union" else T.BIGINT,
+               T.BIGINT]), A.CollectAgg)
+    assert got.num_rows == (1 if not keys else 5)
 
 
 @pytest.mark.parametrize("split", [False, True])

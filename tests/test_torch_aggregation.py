@@ -544,18 +544,20 @@ def test_long_decimal_min_is_single_step_only():
 
 @pytest.mark.parametrize("agg", ["array_agg(k)", "approx_percentile(w, 0.5)"])
 def test_other_collect_aggregates_raise_naming_the_roadmap(agg):
-    """array_agg's ARRAY result waits for the complex types (ROADMAP
-    A.6); approx_percentile, once in the same list, now runs: exact in a
-    single step."""
+    """The collect aggregates once in this list now run: array_agg (its
+    ARRAY result came with the complex types) equals the reference, and
+    approx_percentile is exact in a single step."""
     t = _long_decimal_table(4, 10)
-    plan = lambda: (PlanBuilder().values([t])  # noqa: E731
-                    .single_aggregation([], [f"{agg} as x"]).plan())
+
+    def plan(B):
+        return B().values([t]).single_aggregation([], [f"{agg} as x"]).plan()
+    got = Task(plan(PlanBuilder), CPU).run().column("x").to_pylist()
     if agg.startswith("array_agg"):
-        with pytest.raises(NotImplementedError, match="A.6"):
-            plan()
+        assert got == JTask(plan(JPlanBuilder)).run().column("x").to_pylist()
+        assert got == [t.column("k").to_pylist()]
         return
     w = np.sort(np.asarray(t.column("w")))
-    assert Task(plan(), CPU).run().column("x").to_pylist() == [w[4]]
+    assert got == [w[4]]
 
 
 def test_sorted_group_info_vals_matches_reference():

@@ -13,6 +13,7 @@ import sys
 import textwrap
 from pathlib import Path
 
+import numpy as np
 import pyarrow as pa
 import pytest
 import torch
@@ -167,10 +168,22 @@ def test_unported_node_kinds_raise():
         Task(_needs_unported(3), CPU).run()
     with pytest.raises(NotImplementedError, match=r"TableWriteNode.*A\.8"):
         Task(_needs_unported(18), CPU).run()
-    plan = (PlanBuilder().table_scan("lineitem", ["l_orderkey"])
-            .unnest("l_orderkey").plan())
-    with pytest.raises(NotImplementedError, match=r"UnnestNode.*A\.6"):
-        Task(plan, CPU).run()
+
+
+def test_unnest_runs():
+    """Unnest, once among the kinds to port, runs: the items of each
+    order's l_partkey array, with their ordinality, in scan order."""
+    conn = register_tpch(0.01)
+    plan = (PlanBuilder().table_scan("lineitem", ["l_orderkey", "l_partkey"])
+            .single_aggregation(["l_orderkey"], ["array_agg(l_partkey) as p"])
+            .unnest("p", element_name="e", ordinality="o")
+            .single_aggregation([], ["count() as n", "sum(e) as s",
+                                     "max(o) as m"]).plan())
+    got = Task(plan, CPU).run().to_pylist()
+    li = conn.gen.gen_lineitem(0, conn.gen.num_rows("orders"),
+                               ["l_partkey"])["l_partkey"]
+    assert got == [{"n": len(li), "s": int(li.astype(np.int64).sum()),
+                    "m": 7}]
 
 
 def test_query_device_must_be_named():

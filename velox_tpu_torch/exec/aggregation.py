@@ -24,12 +24,18 @@ check rides each compaction's one host read.
 
 Collect mode (the reference's collect pathway): when an aggregate has no
 segment-combinable state (min_by/max_by over wide types, min/max over a
-long decimal, mode, approx_percentile), the operator retains each
+long decimal, mode, approx_percentile, and the ARRAY/MAP results:
+array_agg, set_agg, map_agg, multimap_agg, histogram,
+approx_most_frequent, bloom_filter_agg), the operator retains each
 batch's keys and aggregate inputs and computes every aggregate at the end
-from one radix sort of the rows by (group keys, value). Single-step only,
-except one approx_percentile, whose PARTIAL step emits at most K
-weighted quantile knots a group and whose FINAL step re-selects by
-weighted rank (``_pct_compress``, ``_pct_final``).
+from one radix sort of the rows by (group keys, value). A collection's
+elements are the passing sorted rows compacted in place (a scatter), so
+each group's elements are contiguous: the result column is dense, with
+per-group counts and element children of the retained rows' capacity.
+array_agg keeps input order through the keys-only sort, which is stable.
+Single-step only, except one approx_percentile, whose PARTIAL step emits
+at most K weighted quantile knots a group and whose FINAL step
+re-selects by weighted rank (``_pct_compress``, ``_pct_final``).
 
 Not ported: host offload of partial runs (ROADMAP A.7) and the
 reference's compiled-program caches.
@@ -51,13 +57,14 @@ from velox_tpu_torch.expression.eval import (
     EvalCtx, EvalValue, ExprSet, value_from_column,
 )
 from velox_tpu_torch.functions.aggregates import (
-    ApproxDistinctAgg, ApproxPercentileAgg, CollectAgg, CountAgg,
-    RegisterAddend, masked,
+    ApproxDistinctAgg, ApproxMostFrequentAgg, ApproxPercentileAgg, ArrayAgg,
+    BloomFilterAgg, CollectAgg, CountAgg, RegisterAddend, masked,
     resolve_aggregate,
 )
 from velox_tpu_torch.ops.gather import take_rows
 from velox_tpu_torch.ops.wide import (
-    scatter_unique_set, segment_offsets, segmented_reduce_sorted,
+    compact_kept, scatter_unique_set, segment_offsets,
+    segmented_reduce_sorted,
 )
 from velox_tpu_torch.vector import strings as S
 from velox_tpu_torch.vector.device import DeviceBatch, DeviceColumn
@@ -94,7 +101,7 @@ def _const_arg(call, i: int, what: str) -> float:
     c = call.inputs[i]
     if not isinstance(c, ex.Constant):
         raise NotImplementedError(
-            f"approx_percentile: {what} must be a constant")
+            f"{call.name}: {what} must be a constant")
     v = float(c.value)
     if c.dtype.kind is T.TypeKind.DECIMAL:
         v /= 10.0 ** c.dtype.scale
@@ -181,6 +188,15 @@ class AggregationOperator(Operator):
                 "(but for one approx_percentile, which splits through its "
                 "mergeable knot summary)")
         for a, call in zip(self._aggs, self._agg_calls):
+            if isinstance(a, BloomFilterAgg) and len(call.inputs) > 1:
+                # numBits given (argument 3), or ~8 bits an item (2)
+                want = int(_const_arg(call, 2, "the bit count")
+                           if len(call.inputs) > 2
+                           else 8 * _const_arg(call, 1, "the item count"))
+                a.num_bits = max(1 << 10, min(
+                    1 << 23, 1 << max(1, want - 1).bit_length()))
+            if isinstance(a, ApproxMostFrequentAgg):
+                a.buckets = int(_const_arg(call, 0, "buckets"))
             if not isinstance(a, ApproxPercentileAgg):
                 continue
             a.percentile = _const_arg(call, 1, "percentage")
@@ -355,8 +371,11 @@ class AggregationOperator(Operator):
         percentile's value only (its percentage and accuracy are
         constants)."""
         call = self._agg_calls[i]
-        if isinstance(self._aggs[i], ApproxPercentileAgg):
+        if isinstance(self._aggs[i],
+                      (ApproxPercentileAgg, BloomFilterAgg)):
             return [call.inputs[0]]
+        if isinstance(self._aggs[i], ApproxMostFrequentAgg):
+            return [call.inputs[1]]  # buckets and capacity are constants
         return list(call.inputs)
 
     def _collect_prep(self, batch: DeviceBatch) -> DeviceBatch:
@@ -410,10 +429,22 @@ class AggregationOperator(Operator):
             while f"__a{i}_{len(args)}" in cols:
                 args.append(cols[f"__a{i}_{len(args)}"])
             check_raw_args(agg, args)
+            if isinstance(agg, ArrayAgg):
+                out_cols[out_name] = _array_agg(
+                    agg, args[0], row_active, (gid, boundary, act_s),
+                    perm, gmask, cap)
+                continue
             if isinstance(agg, CollectAgg):
-                collect = {"mode": self._collect_mode_value,
-                           "approx_percentile": self._collect_percentile,
-                           }.get(agg.collect_kind, self._collect_min_max_by)
+                collect = {
+                    "mode": self._collect_mode_value,
+                    "approx_percentile": self._collect_percentile,
+                    "approx_most_frequent": self._collect_most_frequent,
+                    "bloom": self._collect_bloom,
+                    "set_agg": self._collect_runs,
+                    "map_agg": self._collect_runs,
+                    "multimap_agg": self._collect_runs,
+                    "histogram": self._collect_runs,
+                }.get(agg.collect_kind, self._collect_min_max_by)
                 out_cols[out_name] = collect(agg, args, row_active, keys,
                                              active, gmask, cap)
                 continue
@@ -468,23 +499,13 @@ class AggregationOperator(Operator):
 
     def _run_counts(self, keys, v, row_active, active, cap: int):
         """The (group, value) sort of the rows and, per sorted row, the
-        passing rows of its (group, value) run: (perm, pass_, count)."""
+        passing rows of its (group, value) run: (perm, count)."""
         perm, gid, boundary, act_s, _, vb = G.sorted_group_info_vals(
             keys, [v], active, cap, self._key_ranges)
         pass_ = row_active[perm] & act_s
         if v.validity is not None:
             pass_ = pass_ & v.full_validity(cap)[perm]
-        p64 = pass_.to(torch.int64)
-        run_id = torch.cumsum(vb.to(torch.int64), 0) - 1
-        c = torch.cumsum(p64, 0)
-        ce = c - p64
-        rs_ce = scatter_unique_set(cap + 1, torch.where(vb, run_id, cap),
-                                   ce)[:cap]
-        is_end = torch.cat([vb[1:], torch.ones((1,), dtype=torch.bool,
-                                               device=vb.device)])
-        re_c = scatter_unique_set(cap + 1, torch.where(is_end, run_id, cap),
-                                  c)[:cap]
-        return perm, take_rows(re_c - rs_ce, run_id)
+        return perm, _run_sizes(pass_, vb, cap)
 
     def _collect_mode_value(self, agg, args, row_active, keys, active,
                             gmask, cap: int) -> DeviceColumn:
@@ -533,6 +554,123 @@ class AggregationOperator(Operator):
                              torch.clamp(n - 1, min=0))
         idx = torch.clamp(starts + rank, 0, cap - 1)
         return _picked(v, perm, tgt, idx, gmask & (n > 0), agg.result_type)
+
+    def _collect_most_frequent(self, agg, args, row_active, keys, active,
+                               gmask, cap: int) -> DeviceColumn:
+        """approx_most_frequent, exact: each row's (group, value) run
+        count, then a sort by (group, -count, value) whose first
+        ``buckets`` runs of each group are the most frequent values."""
+        (v,) = args
+        perm, run_cnt = self._run_counts(keys, v, row_active, active, cap)
+        cnt = torch.zeros((cap,), dtype=torch.int64, device=perm.device)
+        cnt[perm] = run_cnt
+        negc = EvalValue(-cnt, None, T.BIGINT)
+        perm2, gid2, b2, act2, _, vb2 = G.sorted_group_info_vals(
+            keys, [negc, v], active, cap, self._key_ranges)
+        pass2 = row_active[perm2] & act2
+        if v.validity is not None:
+            pass2 = pass2 & v.full_validity(cap)[perm2]
+        first2 = _run_heads(pass2, vb2, cap)
+        f64 = first2.to(torch.int64)
+        before = torch.cumsum(f64, 0) - f64  # runs taken before a row
+        # the count at each group's first row: a scatter and a gather
+        base = scatter_unique_set(cap + 1, torch.where(b2, gid2, cap),
+                                  before)[:cap]
+        take = first2 & (before - take_rows(base, gid2) < agg.buckets)
+        (kd, _), (cd, _) = compact_kept(
+            [(take_rows(v.full_data(cap), perm2), None),
+             (take_rows(cnt, perm2), None)], take & act2)
+        lengths = _run_lengths(take, gid2, b2, act2, gmask)
+        kt = agg.result_type.children[0]
+        return DeviceColumn(lengths, gmask, agg.result_type, None,
+                            (DeviceColumn(kd, None, kt, v.dictionary),
+                             DeviceColumn(cd, None, T.BIGINT)))
+
+    def _collect_bloom(self, agg, args, row_active, keys, active, gmask,
+                       cap: int) -> DeviceColumn:
+        """bloom_filter_agg: the K probes of every passing non-NULL row
+        set their bits of an m-bit filter, packed 32 to an INTEGER (bit j
+        of word w is bit 32 w + j)."""
+        from velox_tpu_torch.exec.hashtable import bloom_hashes
+        if self._keys:
+            raise NotImplementedError(
+                "bloom_filter_agg supports global aggregation only (build "
+                "it with a scalar subquery)")
+        (v,) = args
+        m = agg.num_bits
+        keep = row_active
+        if v.validity is not None:
+            keep = keep & v.full_validity(cap)
+        h1, h2 = bloom_hashes(v, cap)
+        bits = torch.zeros((m + 1,), dtype=torch.int32, device=h1.device)
+        for i in range(agg.K):
+            pos = (h1 + i * h2) & (m - 1)
+            bits[torch.where(keep, pos, m)] = 1
+        weights = torch.ones((32,), dtype=torch.int64, device=h1.device) \
+            << torch.arange(32, device=h1.device)
+        words = (bits[:m].view(m // 32, 32).to(torch.int64) * weights).sum(1)
+        # the words' 32 bits as int32 (bit 31 set -> negative)
+        words = ((words ^ (1 << 31)) - (1 << 31)).to(torch.int32)
+        lengths = torch.zeros((cap,), dtype=torch.int32, device=h1.device)
+        lengths[0] = m // 32
+        return DeviceColumn(lengths, gmask, agg.result_type, None,
+                            (DeviceColumn(words, None, T.INTEGER),))
+
+    def _collect_runs(self, agg, args, row_active, keys, active, gmask,
+                      cap: int) -> DeviceColumn:
+        """set_agg, map_agg, multimap_agg and histogram over one sort of
+        the rows by (group, value): the first passing row of each
+        (group, value) run is the distinct value (set_agg, keeping a NULL
+        once), the entry (map_agg) or the key (multimap_agg, whose values
+        are the run's passing rows, compacted in the same row order), and
+        histogram counts the run. NULL keys drop out of the map kinds."""
+        kind = agg.collect_kind
+        v = args[0]
+        perm, gid, boundary, act_s, _, vb = G.sorted_group_info_vals(
+            keys, [v], active, cap, self._key_ranges)
+        pass_ = row_active[perm] & act_s
+        val_s = None if v.validity is None else v.full_validity(cap)[perm]
+        if kind != "set_agg" and val_s is not None:
+            pass_ = pass_ & val_s
+        first = _run_heads(pass_, vb, cap)
+        data_s = take_rows(v.full_data(cap), perm)
+        lengths = _run_lengths(first, gid, boundary, act_s, gmask)
+        et = agg.result_type.children[0]
+        if kind == "set_agg":
+            ((d, dv),) = compact_kept([(data_s, val_s)], first & act_s)
+            return DeviceColumn(lengths, gmask, agg.result_type, None,
+                                (DeviceColumn(d, dv, et, v.dictionary),))
+        if kind == "histogram":
+            ((d, _), (c, _)) = compact_kept(
+                [(data_s, None), (_run_sizes(pass_, vb, cap), None)],
+                first & act_s)
+            return DeviceColumn(lengths, gmask, agg.result_type, None,
+                                (DeviceColumn(d, None, et, v.dictionary),
+                                 DeviceColumn(c, None, T.BIGINT)))
+        w = args[1]
+        wd = take_rows(w.full_data(cap), perm)
+        wv = None if w.validity is None else w.full_validity(cap)[perm]
+        if kind == "map_agg":
+            ((d, _), (vd, vv)) = compact_kept([(data_s, None), (wd, wv)],
+                                              first & act_s)
+            return DeviceColumn(lengths, gmask, agg.result_type, None,
+                                (DeviceColumn(d, None, et, v.dictionary),
+                                 DeviceColumn(vd, vv, agg.value_type,
+                                              w.dictionary)))
+        # multimap_agg: one entry a (group, key) run, whose array holds
+        # the run's passing rows' values in their order
+        ((d, _), (n, _)) = compact_kept(
+            [(data_s, None),
+             (_run_sizes(pass_, vb, cap).to(torch.int32), None)],
+            first & act_s)
+        ((vd, vv),) = compact_kept([(wd, wv)], pass_ & act_s)
+        at = agg.result_type.children[1]
+        values = DeviceColumn(n, None, at, None,
+                              (DeviceColumn(vd, vv, agg.value_type,
+                                            w.dictionary),))
+        return DeviceColumn(lengths, gmask, agg.result_type, None,
+                            (DeviceColumn(d, None, et, v.dictionary),
+                             values))
 
     # ---- approx_percentile split into PARTIAL and FINAL -------------------
     #
@@ -861,6 +999,52 @@ class AggregationOperator(Operator):
             i += n_states
             out_cols[out_name] = self._result_column(res, 1, d)
         return DeviceBatch(out_cols, one)
+
+
+def _run_lengths(keep, gid, boundary, act_s, gmask) -> torch.Tensor:
+    """Each group's count of kept sorted rows (int32), 0 past the last
+    group, so the counts' prefix sum is each group's first element."""
+    n = segmented_reduce_sorted((keep & act_s).to(torch.int64), gid,
+                                boundary, act_s, gmask.shape[0], "sum")
+    return torch.where(gmask, n, 0).to(torch.int32)
+
+
+def _run_heads(pass_: torch.Tensor, vb: torch.Tensor, cap: int):
+    """The first passing sorted row of each (group, value) run."""
+    p64 = pass_.to(torch.int64)
+    run_id = torch.cumsum(vb.to(torch.int64), 0) - 1
+    ce = torch.cumsum(p64, 0) - p64
+    start_ce = scatter_unique_set(cap + 1, torch.where(vb, run_id, cap),
+                                  ce)[:cap]
+    return pass_ & (ce == take_rows(start_ce, run_id))
+
+
+def _run_sizes(pass_: torch.Tensor, vb: torch.Tensor, cap: int):
+    """Per sorted row, the passing rows of its (group, value) run."""
+    p64 = pass_.to(torch.int64)
+    run_id = torch.cumsum(vb.to(torch.int64), 0) - 1
+    c = torch.cumsum(p64, 0)
+    start = scatter_unique_set(cap + 1, torch.where(vb, run_id, cap),
+                               c - p64)[:cap]
+    is_end = torch.ones_like(vb)
+    is_end[:-1] = vb[1:]
+    end = scatter_unique_set(cap + 1, torch.where(is_end, run_id, cap),
+                             c)[:cap]
+    return take_rows(end - start, run_id)
+
+
+def _array_agg(agg, v: EvalValue, row_active, skeleton, perm, gmask,
+               cap: int) -> DeviceColumn:
+    """array_agg: the passing rows of each group in the keys-only sort's
+    order, the input order (the sort is stable), NULLs kept."""
+    gid, boundary, act_s = skeleton
+    keep = row_active[perm]
+    val = None if v.validity is None else v.full_validity(cap)[perm]
+    ((d, dv),) = compact_kept([(take_rows(v.full_data(cap), perm), val)],
+                              keep & act_s)
+    child = DeviceColumn(d, dv, agg.result_type.children[0], v.dictionary)
+    return DeviceColumn(_run_lengths(keep, gid, boundary, act_s, gmask),
+                        gmask, agg.result_type, None, (child,))
 
 
 def _masked_state(data: torch.Tensor, keep: torch.Tensor,

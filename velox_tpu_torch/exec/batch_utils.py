@@ -5,12 +5,15 @@ active rows to the front) is done only at operator boundaries that profit
 (buffered sorts, aggregation runs), as in the reference. Every function
 keeps the batch on its device and never reads a device value on the host.
 
-A DECIMAL(19..38) column's high limb and a raw string's byte lengths
-(``children[0]``) are row-aligned and move with their parent; raw byte
-matrices of different size classes concatenate after zero-padding to the
-widest, and their row gathers run through kernel B5 as 8-byte lanes
-(ops/gather.py ``take_rows``). ARRAY/MAP/ROW columns are not ported
-(vector/device.py) and raise here.
+A DECIMAL(19..38) column's high limb, a raw string's byte lengths
+(``children[0]``) and a ROW column's fields are row-aligned and move with
+their parent; raw byte matrices of different size classes concatenate
+after zero-padding to the widest, and their row gathers run through
+kernel B5 as 8-byte lanes (ops/gather.py ``take_rows``). An ARRAY/MAP
+column's element children stay where they are: a row transform moves its
+counts and its per-row element starts (vector/device.py), so a gathered
+row still finds its elements, and a concatenation appends the parts'
+children in element space and shifts each part's starts.
 """
 
 from __future__ import annotations
@@ -19,15 +22,21 @@ from typing import Callable, Dict, List
 
 import torch
 
+from velox_tpu_torch import types as T
 from velox_tpu_torch.ops.gather import take_many_rows, take_rows
 from velox_tpu_torch.vector import strings as S
 from velox_tpu_torch.vector.device import DeviceBatch, DeviceColumn
 
 
-def _check_flat(col: DeviceColumn) -> None:
-    if col.dtype.is_complex:
-        raise NotImplementedError(
-            f"{col.dtype} columns are not ported to velox_tpu_torch")
+def _row_aligned_children(col: DeviceColumn) -> bool:
+    """Whether the column's children have its rows (ROW fields, a long
+    decimal's high limb, a raw string's lengths) rather than elements."""
+    return (col.dtype.kind is T.TypeKind.ROW or col.dtype.is_long_decimal
+            or S.is_raw(col))
+
+
+def _element_children(col: DeviceColumn) -> bool:
+    return col.dtype.kind in (T.TypeKind.ARRAY, T.TypeKind.MAP)
 
 
 def concat_batches(batches: List[DeviceBatch]) -> DeviceBatch:
@@ -37,7 +46,6 @@ def concat_batches(batches: List[DeviceBatch]) -> DeviceBatch:
 
     def concat_cols(parts: List[DeviceColumn]) -> DeviceColumn:
         first = parts[0]
-        _check_flat(first)
         if S.is_raw(first):
             w = max(p.data.shape[1] for p in parts)
             data = torch.cat([S.pad_width(p.data, w) for p in parts])
@@ -52,12 +60,19 @@ def concat_batches(batches: List[DeviceBatch]) -> DeviceBatch:
         else:
             validity = None
         children = first.children
-        if first.dtype.is_long_decimal or S.is_raw(first):
-            # the high limb (or the lengths) concatenates with the parent
+        starts = None
+        if _row_aligned_children(first) or _element_children(first):
             children = tuple(concat_cols([p.children[i] for p in parts])
                              for i in range(len(first.children)))
+        if _element_children(first):
+            # each part's rows point past the element capacity before it
+            shift, pieces = 0, []
+            for p in parts:
+                pieces.append(p.offsets() + shift)
+                shift += p.children[0].capacity
+            starts = torch.cat(pieces)
         return DeviceColumn(data, validity, first.dtype, first.dictionary,
-                            children)
+                            children, starts)
 
     cols = {name: concat_cols([b.columns[name] for b in batches])
             for name in batches[0].columns}
@@ -69,14 +84,19 @@ def map_column_rows(col: DeviceColumn,
                     f: Callable[[torch.Tensor], torch.Tensor]
                     ) -> DeviceColumn:
     """Apply a row-axis transform to a column and to its row-aligned
-    children (the long-decimal high limb, a raw string's lengths)."""
-    _check_flat(col)
+    children (ROW fields, the long-decimal high limb, a raw string's
+    lengths); an ARRAY/MAP column's element starts go through it too,
+    made explicit, and its element children stay shared."""
     data = f(col.data)
     validity = f(col.validity) if col.validity is not None else None
     children = col.children
-    if col.dtype.is_long_decimal or S.is_raw(col):
+    starts = None
+    if _row_aligned_children(col):
         children = tuple(map_column_rows(c, f) for c in col.children)
-    return DeviceColumn(data, validity, col.dtype, col.dictionary, children)
+    elif _element_children(col):
+        starts = f(col.offsets())
+    return DeviceColumn(data, validity, col.dtype, col.dictionary, children,
+                        starts)
 
 
 def take_columns_rows(columns: Dict[str, DeviceColumn],

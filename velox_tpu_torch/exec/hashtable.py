@@ -75,6 +75,35 @@ def hash_rows(keys: Sequence[EvalValue], capacity: int) -> torch.Tensor:
     return h
 
 
+def bloom_hashes(v: EvalValue, capacity: int
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(h1, h2), 32-bit hashes (int64) of a value for a double-hashed
+    bloom filter: probe i of k sets bit (h1 + i * h2) mod m. The
+    reference's layout, bit for bit. The hashes follow the value, not its
+    storage: a dictionary string hashes its text (crc32 of the UTF-8, one
+    host pass over the dictionary, then a gather by id) and a number its
+    type's canonical width, so two columns with other dictionaries or
+    widths agree. A raw string raises, as in the reference."""
+    if v.dtype.is_string:
+        if v.dictionary is None:
+            raise NotImplementedError(
+                "bloom over non-dictionary string columns")
+        import zlib
+        table = torch.tensor([zlib.crc32(str(x).encode("utf-8"))
+                              for x in v.dictionary.values] or [0],
+                             dtype=torch.int64, device=v.data.device)
+        ids = torch.clamp(v.full_data(capacity).to(torch.int64), 0,
+                          table.shape[0] - 1)
+        h1 = _mix32(take_rows(table, ids) ^ 0x9E3779B9)
+    else:
+        want = v.dtype.torch_dtype()
+        data = v.full_data(capacity)
+        if data.dtype != want:
+            v = EvalValue(data.to(want), v.validity, v.dtype)
+        h1 = hash_rows([v], capacity)
+    return h1, _mix32(h1 ^ 0xB5297A4D)
+
+
 def _lane(d: torch.Tensor) -> torch.Tensor:
     """A key column as a lane B5 gathers: narrower than 4 bytes -> int32."""
     return d.to(torch.int32) if d.element_size() < 4 else d

@@ -597,7 +597,7 @@ class HashJoinOperator(Operator):
                 validity = (~null_out if validity is None
                             else validity & ~null_out)
             cols[name] = DeviceColumn(c.data, validity, c.dtype,
-                                      c.dictionary, c.children)
+                                      c.dictionary, c.children, c.starts)
         return cols
 
     # ---- unique-build fast path (no host sync) -------------------------------

@@ -18,7 +18,10 @@ Counterpart of ``velox_tpu/exec/misc_ops.py`` (all under velox/exec/):
   build columns come through kernel B5, all of a side's arrays through one
   index (exec/batch_utils.py ``take_columns_rows``).
 
-Not ported: Unnest, which waits for ARRAY columns (ROADMAP A.6).
+* ``UnnestOperator`` (Unnest.h): one row per ARRAY or MAP element, with
+  an optional ordinality, the other columns repeated. Its output capacity
+  is the element capacity, so a dense column needs no host read; the
+  repeated columns and the elements come through kernel B5.
 """
 
 from __future__ import annotations
@@ -36,7 +39,10 @@ from velox_tpu_torch.exec.batch_utils import (
 from velox_tpu_torch.exec.join import _null_column, null_like
 from velox_tpu_torch.exec.operator import Operator
 from velox_tpu_torch.expression.eval import ExprSet, value_from_column
-from velox_tpu_torch.vector.device import DeviceBatch, DeviceColumn
+from velox_tpu_torch.ops.gather import take_rows
+from velox_tpu_torch.vector.device import (
+    DeviceBatch, DeviceColumn, default_capacity,
+)
 from velox_tpu_torch.vector.strings import reject_raw
 
 
@@ -362,3 +368,69 @@ class GroupIdOperator(_CopiesOperator):
                 T.BIGINT)
             outs.append(DeviceBatch(cols, batch.mask))
         return outs
+
+
+class UnnestOperator(Operator):
+    """One row per element of an ARRAY (or entry of a MAP), with a 1-based
+    ordinality when the node names one; the other columns repeat for
+    each of their row's elements. Element j of the output belongs to the
+    row whose running element count first exceeds j. The output capacity
+    is the column's element capacity, which bounds a dense column's live
+    elements, so nothing is read on the host; a column whose rows were
+    gathered (explicit starts) may repeat elements, and reads its total
+    once to size the output."""
+
+    def __init__(self, node: P.UnnestNode):
+        super().__init__(node)
+        self._node = node
+        st = node.source.output_type()
+        ut = st.field_type(node.unnest_column)
+        # the reference's limits (ROADMAP C)
+        for n, t in zip(st.names, st.children):
+            if n != node.unnest_column and t.is_complex:
+                raise NotImplementedError(
+                    "repeating complex columns through Unnest")
+        if any(c.is_complex for c in ut.children):
+            raise NotImplementedError("nested complex unnest")
+        self._out: Optional[DeviceBatch] = None
+
+    def add_input(self, batch: DeviceBatch):
+        node = self._node
+        cap = batch.capacity
+        col = batch.columns[node.unnest_column]
+        ecap = col.children[0].capacity
+        valid = batch.mask
+        if col.validity is not None:
+            valid = valid & col.validity
+        lens = torch.where(valid, col.data.to(torch.int64), 0)
+        cum = torch.cumsum(lens, 0)
+        out_cap = ecap
+        if col.starts is not None:
+            out_cap = max(ecap, default_capacity(int(cum[-1].item())))
+        j = torch.arange(out_cap, dtype=torch.int64, device=batch.device)
+        row_c = torch.clamp(torch.searchsorted(cum, j, right=True), 0,
+                            cap - 1)
+        within = j - (take_rows(cum, row_c) - take_rows(lens, row_c))
+        src = torch.clamp(take_rows(col.offsets(), row_c) + within, 0,
+                          ecap - 1)
+        cols = take_columns_rows(
+            {n: c for n, c in batch.columns.items()
+             if n != node.unnest_column}, row_c)
+        names = ([node.element_name, node.value_name]
+                 if col.dtype.kind is T.TypeKind.MAP
+                 else [node.element_name])
+        cols.update(take_columns_rows(dict(zip(names, col.children)), src))
+        if node.ordinality_name:
+            cols[node.ordinality_name] = DeviceColumn(within + 1, None,
+                                                      T.BIGINT)
+        self._out = DeviceBatch(cols, j < cum[-1])
+
+    def get_output(self):
+        out, self._out = self._out, None
+        return out
+
+    def needs_input(self):
+        return not self._no_more_input and self._out is None
+
+    def is_finished(self):
+        return self._no_more_input and self._out is None

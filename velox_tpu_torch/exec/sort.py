@@ -75,8 +75,14 @@ def _signed_words(data: torch.Tensor) -> List[torch.Tensor]:
 
 
 def value_words(v: EvalValue, capacity: int) -> List[torch.Tensor]:
-    """Order-preserving unsigned words, most significant first."""
+    """Order-preserving unsigned words, most significant first. An
+    ARRAY/MAP/ROW value has none: a sort, group or join key of such a
+    type raises (the reference orders an ARRAY by its element count and
+    fails on a group key)."""
     dt = v.dtype
+    if dt.is_complex:
+        raise NotImplementedError(
+            f"a {dt} sort, grouping or join key is not supported")
     if dt.is_string and v.dictionary is None:
         if v.data is None or v.data.dim() != 2:
             raise ValueError("a string sort key needs a dictionary or raw "

@@ -11,7 +11,7 @@ filter), Filter/Project chains (fused, exec/fuse.py), Aggregation (the
 filter-sum kernel for a Q6-shaped global ``sum(a * b)``,
 ops/filter_reduce.py, and the generic operator of exec/aggregation.py
 for every other plan, with partial-aggregation abandonment), OrderBy,
-TopN and Limit (a Limit over an OrderBy runs as a TopN), HashJoin
+TopN and Limit (a Limit over an OrderBy runs as a TopN), Unnest, HashJoin
 (exec/join.py: the build pipeline runs to completion, then the probe
 pipeline streams; the probe side's scans start before the build runs),
 NestedLoopJoin (exec/misc_ops.py, built and probed the same way),
@@ -20,10 +20,12 @@ sort, and probes binary-search it; key tuples beyond one packed lane
 take the hash join), MarkDistinct, AssignUniqueId, Expand, GroupId
 (exec/misc_ops.py), Window, RowNumber and TopNRowNumber (exec/window.py).
 An aggregation over an OrderBy on its grouping keys streams
-(exec/streaming_agg.py, unless ``STREAMING_AGG_ENABLED`` is false). The
-kinds still to port raise NotImplementedError naming their ROADMAP item:
-Unnest (A.6), TableWrite and LocalPartition/LocalMerge (A.8), Exchange,
-MergeExchange and PartitionedOutput (A.10).
+(exec/streaming_agg.py, unless ``STREAMING_AGG_ENABLED`` is false), and
+one whose aggregate is ``map_union`` runs as an Unnest of the maps and a
+``map_agg`` of their entries. The kinds still to port raise
+NotImplementedError naming their ROADMAP item: TableWrite and
+LocalPartition/LocalMerge (A.8), Exchange, MergeExchange and
+PartitionedOutput (A.10).
 
 *Dynamic filters* (``DYNAMIC_FILTERS``, HashProbe.cpp:393): once an
 inner or semi join's build is done, the build keys' ``IN`` list (at most
@@ -72,6 +74,7 @@ from velox_tpu_torch.exec.memory import MemoryPool
 from velox_tpu_torch.exec.misc_ops import (
     AssignUniqueIdOperator, EnforceSingleRowOperator, ExpandOperator,
     GroupIdOperator, MarkDistinctOperator, NestedLoopJoinOperator,
+    UnnestOperator,
 )
 from velox_tpu_torch.exec.orderby import OrderByOperator, TopNOperator
 from velox_tpu_torch.exec.sort import packable_words
@@ -95,6 +98,7 @@ _UNARY = {
     P.TopNRowNumberNode: TopNRowNumberOperator,
     P.TopNNode: TopNOperator,
     P.OrderByNode: OrderByOperator,
+    P.UnnestNode: UnnestOperator,
 }
 
 # joins whose unmatched probe rows are dropped: they take dynamic filters
@@ -102,7 +106,6 @@ _FILTERED_JOINS = (P.JoinType.INNER, P.JoinType.LEFT_SEMI_FILTER)
 
 # node kinds still to port, and their ROADMAP item
 _UNPORTED = {
-    P.UnnestNode: "A.6 (ARRAY columns)",
     P.TableWriteNode: "A.8",
     P.LocalPartitionNode: "A.8",
     P.LocalMergeNode: "A.8",
@@ -110,6 +113,35 @@ _UNPORTED = {
     P.MergeExchangeNode: "A.10",
     P.PartitionedOutputNode: "A.10",
 }
+
+
+def _map_union_plan(node: P.AggregationNode) -> Optional[P.PlanNode]:
+    """map_union(m) as Unnest(m -> k, v) + map_agg(k, v), whose first
+    entry of a duplicate key wins: Presto's arbitrary value for a key
+    that repeats (MapUnionAggregate.cpp). None when the node has no
+    map_union."""
+    calls = [c for c in node.aggregates if c.name == "map_union"]
+    if not calls:
+        return None
+    if len(node.aggregates) != 1:
+        raise NotImplementedError(
+            "map_union cannot mix with other aggregates (the unnest "
+            "rewrite changes row counts)")
+    inp = calls[0].inputs[0]
+    if not isinstance(inp, ex.FieldAccess):
+        raise NotImplementedError("map_union argument must be a column")
+    kname, vname = "__mu_k", "__mu_v"
+    unnest = P.UnnestNode(f"{node.id}__mu", source=node.source,
+                          unnest_column=inp.name, element_name=kname,
+                          value_name=vname)
+    kt, vt = inp.dtype.children
+    return P.AggregationNode(
+        node.id, source=unnest, step=node.step,
+        grouping_keys=node.grouping_keys,
+        aggregate_names=node.aggregate_names,
+        aggregates=(P.AggregateCall(
+            "map_agg", (ex.field(kname, kt), ex.field(vname, vt)),
+            calls[0].result_type),))
 
 
 class QueryCtx:
@@ -224,6 +256,9 @@ class Task:
             chain = collapse_chain(node)
             op = FilterProjectOperator(node, chain_fn(chain))
             yield from self._drive(chain.source, op)
+        elif isinstance(node, P.AggregationNode) \
+                and _map_union_plan(node) is not None:
+            yield from self._run_node(_map_union_plan(node))
         elif isinstance(node, P.AggregationNode):
             chain = collapse_chain(node.source)
             if self._streams(node):

@@ -46,9 +46,11 @@ class EvalValue:
 
     data: tensor of shape () or (capacity,). For strings: int32 dict ids.
     validity: None (no nulls) or a bool tensor broadcastable to data.
-    py_value: set for unresolved string constants (data is None) and kept
-    beside every constant's device scalar.
-    children: the high-limb column of a long decimal.
+    py_value: set for unresolved string and complex constants (data is
+    None) and kept beside every constant's device scalar.
+    children: the high-limb column of a long decimal; the element columns
+    of an ARRAY/MAP (data holds the counts) and the fields of a ROW.
+    starts: an ARRAY/MAP's explicit element starts (vector/device.py).
     """
 
     data: Any
@@ -57,6 +59,11 @@ class EvalValue:
     dictionary: Optional[Dictionary] = None
     py_value: Any = None
     children: tuple = ()
+    starts: Any = None
+
+    @property
+    def is_scalar(self) -> bool:
+        return self.data is not None and self.data.dim() == 0
 
     def full_data(self, capacity: int):
         if self.data is None:
@@ -93,12 +100,13 @@ class EvalValue:
                          c.dtype) if c.data.dim() == 0 else c
             for c in self.children)
         return DeviceColumn(self.full_data(capacity).contiguous(), v,
-                            self.dtype, self.dictionary, children)
+                            self.dtype, self.dictionary, children,
+                            self.starts)
 
 
 def value_from_column(col: DeviceColumn) -> EvalValue:
     return EvalValue(col.data, col.validity, col.dtype, col.dictionary,
-                     children=col.children)
+                     children=col.children, starts=col.starts)
 
 
 def merge_validity(*vals: EvalValue):
@@ -212,8 +220,9 @@ def _eval_constant(expr: ex.Constant, ctx: EvalCtx) -> EvalValue:
     dev = ctx.device
     if v is None:
         return ex_null(dt, dev)
-    if dt.is_string:
-        # unresolved until a consumer binds it against a dictionary
+    if dt.is_string or dt.is_complex:
+        # unresolved until a consumer binds it against a dictionary (a
+        # string) or reads its Python value (a complex constant)
         return EvalValue(None, None, dt, py_value=v)
     if dt.kind is T.TypeKind.DECIMAL and not isinstance(v, int):
         # float/Decimal literals: store the scaled int

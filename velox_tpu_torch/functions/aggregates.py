@@ -17,9 +17,10 @@ arbitrary/any_value, the six variance and stddev names, skewness,
 kurtosis, min_by/max_by (the 32-bit pair packing, and the collect
 pathway for wider arguments), first/first_value/last/last_value,
 approx_distinct (HyperLogLog registers: a vector state of 512 int32 a
-group), and the collect kinds mode and approx_percentile (rows retained,
-sorted by (group, value); exec/aggregation.py). The names whose result
-is an ARRAY or a MAP raise NotImplementedError naming ROADMAP A.6.
+group), and the collect kinds (rows retained, sorted by (group, value);
+exec/aggregation.py): mode, approx_percentile and the eight with an
+ARRAY or MAP result, array_agg, set_agg, map_agg, multimap_agg,
+map_union, histogram, approx_most_frequent and bloom_filter_agg.
 """
 
 from __future__ import annotations
@@ -605,12 +606,100 @@ class ApproxPercentileAgg(CollectAgg):
         return T.row(["v", "w"], [self.input_type, T.BIGINT])
 
 
-# the reference's aggregates whose result is an ARRAY or a MAP (the
-# bloom filter's sketch is ARRAY(INTEGER)): they come with the complex
-# types (ROADMAP A.6)
-_COMPLEX_RESULT = (
-    "array_agg", "set_agg", "map_agg", "multimap_agg", "map_union",
-    "histogram", "approx_most_frequent", "bloom_filter_agg")
+class ArrayAgg(CollectAgg):
+    """array_agg(x): a group's values, NULLs kept, in input order."""
+    collect_kind = "array_agg"
+
+    def __init__(self, input_type: T.DataType):
+        self.name = "array_agg"
+        self.input_type = input_type
+        self.result_type = T.array(input_type)
+
+
+class SetAgg(CollectAgg):
+    """set_agg(x): a group's distinct values, sorted, NULL once at the
+    end."""
+    collect_kind = "set_agg"
+
+    def __init__(self, input_type: T.DataType):
+        self.name = "set_agg"
+        self.input_type = input_type
+        self.result_type = T.array(input_type)
+
+
+class MapAgg(CollectAgg):
+    """map_agg(k, v): one entry per distinct non-NULL key (the first of
+    its rows in input order), keys sorted."""
+    collect_kind = "map_agg"
+
+    def __init__(self, key_type: T.DataType, value_type: T.DataType):
+        self.name = "map_agg"
+        self.input_type = key_type
+        self.value_type = value_type
+        self.result_type = T.map_(key_type, value_type)
+
+
+class MultimapAgg(CollectAgg):
+    """multimap_agg(k, v) -> map(k, array(v)): every value of each
+    non-NULL key, NULL values kept."""
+    collect_kind = "multimap_agg"
+
+    def __init__(self, key_type: T.DataType, value_type: T.DataType):
+        self.name = "multimap_agg"
+        self.input_type = key_type
+        self.value_type = value_type
+        self.result_type = T.map_(key_type, T.array(value_type))
+
+
+class MapUnionAgg(CollectAgg):
+    """map_union(m): the Task runs it as an Unnest of the maps and a
+    map_agg of their entries (exec/task.py ``_map_union_plan``)."""
+    collect_kind = "map_union"
+
+    def __init__(self, map_type: T.DataType):
+        self.name = "map_union"
+        self.input_type = map_type
+        self.result_type = map_type
+
+
+class BloomFilterAgg(CollectAgg):
+    """bloom_filter_agg(x[, estimated items[, bits]]): a bloom sketch of
+    the non-NULL inputs, K = 3 probes double-hashed from
+    exec/hashtable.py ``bloom_hashes``, packed 32 bits to an INTEGER:
+    ARRAY(INTEGER), the reference's layout. Global aggregation only."""
+    collect_kind = "bloom"
+    K = 3
+
+    def __init__(self, input_type: T.DataType):
+        self.name = "bloom_filter_agg"
+        self.input_type = input_type
+        self.result_type = T.array(T.INTEGER)
+        self.num_bits = 1 << 20  # the operator sets it from the arguments
+
+
+class HistogramAgg(CollectAgg):
+    """histogram(x): each distinct non-NULL value's count."""
+    collect_kind = "histogram"
+
+    def __init__(self, input_type: T.DataType):
+        self.name = "histogram"
+        self.input_type = input_type
+        self.result_type = T.map_(input_type, T.BIGINT)
+
+
+class ApproxMostFrequentAgg(CollectAgg):
+    """approx_most_frequent(buckets, x, capacity): the ``buckets`` most
+    frequent non-NULL values of each group with their counts, exact (the
+    smaller value first among equal counts)."""
+    collect_kind = "approx_most_frequent"
+
+    def __init__(self, input_type: T.DataType):
+        self.name = "approx_most_frequent"
+        self.input_type = input_type
+        self.result_type = T.map_(input_type, T.BIGINT)
+        self.buckets = 3  # the operator sets it from the constant argument
+
+
 
 _VARIANCE = {"variance": "var_samp", "var_samp": "var_samp",
              "var_pop": "var_pop", "stddev": "stddev_samp",
@@ -666,10 +755,19 @@ def resolve_aggregate(name: str, input_types) -> AggregateFunction:
         return ModeAgg(input_types[0])
     if name == "approx_percentile":
         return ApproxPercentileAgg(input_types[0])
-    if name in _COMPLEX_RESULT:
-        raise NotImplementedError(
-            f"aggregate {name!r} returns an ARRAY or a MAP, which "
-            "velox_tpu_torch does not have yet (ROADMAP A.6)")
+    if name in ("array_agg", "set_agg"):
+        return (ArrayAgg if name == "array_agg" else SetAgg)(input_types[0])
+    if name in ("map_agg", "multimap_agg"):
+        return (MapAgg if name == "map_agg" else MultimapAgg)(
+            input_types[0], input_types[1])
+    if name == "map_union":
+        return MapUnionAgg(input_types[0])
+    if name == "histogram":
+        return HistogramAgg(input_types[0])
+    if name == "approx_most_frequent":
+        return ApproxMostFrequentAgg(input_types[1])
+    if name == "bloom_filter_agg":
+        return BloomFilterAgg(input_types[0])
     raise NotImplementedError(
         f"aggregate function {name!r} is not ported to velox_tpu_torch")
 

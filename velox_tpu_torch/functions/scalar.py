@@ -324,6 +324,15 @@ def compare_value(ctx, a: EvalValue, b: EvalValue, op: str) -> EvalValue:
     return EvalValue(_CMP_OPS[op](da, db), merge_validity(a, b), T.BOOLEAN)
 
 
+def eq_value(ctx, a: EvalValue, b: EvalValue) -> EvalValue:
+    """SQL equality of two values of one element type: numerics across
+    widths and scales, dates, booleans, long decimals, dictionary strings
+    (ids of another dictionary translate into the first's) and string
+    constants. The element-space functions (functions/complex.py) compare
+    through it."""
+    return compare_value(ctx, a, b, "eq")
+
+
 def _require_sorted(d) -> None:
     if not d.is_sorted:
         vals = d.values

@@ -1,4 +1,5 @@
-"""Segmented reductions over sorted runs, and the unique-index scatter.
+"""Segmented reductions over sorted runs, the unique-index scatter and
+the compaction of kept rows.
 
 Counterpart of ``velox_tpu/ops/wide.py``. The reference splits 64-bit
 scatters into 32-bit halves (and f64 into three f32 parts) because
@@ -17,6 +18,8 @@ which sort-mode group-by uses (exec/groupby.py):
 
 from __future__ import annotations
 
+from typing import List, Optional, Sequence, Tuple
+
 import torch
 
 
@@ -27,6 +30,27 @@ def scatter_unique_set(out_len: int, idx: torch.Tensor,
     out = torch.zeros((out_len,) + tuple(values.shape[1:]),
                       dtype=values.dtype, device=values.device)
     out[idx] = values
+    return out
+
+
+def compact_kept(cols: Sequence[Tuple[torch.Tensor, Optional[torch.Tensor]]],
+                 keep: torch.Tensor
+                 ) -> List[Tuple[torch.Tensor, Optional[torch.Tensor]]]:
+    """The rows where ``keep`` moved to a dense prefix, in order, for
+    each (data, validity) pair: a cumulative sum and one scatter, with
+    no host read. The rest of each output is zeros (validity True)."""
+    n = keep.shape[0]
+    k = keep.to(torch.int64)
+    tgt = torch.where(keep, torch.cumsum(k, 0) - 1, n)
+    out = []
+    for data, validity in cols:
+        d = scatter_unique_set(n + 1, tgt, data)[:n]
+        v = None
+        if validity is not None:
+            v = torch.ones((n + 1,), dtype=torch.bool, device=keep.device)
+            v[tgt] = validity
+            v = v[:n]
+        out.append((d, v))
     return out
 
 

@@ -17,8 +17,15 @@ A VARCHAR column is either dictionary-encoded (int32 ids into a host
 byte lengths as ``children[0]`` (vector/strings.py). ``from_arrow`` picks
 the encoding by ``string_encoding``.
 
-Not ported yet: ARRAY/MAP/ROW columns (ROADMAP A.6). ``from_arrow`` and
-``to_arrow`` raise on them.
+ARRAY and MAP columns (velox/vector/ComplexVector.h) keep Arrow's
+offsets + values layout split in two: ``data`` holds each row's element
+count (int32) and ``children`` the flattened element columns with their
+own element capacity ([values] for ARRAY, [keys, values] for MAP). A
+column fresh from ingest or from a function is *dense*: row i's elements
+start at the sum of the counts before it. A row gather (a join, a sort,
+a concatenation of batches) shares the children and gives the column
+explicit per-row ``starts`` instead, as Velox's rawOffsets do. A ROW
+column's children are its fields, row-aligned with it.
 """
 
 from __future__ import annotations
@@ -79,26 +86,46 @@ class DeviceColumn:
     into ``dictionary``, or, without a dictionary, a raw (rows x W) uint8
     byte matrix with its int32 byte lengths as ``children[0]``. A
     DECIMAL(19..38) column keeps its low int64 limb in ``data`` and its
-    high limb as ``children[0]`` (a BIGINT column).
+    high limb as ``children[0]`` (a BIGINT column). ARRAY/MAP: element
+    counts in ``data``, element columns in ``children`` and, after a row
+    gather, int64 element ``starts`` per row (None: dense). ROW: an int32
+    placeholder in ``data`` and the fields in ``children``.
     """
 
     def __init__(self, data: torch.Tensor, validity=None,
                  dtype: T.DataType = T.BIGINT,
                  dictionary: Optional[Dictionary] = None,
-                 children: Optional[tuple] = None):
+                 children: Optional[tuple] = None,
+                 starts: Optional[torch.Tensor] = None):
         self.data = data
         self.validity = validity
         self.dtype = dtype
         self.dictionary = dictionary
         self.children = tuple(children) if children else ()
+        self.starts = starts
 
     @property
     def capacity(self) -> int:
         return self.data.shape[0]
 
+    def offsets(self) -> torch.Tensor:
+        """Each row's first element (int64): the explicit starts, or the
+        dense layout's exclusive prefix sum of the counts."""
+        return element_offsets(self.data, self.starts)
+
     def __repr__(self):
         return (f"DeviceColumn({self.dtype}, cap={self.capacity}, "
                 f"nulls={'y' if self.validity is not None else 'n'})")
+
+
+def element_offsets(lengths: torch.Tensor,
+                    starts: Optional[torch.Tensor]) -> torch.Tensor:
+    """Per-row element starts of an ARRAY/MAP value: ``starts`` when
+    explicit, else the exclusive prefix sum of ``lengths``."""
+    if starts is not None:
+        return starts.to(torch.int64)
+    lens = lengths.to(torch.int64)
+    return torch.cumsum(lens, 0) - lens
 
 
 class DeviceBatch:
@@ -130,11 +157,14 @@ class DeviceBatch:
 
     @property
     def nbytes(self) -> int:
-        """Device-memory footprint: data + validity + mask bytes."""
+        """Device-memory footprint: data + validity + mask bytes, with
+        every child column's and explicit starts'."""
         def col_bytes(c) -> int:
             n = c.data.numel() * c.data.element_size()
             if c.validity is not None:
                 n += c.validity.numel() * c.validity.element_size()
+            if c.starts is not None:
+                n += c.starts.numel() * c.starts.element_size()
             for ch in c.children:
                 n += col_bytes(ch)
             return n
@@ -220,12 +250,14 @@ def column_from_arrow(arr, capacity: int,
                       dictionary: Optional[Dictionary] = None,
                       string_encoding: str = "dict",
                       *, device) -> DeviceColumn:
-    """One pyarrow Array/ChunkedArray -> DeviceColumn (flat types only).
+    """One pyarrow Array/ChunkedArray -> DeviceColumn.
 
     ``string_encoding`` picks a VARCHAR column's layout: "dict" (sorted
     dictionary ids), "raw" (a byte matrix packed on the device,
     vector/strings.py) or "auto" (raw when the distinct count exceeds half
-    the rows). A dictionary-typed Arrow array stays a dictionary."""
+    the rows). A dictionary-typed Arrow array stays a dictionary. The
+    element and field columns of ARRAY/MAP/ROW values are dictionary-
+    encoded, as in the reference."""
     import pyarrow as pa
     import pyarrow.compute as pc
 
@@ -242,8 +274,7 @@ def column_from_arrow(arr, capacity: int,
     children = ()
     col_dict = None
     if dtype.is_complex:
-        raise NotImplementedError(
-            f"{dtype} columns are not ported to velox_tpu_torch")
+        return _complex_from_arrow(arr, dtype, capacity, validity_np, device)
     if dtype.is_string:
         darr = (arr if pa.types.is_dictionary(arr.type)
                 else pc.dictionary_encode(arr))
@@ -297,6 +328,41 @@ def column_from_arrow(arr, capacity: int,
                         children)
 
 
+def _complex_from_arrow(arr, dtype: T.DataType, capacity: int,
+                        validity_np: Optional[np.ndarray],
+                        device) -> DeviceColumn:
+    """An ARRAY, MAP or ROW array in the dense layout. A NULL row's
+    elements are dropped whatever its slot holds: Arrow lets a NULL list
+    or map own a non-empty slot, and keeping it would shift every later
+    row's elements (the reference's MAP ingest does, ROADMAP C)."""
+    import pyarrow as pa
+    n = len(arr)
+    validity = (None if validity_np is None
+                else _upload(_pad_np(validity_np, capacity, False), device))
+    if dtype.kind is T.TypeKind.ROW:
+        # fields are row-aligned: they share the parent's capacity
+        kids = tuple(column_from_arrow(arr.field(i), capacity, device=device)
+                     for i in range(arr.type.num_fields))
+        data = torch.zeros((capacity,), dtype=torch.int32, device=device)
+        return DeviceColumn(data, validity, dtype, None, kids)
+    offs = np.asarray(arr.offsets, dtype=np.int64)
+    lengths = np.diff(offs)
+    if validity_np is not None:
+        lengths = np.where(validity_np, lengths, 0)
+    # the valid rows' slots, as positions into the (unsliced) values
+    total = int(lengths.sum())
+    first = np.repeat(offs[:-1] - (np.cumsum(lengths) - lengths), lengths)
+    idx = pa.array(first + np.arange(total, dtype=np.int64))
+    if dtype.kind is T.TypeKind.ARRAY:
+        parts = (arr.values.take(idx),)
+    else:  # MAP
+        parts = (arr.keys.take(idx), arr.items.take(idx))
+    elem_cap = default_capacity(total)
+    kids = tuple(column_from_arrow(p, elem_cap, device=device) for p in parts)
+    data = _upload(_pad_np(lengths.astype(np.int32), capacity), device)
+    return DeviceColumn(data, validity, dtype, None, kids)
+
+
 def from_arrow(table, capacity: Optional[int] = None,
                dictionaries: Optional[Dict[str, Dictionary]] = None,
                string_encoding="dict", *, device) -> DeviceBatch:
@@ -328,26 +394,65 @@ def to_arrow(batch: DeviceBatch):
     """DeviceBatch -> pyarrow Table (active rows only, in order)."""
     import pyarrow as pa
 
-    mask = _host(batch.mask)
-    arrays, names = [], []
-    for name, col in batch.columns.items():
-        if col.dtype.is_complex:
+    rows = np.flatnonzero(_host(batch.mask))
+    arrays = [_column_to_arrow(col, rows) for col in batch.columns.values()]
+    return pa.table(arrays, names=list(batch.columns))
+
+
+def _column_to_arrow(col: DeviceColumn, rows: np.ndarray):
+    """The column's values at row positions ``rows``, as a pyarrow array."""
+    if col.dtype.is_complex:
+        return _complex_to_arrow(col, rows)
+    data = _host(col.data)[rows]
+    valid = None if col.validity is None else _host(col.validity)[rows]
+    if col.dtype.is_string and col.dictionary is None and data.ndim == 2:
+        from velox_tpu_torch.vector import strings as S
+        lens = _host(col.children[0].data)[rows]
+        return S.to_arrow(data, lens, valid)
+    if col.dtype.is_long_decimal:
+        hi = _host(col.children[0].data)[rows]
+        return _long_decimal_to_arrow(data, hi, valid, col.dtype)
+    return _np_to_arrow(data, valid, col)
+
+
+def _complex_to_arrow(col: DeviceColumn, rows: np.ndarray):
+    """ARRAY/MAP/ROW values at ``rows``: each ROW field at the same rows,
+    each ARRAY/MAP row's element slice [start, start + count) gathered
+    from the children."""
+    import pyarrow as pa
+    valid = None if col.validity is None else _host(col.validity)[rows]
+    if col.dtype.kind is T.TypeKind.ROW:
+        out = pa.StructArray.from_arrays(
+            [_column_to_arrow(c, rows) for c in col.children],
+            names=list(col.dtype.names))
+    else:
+        if col.starts is not None and any(c.dtype.is_complex
+                                          for c in col.children):
+            # the reference raises here too (ROADMAP C)
             raise NotImplementedError(
-                f"{col.dtype} columns are not ported to velox_tpu_torch")
-        data = _host(col.data)[mask]
-        valid = None if col.validity is None else _host(col.validity)[mask]
-        if col.dtype.is_string and col.dictionary is None \
-                and data.ndim == 2:
-            from velox_tpu_torch.vector import strings as S
-            lens = _host(col.children[0].data)[mask]
-            arrays.append(S.to_arrow(data, lens, valid))
-        elif col.dtype.is_long_decimal:
-            hi = _host(col.children[0].data)[mask]
-            arrays.append(_long_decimal_to_arrow(data, hi, valid, col.dtype))
+                f"a nested {col.dtype} column whose rows were gathered "
+                "(by a join, a sort or a concatenation of batches) cannot "
+                "be read back; project the nested column before that")
+        lens = _host(col.data).astype(np.int64)[rows]
+        starts = _host(col.offsets())[rows]
+        if valid is not None:
+            lens = np.where(valid, lens, 0)
+        offsets = np.concatenate([[0], np.cumsum(lens)])
+        elems = (np.repeat(starts - offsets[:-1], lens)
+                 + np.arange(offsets[-1], dtype=np.int64))
+        kids = [_column_to_arrow(c, elems) for c in col.children]
+        pa_offs = pa.array(offsets.astype(np.int32), pa.int32())
+        if col.dtype.kind is T.TypeKind.ARRAY:
+            out = pa.ListArray.from_arrays(pa_offs, kids[0])
         else:
-            arrays.append(_np_to_arrow(data, valid, col))
-        names.append(name)
-    return pa.table(arrays, names=names)
+            out = pa.MapArray.from_arrays(pa_offs, kids[0], kids[1])
+    if valid is not None and not valid.all():
+        # from_arrays takes no null bitmap: a take with null indices
+        # re-wraps the rows
+        idx = pa.array(np.arange(len(valid), dtype=np.int32),
+                       pa.int32(), mask=~valid)
+        out = out.take(idx)
+    return out
 
 
 def _decimals(ints, valid, scale: int):
