@@ -182,6 +182,29 @@ Phases, each printing one line; any failure raises and exits non-zero:
    o_orderpriority, as five filtered global aggregates, each sketch
    equal bit for bit to a numpy form of bloom_hashes). Each prints its
    walls, peak device memory and launches.
+19. spark: Spark functions at the connector's scale, each plan cold and
+   warm with equal launches, exact against oracles written here in
+   numpy, re, hashlib and str (no port code): spark_shuffle_hash
+   (pmod(hash(l_orderkey), 200), xxhash64(l_orderkey, l_linenumber,
+   l_shipmode) and hash(l_extendedprice, cast(l_discount as double),
+   l_shipdate) over lineitem, then per partition the count, min and max
+   of the xxhash64 and the sum of the hash: murmur3_x86_32 and XXH64 in
+   numpy), spark_runtime_filter (bloom_filter_agg of the orders before
+   1993, EnforceSingleRow, a nested-loop join with lineitem, the filter
+   might_contain, the inner join with those orders, per priority the
+   count and revenue; and its pass-count plan, equal to a numpy bloom's:
+   no false negative, the false-positive share printed), spark_strings
+   (over part: regexp_extract as the group key, size, array_contains
+   and sort_array of split(p_name, ' '), levenshtein, and a murmur3
+   checksum of element_at, sha2 and substring_index), spark_remote (a remote
+   function through a timed loopback transport over all o_custkey,
+   summed; the host round trips and their seconds printed) and
+   spark_string_hash (hash and xxhash64 of (l_orderkey, l_comment), the
+   string under per-row seeds: its peak device memory beside the bytes
+   of the reference's (rows x blocks) matrices a batch). Each prints its
+   walls, peak device memory and launches; B5 must launch on every plan
+   but spark_remote's, B4 and B2 or B3 on spark_shuffle_hash and
+   spark_strings.
 
 Every number a phase prints is measured in this run, on this card; bounds
 are bytes over the H100's 3.35 TB/s.
@@ -4159,6 +4182,532 @@ def complex_phase(conn, ctx, li) -> dict:
     return by_path
 
 
+# ---------------------------------------------------------------------------
+# spark: Spark's shuffle partitioning, its runtime bloom filter, the string
+# functions and a remote function at the connector's scale, each held to an
+# oracle written here (numpy, re, hashlib, str), none of it port code
+# ---------------------------------------------------------------------------
+
+SP_PARTITIONS = 200
+SP_BLOOM_ITEMS = 3_000_000
+SP_BLOOM_CUTOFF = "1993-01-01"
+SP_REMOTE = "spark_remote_affine"
+SP_PATHS = ("spark_shuffle_hash", "spark_runtime_filter", "spark_strings",
+            "spark_remote")
+_M32 = 0xFFFFFFFF
+_XP = [np.uint64(c) for c in (0x9E3779B185EBCA87, 0xC2B2AE3D27D4EB4F,
+                              0x165667B19E3779F9, 0x85EBCA77C2B2AE63,
+                              0x27D4EB2F165667C5)]
+
+
+class TimedLoopback:
+    """The remote function's server: the port's LoopbackTransport, its
+    send() (the host round trip: framing, the served function, the reply)
+    timed and counted."""
+
+    def __init__(self):
+        from velox_tpu_torch.functions.remote import LoopbackTransport
+        self.inner = LoopbackTransport()
+        self.inner.serve(SP_REMOTE, lambda a, valid: (a * 3 + 1, valid))
+        self.seconds = 0.0
+        self.calls = 0
+
+    def send(self, fn_name: str, payload: bytes) -> bytes:
+        t0 = time.perf_counter()
+        out = self.inner.send(fn_name, payload)
+        self.seconds += time.perf_counter() - t0
+        self.calls += 1
+        return out
+
+
+_SP_TRANSPORT = []
+
+
+def spark_transport() -> TimedLoopback:
+    """The remote function's transport, registered once a process."""
+    if not _SP_TRANSPORT:
+        from velox_tpu_torch.functions.remote import register_remote_function
+        _SP_TRANSPORT.append(TimedLoopback())
+        register_remote_function(SP_REMOTE, [T.BIGINT], T.BIGINT,
+                                 _SP_TRANSPORT[0])
+    return _SP_TRANSPORT[0]
+
+
+def spark_plans():
+    """name -> plan of the spark phase's paths, in run order
+    (spark_runtime_filter has a second plan, the bloom's pass count)."""
+    shuffle = (PlanBuilder().table_scan("lineitem", [
+        "l_orderkey", "l_linenumber", "l_shipmode", "l_extendedprice",
+        "l_discount", "l_shipdate"])
+        .project([f"pmod(hash(l_orderkey), {SP_PARTITIONS}) as p",
+                  "xxhash64(l_orderkey, l_linenumber, l_shipmode) as x",
+                  "hash(l_extendedprice, cast(l_discount as double), "
+                  "l_shipdate) as hd"])
+        .single_aggregation(["p"], ["count(*) as n", "min(x) as mn",
+                                    "max(x) as mx", "sum(hd) as s"]))
+    cutoff = f"o_orderdate < date '{SP_BLOOM_CUTOFF}'"
+
+    def probe(b):
+        bloom = b.new_builder().table_scan(
+            "orders", ["o_orderkey", "o_orderdate"]).filter(cutoff) \
+            .single_aggregation([], [f"bloom_filter_agg(o_orderkey, "
+                                     f"{SP_BLOOM_ITEMS}) as bf"]) \
+            .enforce_single_row()
+        return (b.table_scan("lineitem", ["l_orderkey", "l_extendedprice",
+                                          "l_discount"])
+                .nested_loop_join(bloom, output=[
+                    "l_orderkey", "l_extendedprice", "l_discount", "bf"])
+                .filter("might_contain(bf, l_orderkey)"))
+    b = PlanBuilder()
+    orders = b.new_builder().table_scan(
+        "orders", ["o_orderkey", "o_orderdate", "o_orderpriority"]) \
+        .filter(cutoff)
+    runtime = (probe(b).hash_join(["l_orderkey"], ["o_orderkey"], orders,
+                                  output=["o_orderpriority",
+                                          "l_extendedprice", "l_discount"])
+               .single_aggregation(["o_orderpriority"], [
+                   "count(*) as n",
+                   "sum(l_extendedprice * (1 - l_discount)) as rev"]))
+    words = "split(p_name, ' ')"
+    strings = (PlanBuilder().table_scan("part", ["p_name", "p_type",
+                                                 "p_brand", "p_mfgr"])
+               .project([
+                   "regexp_extract(p_type, '^(\\w+) (\\w+)', 2) as g",
+                   f"size({words}) as n",
+                   f"array_contains({words}, 'green') as green",
+                   "levenshtein(p_brand, 'Brand#23') as lev",
+                   f"hash(element_at(sort_array({words}), 1), "
+                   "sha2(p_brand, 256), substring_index(p_mfgr, '#', -1)) "
+                   "as ck"])
+               .single_aggregation(["g"], [
+                   "count(*) as c", "sum(n) as words",
+                   "count_if(green) as green", "max(lev) as lev",
+                   "sum(ck) as ck"]))
+    spark_transport()
+    remote = (PlanBuilder().table_scan("orders", ["o_custkey"])
+              .project([f"{SP_REMOTE}(o_custkey) as r"])
+              .single_aggregation([], ["sum(r) as s", "count(*) as n"]))
+    string_hash = (PlanBuilder().table_scan("lineitem", ["l_orderkey",
+                                                        "l_comment"])
+                   .project(["hash(l_orderkey, l_comment) as h",
+                             "xxhash64(l_orderkey, l_comment) as x"])
+                   .single_aggregation([], ["count(*) as n", "sum(h) as h",
+                                            "min(x) as mn", "max(x) as mx"]))
+    return {"spark_shuffle_hash": shuffle.plan(),
+            "spark_runtime_filter": runtime.plan(),
+            "spark_runtime_filter_pass": probe(PlanBuilder())
+            .single_aggregation([], ["count(*) as passed"]).plan(),
+            "spark_strings": strings.plan(), "spark_remote": remote.plan(),
+            "spark_string_hash": string_hash.plan()}
+
+
+PATH_PLANS.update({n: (lambda n=n: spark_plans()[n])
+                   for n in SP_PATHS + ("spark_runtime_filter_pass",
+                                        "spark_string_hash")})
+
+
+def _np_rotl32(x, r: int):
+    return (x << np.uint32(r)) | (x >> np.uint32(32 - r))
+
+
+def _np_mm_k1(k):
+    return _np_rotl32(k * np.uint32(0xCC9E2D51), 15) * np.uint32(0x1B873593)
+
+
+def _np_mm_h1(h, k):
+    return _np_rotl32(h ^ k, 13) * np.uint32(5) + np.uint32(0xE6546B64)
+
+
+def _np_mm_fmix(h, n: int):
+    h = h ^ np.uint32(n)
+    h = (h ^ (h >> np.uint32(16))) * np.uint32(0x85EBCA6B)
+    h = (h ^ (h >> np.uint32(13))) * np.uint32(0xC2B2AE35)
+    return h ^ (h >> np.uint32(16))
+
+
+def np_murmur3_int(v: np.ndarray, seed) -> np.ndarray:
+    """Spark's Murmur3 hashInt (murmur3_x86_32 of 4 bytes), uint32."""
+    return _np_mm_fmix(_np_mm_h1(seed, _np_mm_k1(
+        v.astype(np.int32).view(np.uint32))), 4)
+
+
+def np_murmur3_long(v: np.ndarray, seed) -> np.ndarray:
+    """Spark's Murmur3 hashLong: the low word, then the high word."""
+    u = v.astype(np.int64).view(np.uint64)
+    h = _np_mm_h1(seed, _np_mm_k1((u & np.uint64(_M32)).astype(np.uint32)))
+    h = _np_mm_h1(h, _np_mm_k1((u >> np.uint64(32)).astype(np.uint32)))
+    return _np_mm_fmix(h, 8)
+
+
+def np_murmur3_bytes(b: bytes, seed: np.ndarray) -> np.ndarray:
+    """hashUnsafeBytes of one string under per-row seeds (uint32)."""
+    def k1(k):
+        return _np_mm_k1(np.array([k & _M32], np.uint32))[0]
+    cut = len(b) - len(b) % 4
+    h = seed
+    for i in range(0, cut, 4):
+        h = _np_mm_h1(h, k1(int.from_bytes(b[i:i + 4], "little")))
+    for t in b[cut:]:
+        h = _np_mm_h1(h, k1(t - 256 if t >= 128 else t))
+    return _np_mm_fmix(h, len(b))
+
+
+def _signed32(h: np.ndarray) -> np.ndarray:
+    return h.astype(np.uint32).view(np.int32).astype(np.int64)
+
+
+def _np_rotl64(x, r: int):
+    return (x << np.uint64(r)) | (x >> np.uint64(64 - r))
+
+
+def _np_xx_round(k):
+    return _np_rotl64(k * _XP[1], 31) * _XP[0]
+
+
+def _np_xx_fmix(h):
+    h = (h ^ (h >> np.uint64(33))) * _XP[1]
+    h = (h ^ (h >> np.uint64(29))) * _XP[2]
+    return h ^ (h >> np.uint64(32))
+
+
+def np_xxhash_int(v: np.ndarray, seed) -> np.ndarray:
+    """Spark's XxHash64 hashInt, uint64."""
+    h = seed + _XP[4] + np.uint64(4)
+    h = h ^ (v.astype(np.int32).view(np.uint32).astype(np.uint64) * _XP[0])
+    return _np_xx_fmix(_np_rotl64(h, 23) * _XP[1] + _XP[2])
+
+
+def np_xxhash_long(v: np.ndarray, seed) -> np.ndarray:
+    h = seed + _XP[4] + np.uint64(8)
+    h = h ^ _np_xx_round(v.astype(np.int64).view(np.uint64))
+    return _np_xx_fmix(_np_rotl64(h, 27) * _XP[0] + _XP[3])
+
+
+def np_xxhash_short_bytes(b: bytes, seed: np.ndarray) -> np.ndarray:
+    """XXH64 of one string under per-row seeds; strings under 32 bytes
+    (no stripes)."""
+    if len(b) >= 32:
+        raise ValueError("the oracle takes strings under 32 bytes")
+    h = seed + _XP[4] + np.uint64(len(b))
+    i = 0
+    while len(b) - i >= 8:
+        k = np.uint64(int.from_bytes(b[i:i + 8], "little"))
+        h = _np_rotl64(h ^ _np_xx_round(k), 27) * _XP[0] + _XP[3]
+        i += 8
+    if len(b) - i >= 4:
+        k = np.uint64(int.from_bytes(b[i:i + 4], "little"))
+        h = _np_rotl64(h ^ (k * _XP[0]), 23) * _XP[1] + _XP[2]
+        i += 4
+    for t in b[i:]:
+        h = _np_rotl64(h ^ (np.uint64(t) * _XP[4]), 11) * _XP[0]
+    return _np_xx_fmix(h)
+
+
+def _group_sums(gid: np.ndarray, v: np.ndarray, groups: int) -> list:
+    """Exact per-group sums of int64 values under 2^47 in magnitude: two
+    float64 bincounts of 24-bit halves, each exact below 2^53."""
+    lo = v & 0xFFFFFF
+    hi = v >> 24
+    s_lo = np.bincount(gid, weights=lo, minlength=groups)
+    s_hi = np.bincount(gid, weights=hi, minlength=groups)
+    return [int(h) * (1 << 24) + int(lo_) for h, lo_ in zip(s_hi, s_lo)]
+
+
+def _levenshtein_py(a: str, b: str) -> int:
+    d = list(range(len(b) + 1))
+    for i, ca in enumerate(a, 1):
+        prev, d[0] = d[0], i
+        for j, cb in enumerate(b, 1):
+            prev, d[j] = d[j], min(d[j] + 1, d[j - 1] + 1, prev + (ca != cb))
+    return d[-1]
+
+
+def spark_shuffle_oracle(conn, li) -> dict:
+    """Per partition p = pmod(hash(l_orderkey), 200): the row count, the
+    min and max of xxhash64(l_orderkey, l_linenumber, l_shipmode) and the
+    sum of hash(l_extendedprice, cast(l_discount as double), l_shipdate),
+    Spark's hashes in numpy over the generator's columns."""
+    ok = li["l_orderkey"]
+    sm = _li_extra(conn, ["l_shipmode"])["l_shipmode"]
+    modes = list(conn.gen.dictionaries("lineitem")["l_shipmode"].values)
+    seed32, seed64 = np.uint32(42), np.uint64(42)
+    with np.errstate(over="ignore"):
+        p = _signed32(np_murmur3_long(ok, seed32)) % SP_PARTITIONS
+        x = np_xxhash_int(li["l_linenumber"], np_xxhash_long(ok, seed64))
+        for i, mode in enumerate(modes):
+            rows = sm == i
+            x[rows] = np_xxhash_short_bytes(mode.encode(), x[rows])
+        x = x.view(np.int64)
+        disc = li["l_discount"].astype(np.float64) / 100.0
+        hd = _signed32(np_murmur3_int(li["l_shipdate"], np_murmur3_long(
+            disc.view(np.int64), np_murmur3_long(li["l_extendedprice"],
+                                                 seed32))))
+    counts = np.bincount(p, minlength=SP_PARTITIONS)
+    order = np.argsort(p.astype(np.int16), kind="stable")
+    live = np.flatnonzero(counts)
+    first = (np.cumsum(counts) - counts)[live]
+    xs = x[order]
+    sums = _group_sums(p, hd, SP_PARTITIONS)
+    return {int(g): {"n": int(counts[g]), "mn": int(mn), "mx": int(mx),
+                     "s": sums[g]}
+            for g, mn, mx in zip(live, np.minimum.reduceat(xs, first),
+                                 np.maximum.reduceat(xs, first))}
+
+
+def spark_runtime_oracle(conn, li) -> dict:
+    """The orders before the cutoff joined to lineitem: per priority the
+    count and the revenue (scale 4); the lineitems whose key passes the
+    bloom (bloom_hashes and the sketch in numpy, exec/hashtable.py's
+    layout) beside the true members."""
+    od = table_columns(conn, "orders", ["o_orderkey", "o_orderdate",
+                                        "o_orderpriority"])
+    sel = od["o_orderdate"] < _day(SP_BLOOM_CUTOFF)
+    keys = od["o_orderkey"]
+    prio = np.full(int(keys.max()) + 1, -1, np.int64)
+    prio[keys[sel]] = od["o_orderpriority"][sel]
+    ok = li["l_orderkey"]
+    lp = prio[ok]
+    member = lp >= 0
+    rev = li["l_extendedprice"] * (100 - li["l_discount"])
+    npri = int(od["o_orderpriority"].max()) + 1
+    counts = np.bincount(lp[member], minlength=npri)
+    sums = _group_sums(lp[member], rev[member], npri)
+    names = conn.gen.dictionaries("orders")["o_orderpriority"].values
+    m = max(1 << 10, min(1 << 23, 1 << (8 * SP_BLOOM_ITEMS
+                                        - 1).bit_length()))
+    words = _np_bloom(keys[sel], m)
+    bits = np.unpackbits(words.astype(">u4").view(np.uint8)).reshape(
+        -1, 32)[:, ::-1].reshape(-1).astype(bool)
+    m32 = np.uint64(0xFFFFFFFF)
+    h1 = _np_hash(ok, torch.int64)
+    h = h1 ^ np.uint64(0xB5297A4D)
+    h = ((h ^ (h >> np.uint64(16))) * np.uint64(0x85EBCA6B)) & m32
+    h = ((h ^ (h >> np.uint64(13))) * np.uint64(0xC2B2AE35)) & m32
+    h2 = h ^ (h >> np.uint64(16))
+    passed = np.ones(len(ok), bool)
+    for i in range(3):
+        passed &= bits[((h1 + np.uint64(i) * h2) & np.uint64(m - 1))
+                       .astype(np.int64)]
+    if (member & ~passed).any():
+        raise AssertionError("the oracle's bloom drops a member")
+    return {"groups": {names[g]: {"n": int(counts[g]), "rev": sums[g]}
+                       for g in range(npri) if counts[g]},
+            "passed": int(passed.sum()), "members": int(member.sum()),
+            "lineitems": len(ok), "bits": m}
+
+
+def spark_strings_oracle(conn) -> dict:
+    """Per second word of p_type (Python re): the part count, the words
+    of p_name, the names holding 'green', the largest Levenshtein distance
+    of p_brand to 'Brand#23', and the sum of Spark's murmur3 hash of (the
+    smallest word of p_name, the SHA-256 hex of p_brand, the text after
+    p_mfgr's last '#') in numpy."""
+    import hashlib
+    import re
+    cols = table_columns(conn, "part", ["p_name", "p_type", "p_brand",
+                                        "p_mfgr"])
+    dicts = conn.gen.dictionaries("part")
+    vals = {c: list(dicts[c].values) for c in cols}
+    rx = re.compile(r"^(\w+) (\w+)")
+    gname = sorted({rx.search(t).group(2) for t in vals["p_type"]})
+    g_of_type = np.array([gname.index(rx.search(t).group(2))
+                          for t in vals["p_type"]])
+    name_words = [s.split(" ") for s in vals["p_name"]]
+    n_of = np.array([len(w) for w in name_words])
+    green_of = np.array(["green" in w for w in name_words])
+    lev_of = np.array([_levenshtein_py(s, "Brand#23")
+                       for s in vals["p_brand"]])
+    sha = [hashlib.sha256(s.encode()).hexdigest().encode()
+           for s in vals["p_brand"]]
+    mf = [s.split("#")[-1].encode() for s in vals["p_mfgr"]]
+    nb, nm = len(vals["p_brand"]), len(vals["p_mfgr"])
+    combo = (cols["p_name"] * nb + cols["p_brand"]) * nm + cols["p_mfgr"]
+    uniq, inv = np.unique(combo, return_inverse=True)
+    name, rest = np.divmod(uniq, nb * nm)
+    brand, mfgr = np.divmod(rest, nm)
+    # the chain hash(smallest word, sha, mfgr) over each distinct triple
+    h = np.empty(len(uniq), np.uint32)
+    with np.errstate(over="ignore"):
+        for i, w in enumerate(name_words):
+            rows = name == i
+            h[rows] = np_murmur3_bytes(min(w).encode(),
+                                       np.full(rows.sum(), 42, np.uint32))
+        for i, b in enumerate(sha):
+            rows = brand == i
+            h[rows] = np_murmur3_bytes(b, h[rows])
+        for i, b in enumerate(mf):
+            rows = mfgr == i
+            h[rows] = np_murmur3_bytes(b, h[rows])
+    ck_u = _signed32(h)
+    g = g_of_type[cols["p_type"]]
+    k = len(gname)
+    words = np.bincount(g, weights=n_of[cols["p_name"]], minlength=k)
+    green = np.bincount(g, weights=green_of[cols["p_name"]], minlength=k)
+    lev = lev_of[cols["p_brand"]]
+    ck = _group_sums(g, ck_u[inv], k)
+    return {gname[i]: {"c": int((g == i).sum()), "words": int(words[i]),
+                       "green": int(green[i]),
+                       "lev": int(lev[g == i].max()), "ck": ck[i]}
+            for i in range(k)}
+
+
+def spark_string_hash_oracle(conn, li) -> dict:
+    """hash and xxhash64 of (l_orderkey, l_comment): the string second in
+    the chain, so every row has its own seed. Rows grouped by comment
+    (one stable radix argsort), each comment's bytes folded over its
+    rows' seeds in numpy; the count, sum(h), min(x), max(x)."""
+    cm = _li_extra(conn, ["l_comment"])["l_comment"]
+    vals = list(conn.gen.dictionaries("lineitem")["l_comment"].values)
+    order = np.argsort(cm.astype(np.int16), kind="stable")
+    bounds = np.concatenate([[0], np.cumsum(np.bincount(
+        cm, minlength=len(vals)))])
+    okc = li["l_orderkey"][order]
+    with np.errstate(over="ignore"):
+        h = np_murmur3_long(okc, np.uint32(42))
+        x = np_xxhash_long(okc, np.uint64(42))
+        for i, v in enumerate(vals):
+            lo, hi = bounds[i], bounds[i + 1]
+            if lo < hi:
+                h[lo:hi] = np_murmur3_bytes(v.encode(), h[lo:hi])
+                x[lo:hi] = np_xxhash_short_bytes(v.encode(), x[lo:hi])
+    x = x.view(np.int64)
+    # the reference's form gathers a (rows x blocks) uint32 matrix for
+    # hash and a (rows x words) uint64 one for xxhash64 a batch
+    lens = [len(v.encode()) for v in vals]
+    blocks = max(n // 4 + n % 4 for n in lens)
+    words = max((n + 7) // 8 for n in lens) + 5
+    words += (-words) % 4
+    return {"want": {"n": len(okc), "h": int(_signed32(h).sum()),
+                     "mn": int(x.min()), "mx": int(x.max())},
+            "reference_form_bytes_per_row": 4 * blocks + 8 * words}
+
+
+def spark_phase(conn, ctx, li) -> dict:
+    """The Spark paths at the connector's scale, each cold (the scan cache
+    cleared) and warm with equal launches, exact against the oracles
+    above. Each line: walls, peak device memory and launches, and the
+    path's own counts (the bloom's passes and false-positive share, the
+    remote function's host round trips)."""
+    t0 = time.perf_counter()
+    want = {"spark_shuffle_hash": spark_shuffle_oracle(conn, li),
+            "spark_runtime_filter": spark_runtime_oracle(conn, li),
+            "spark_strings": spark_strings_oracle(conn)}
+    od = table_columns(conn, "orders", ["o_custkey"])["o_custkey"]
+    want["spark_remote"] = {"s": _psum(od * 3 + 1), "n": len(od)}
+    sh = spark_string_hash_oracle(conn, li)
+    want["spark_string_hash"] = sh["want"]
+    phase("spark_oracles", seconds=time.perf_counter() - t0)
+    transport = spark_transport()
+    rf = want["spark_runtime_filter"]
+
+    def rows_of(outs):
+        return [r for b in outs for r in to_arrow(b).to_pylist()]
+
+    def check_shuffle(outs, info):
+        got = {r["p"]: {"n": r["n"], "mn": r["mn"], "mx": r["mx"],
+                        "s": r["s"]} for r in rows_of(outs)}
+        if got != want["spark_shuffle_hash"]:
+            bad = sorted(k for k in set(got) | set(want["spark_shuffle_hash"])
+                         if got.get(k) != want["spark_shuffle_hash"].get(k))
+            raise AssertionError(f"spark_shuffle_hash: partitions {bad[:5]} "
+                                 "differ from the oracle")
+        info["partitions"] = len(got)
+        info["rows"] = sum(v["n"] for v in got.values())
+
+    def check_runtime(outs, info):
+        got = {r["o_orderpriority"]: {"n": r["n"], "rev": int(
+            r["rev"].scaleb(4))} for r in rows_of(outs)}
+        if got != rf["groups"]:
+            raise AssertionError(f"spark_runtime_filter: {got} != "
+                                 f"{rf['groups']}")
+        info["members"] = sum(v["n"] for v in got.values())
+
+    def check_pass(outs, info):
+        passed = _one_row(outs)["passed"]
+        if passed != rf["passed"] or passed < rf["members"]:
+            raise AssertionError(f"the bloom passed {passed} rows, the "
+                                 f"oracle {rf['passed']} (members "
+                                 f"{rf['members']})")
+        info.update(passed=passed, members=rf["members"],
+                    false_positive_share=(passed - rf["members"])
+                    / (rf["lineitems"] - rf["members"]),
+                    bloom_bits=rf["bits"])
+
+    def check_strings(outs, info):
+        got = {r["g"]: {k: r[k] for k in ("c", "words", "green", "lev",
+                                           "ck")} for r in rows_of(outs)}
+        if got != want["spark_strings"]:
+            raise AssertionError(f"spark_strings: {got} != "
+                                 f"{want['spark_strings']}")
+        info["parts"] = sum(v["c"] for v in got.values())
+
+    def check_remote(outs, info):
+        got = _one_row(outs)
+        if got != want["spark_remote"]:
+            raise AssertionError(f"spark_remote: {got} != "
+                                 f"{want['spark_remote']}")
+        info["rows"] = got["n"]
+
+    def check_string_hash(outs, info):
+        got = _one_row(outs)
+        if got != want["spark_string_hash"]:
+            raise AssertionError(f"spark_string_hash: {got} != "
+                                 f"{want['spark_string_hash']}")
+        rows = math.ceil(len(li["l_orderkey"])
+                         / len(conn.default_splits("lineitem")))
+        info["reference_form_bytes_a_batch"] = \
+            sh["reference_form_bytes_per_row"] * rows
+
+    checks = {"spark_shuffle_hash": check_shuffle,
+              "spark_runtime_filter": check_runtime,
+              "spark_runtime_filter_pass": check_pass,
+              "spark_strings": check_strings, "spark_remote": check_remote,
+              "spark_string_hash": check_string_hash}
+    cache = DataCache.instance()
+    by_path = {}
+    for name, plan in spark_plans().items():
+        runs = {}
+        for run in ("cold", "warm"):
+            if run == "cold":
+                cache.clear()
+            info = {}
+            calls, secs = transport.calls, transport.seconds
+            torch.cuda.reset_peak_memory_stats()
+            out, wall, launched = _run(plan, ctx)
+            checks[name](out, info)
+            del out
+            if name == "spark_remote":
+                info.update(round_trips=transport.calls - calls,
+                            round_trip_s=transport.seconds - secs)
+            runs[run] = {"wall_s": wall, "launches": launched,
+                         "max_memory_allocated":
+                             torch.cuda.max_memory_allocated(), **info}
+        cold, warm = runs["cold"], runs["warm"]
+        if warm["launches"] != cold["launches"]:
+            raise AssertionError(f"{name}: warm launches {warm['launches']}"
+                                 f" != cold {cold['launches']}")
+        got = cold["launches"]
+        if name != "spark_remote" \
+                and got["flat_gather"] + got["gather_rows"] == 0:
+            raise AssertionError(f"{name}: B5 never launched: {got}")
+        if name in ("spark_shuffle_hash", "spark_strings") and not (
+                got["radix_hist"] > 0
+                and got["radix_rank"] + got["radix_pos"] > 0):
+            raise AssertionError(f"{name}: B4 or B2/B3 never launched: "
+                                 f"{got}")
+        by_path[name] = got
+        extra = {k: {r: v[k] for r, v in runs.items()} for k in cold
+                 if k not in ("wall_s", "launches", "max_memory_allocated")}
+        phase(name, wall_s={r: v["wall_s"] for r, v in runs.items()},
+              max_memory_allocated={r: v["max_memory_allocated"]
+                                    for r, v in runs.items()},
+              launches={k: v for k, v in got.items() if k != "filter_sum"},
+              **extra)
+    cache.clear()
+    phase("spark", seconds=time.perf_counter() - t0)
+    return by_path
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sf", type=float, default=10.0,
@@ -4195,6 +4744,7 @@ def main() -> None:
     by_phase.update(aggregates_phase(conn, ctx, li))
     by_phase.update(types_phase(conn, ctx, li, args.seed))
     by_phase.update(complex_phase(conn, ctx, li))
+    by_phase.update(spark_phase(conn, ctx, li))
 
     main_shape = kernel["timings"][FILTER_TIMED[0]]
     kernels = [{

@@ -190,12 +190,18 @@ def test_fused_chain_matches_reference(filter_text, projections, seed):
 
 
 def test_unported_function_raises_naming_it():
-    _, trt = _row_types()
-    with pytest.raises(NotImplementedError, match="split_part"):
-        tparse("split_part(l_comment, ' ', 2)",
-               TT.row(["l_comment"], [TT.VARCHAR]))
-    with pytest.raises(NotImplementedError, match="bitwise_and"):
-        tparse("bitwise_and(k, 2)", trt)
+    """Every function of the reference is ported (tests/
+    test_torch_sparksql.py holds the registries equal), so a name
+    neither package knows raises, naming it; split_part and bitwise_and,
+    the earlier examples here, now resolve."""
+    jrt, trt = _row_types()
+    with pytest.raises(NotImplementedError, match="no_such_function"):
+        tparse("no_such_function(k, 2)", trt)
+    with pytest.raises(KeyError, match="no_such_function"):
+        jparse("no_such_function(k, 2)", jrt)
+    assert str(tparse("split_part(l_comment, ' ', 2)", TT.row(
+        ["l_comment"], [TT.VARCHAR])).dtype) == "varchar"
+    assert str(tparse("bitwise_and(k, 2)", trt).dtype) == "bigint"
 
 
 # ---------------------------------------------------------------------------

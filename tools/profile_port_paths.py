@@ -15,7 +15,10 @@ agg_pct_split, agg_min_by, agg_abandon, dyn_filter, dyn_filter_empty,
 wide_join; the types phase's raw_group, raw_join, raw_topn, raw_sort,
 raw_filter, raw_functions, dt_month, dt_week_hour, dt_zone and
 decimal_mul; the complex phase's cx_array_agg, cx_unnest, cx_maps,
-cx_map_union, cx_join, cx_join_topn and cx_bloom; default q3,q18) it clears the scan cache and runs
+cx_map_union, cx_join, cx_join_topn and cx_bloom; the spark phase's
+spark_shuffle_hash, spark_runtime_filter, spark_runtime_filter_pass,
+spark_strings and spark_remote; default q3,q18) it clears the scan
+cache and runs
 chip_smoke.py's plan of that name cold (every split generated and
 uploaded) and warm
 (every split from the cache), then warm once more under torch.profiler

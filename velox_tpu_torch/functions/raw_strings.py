@@ -15,13 +15,12 @@ dictionary encoding gives (ROADMAP C).
 
 from __future__ import annotations
 
-from collections import OrderedDict
-
 import torch
 
 from velox_tpu_torch import types as T
 from velox_tpu_torch.expression.eval import EvalValue, merge_validity
 from velox_tpu_torch.functions.registry import _REGISTRY, ScalarFunction
+from velox_tpu_torch.functions.scalar import dict_cached
 from velox_tpu_torch.vector import strings as S
 from velox_tpu_torch.vector.device import Dictionary
 
@@ -30,28 +29,16 @@ def is_raw_value(v) -> bool:
     return isinstance(v, EvalValue) and S.is_raw(v)
 
 
-# (id, width, device) -> (dictionary, packed bytes, lengths); the entry
-# holds its dictionary, so an id is never reused while it is cached
-_DICT_PACK_CACHE: "OrderedDict" = OrderedDict()
-_DICT_PACK_CACHE_MAX = 32
-
-
 def dict_bytes(d: Dictionary, width, device):
     """The dictionary's values as a (k, W) byte matrix and lengths on
     ``device``, packed on the host once per (dictionary, width, device)
-    among the last ``_DICT_PACK_CACHE_MAX``."""
-    key = (id(d), width, str(device))
-    hit = _DICT_PACK_CACHE.get(key)
-    if hit is not None and hit[0] is d:
-        _DICT_PACK_CACHE.move_to_end(key)
-        return hit[1]
-    vals = list(d.values)
-    b, ln = S.pack_pylist(vals, max(1, len(vals)), width)
-    out = (torch.from_numpy(b).to(device), torch.from_numpy(ln).to(device))
-    _DICT_PACK_CACHE[key] = (d, out)
-    while len(_DICT_PACK_CACHE) > _DICT_PACK_CACHE_MAX:
-        _DICT_PACK_CACHE.popitem(last=False)
-    return out
+    (functions/scalar.py ``dict_cached``)."""
+    def make():
+        vals = list(d.values)
+        b, ln = S.pack_pylist(vals, max(1, len(vals)), width)
+        return (torch.from_numpy(b).to(device),
+                torch.from_numpy(ln).to(device))
+    return dict_cached(("bytes", width), d, device, make)
 
 
 def as_raw(v: EvalValue, capacity: int, width=None, device=None):

@@ -5,9 +5,12 @@ registered as (name, type_resolver, eval_fn):
   type_resolver(arg_types) -> DataType or None (None = signature mismatch)
   eval_fn(ctx, out_dtype, args: list[EvalValue]) -> EvalValue
 
-Only the functions of the ported slice are registered (functions/scalar.py).
-A name the port does not know raises NotImplementedError naming it, both
-when a plan is built (return-type resolution) and when it is evaluated.
+Every scalar function and special form of the reference is registered:
+functions/__init__.py imports the modules in the reference's order, so a
+name with several overloads resolves to the same one in both packages.
+Remote functions (functions/remote.py) are added at run time. An unknown
+name raises NotImplementedError naming it, both when a plan is built
+(return-type resolution) and when it is evaluated.
 """
 
 from __future__ import annotations

@@ -33,6 +33,7 @@ from __future__ import annotations
 
 import bisect
 import re
+from collections import OrderedDict
 
 import numpy as np
 import torch
@@ -676,6 +677,27 @@ def _require_dict(v: EvalValue, fname: str) -> Dictionary:
     return v.dictionary
 
 
+# (kind, id(dictionary), device) -> (dictionary, value); the entry holds
+# its dictionary, so an id is never reused while it is cached
+_DICT_CACHE: "OrderedDict" = OrderedDict()
+_DICT_CACHE_MAX = 32
+
+
+def dict_cached(kind, d: Dictionary, device, make):
+    """``make()`` (device tables of dictionary ``d``'s values) once per
+    (kind, dictionary, device) among the last ``_DICT_CACHE_MAX``."""
+    key = (kind, id(d), str(device))
+    hit = _DICT_CACHE.get(key)
+    if hit is not None and hit[0] is d:
+        _DICT_CACHE.move_to_end(key)
+        return hit[1]
+    out = make()
+    _DICT_CACHE[key] = (d, out)
+    while len(_DICT_CACHE) > _DICT_CACHE_MAX:
+        _DICT_CACHE.popitem(last=False)
+    return out
+
+
 def _gather_table(table: np.ndarray, v: EvalValue) -> torch.Tensor:
     """``table[ids]`` on the column's device; ids are clamped into the
     table, as a JAX gather clamps them (NULL rows may hold any id)."""
@@ -687,14 +709,12 @@ def _gather_table(table: np.ndarray, v: EvalValue) -> torch.Tensor:
     return torch.as_tensor(table, device=dev)[ids]
 
 
-def _dict_map(v: EvalValue, f, fname: str,
-              out_dtype=T.VARCHAR) -> EvalValue:
-    """Dictionary-to-dictionary transform. ``f`` may send distinct values
-    to one (substr, lower, trim), and duplicate values would break id
-    equality and grouping, so the output dictionary is the sorted distinct
-    results and the ids are remapped through one device gather."""
-    d = _require_dict(v, fname)
-    vals = [f(x) for x in d.values]
+def _remap(v: EvalValue, vals, out_dtype=T.VARCHAR) -> EvalValue:
+    """The column's rows mapped to ``vals`` (one new value a dictionary
+    value). Distinct values may map to one (substr, lower, trim), and
+    duplicate values would break id equality and grouping, so the output
+    dictionary is the sorted distinct results and the ids are remapped
+    through one device gather."""
     uniq = sorted(set(vals))
     new_id = {x: i for i, x in enumerate(uniq)}
     remap = np.fromiter((new_id[x] for x in vals), dtype=np.int32,
@@ -705,11 +725,50 @@ def _dict_map(v: EvalValue, f, fname: str,
                      new_dict)
 
 
-def _dict_lookup(v: EvalValue, f, out_dtype, fname: str) -> EvalValue:
-    """``f`` of each dictionary value, gathered by id on the device."""
+def _dict_map(v: EvalValue, f, fname: str,
+              out_dtype=T.VARCHAR) -> EvalValue:
+    """Dictionary-to-dictionary transform by ``f``."""
     d = _require_dict(v, fname)
-    table = np.array([f(x) for x in d.values], dtype=out_dtype.np_dtype())
-    return EvalValue(_gather_table(table, v), v.validity, out_dtype)
+    return _remap(v, [f(x) for x in d.values], out_dtype)
+
+
+def _with_nulls(out: EvalValue, v: EvalValue, vals) -> EvalValue:
+    """``out`` with the rows whose dictionary value maps to None NULL."""
+    nulls = np.array([x is None for x in vals], dtype=bool)
+    if not nulls.any():
+        return out
+    valid = ~_gather_table(nulls, v)
+    if v.validity is not None:
+        valid = v.validity & valid
+    return EvalValue(out.data, valid, out.dtype, out.dictionary)
+
+
+def _dict_map_values(v: EvalValue, vals) -> EvalValue:
+    """``_remap`` to VARCHAR values of which some may be None (NULL)."""
+    out = _remap(v, ["" if x is None else x for x in vals])
+    return _with_nulls(out, v, vals)
+
+
+def _dict_map_nullable(v: EvalValue, f, fname: str) -> EvalValue:
+    """``_dict_map`` where ``f`` may return None: those rows are NULL."""
+    d = _require_dict(v, fname)
+    return _dict_map_values(v, [f(x) for x in d.values])
+
+
+def _dict_lookup_values(v: EvalValue, vals, out_dtype) -> EvalValue:
+    """Each dictionary value's entry of ``vals`` (None: NULL), gathered
+    by id on the device."""
+    table = np.array([0 if x is None else x for x in vals],
+                     dtype=out_dtype.np_dtype())
+    out = EvalValue(_gather_table(table, v), v.validity, out_dtype)
+    return _with_nulls(out, v, vals)
+
+
+def _dict_lookup(v: EvalValue, f, out_dtype, fname: str) -> EvalValue:
+    """``f`` of each dictionary value, gathered by id on the device; a
+    None result makes the row NULL."""
+    d = _require_dict(v, fname)
+    return _dict_lookup_values(v, [f(x) for x in d.values], out_dtype)
 
 
 def _str_resolver(out):
@@ -718,37 +777,29 @@ def _str_resolver(out):
     return resolver
 
 
-def _pa_table(v: EvalValue, pa_name: str, fname: str):
-    """``pyarrow.compute.<pa_name>`` over the dictionary's values as a
-    Python list, or None where pyarrow rejects the input (the caller then
-    falls back to Python, as the reference does)."""
+def _pa_values(v: EvalValue, pa_fn, py_f, fname: str) -> list:
+    """``pa_fn(pyarrow.compute, values)`` over the dictionary's values in
+    one pyarrow call, as a Python list, or ``py_f`` of each value where
+    pyarrow rejects the input (the reference's fallback)."""
     import pyarrow as pa
     import pyarrow.compute as pc
     d = _require_dict(v, fname)
     try:
-        return getattr(pc, pa_name)(pa.array(list(d.values))).to_pylist()
+        return pa_fn(pc, pa.array(list(d.values), pa.string())).to_pylist()
     except (pa.ArrowInvalid, pa.ArrowNotImplementedError):
-        return None
+        return [py_f(x) for x in d.values]
 
 
-def _dict_map_pa(v: EvalValue, pa_name: str, py_f, fname: str
-                 ) -> EvalValue:
-    """``_dict_map`` through pyarrow's kernel (the reference's mapping:
-    utf8proc's per-code-point case tables, Unicode whitespace)."""
-    out = _pa_table(v, pa_name, fname)
-    if out is None:
-        return _dict_map(v, py_f, fname)
-    it = iter(out)
-    return _dict_map(v, lambda s: next(it), fname)
+def _dict_map_pa(v: EvalValue, pa_fn, py_f, fname: str) -> EvalValue:
+    """``_dict_map`` through a pyarrow kernel (the reference's mapping:
+    utf8proc's per-code-point case tables, Unicode whitespace, RE2)."""
+    return _dict_map_values(v, _pa_values(v, pa_fn, py_f, fname))
 
 
-def _dict_lookup_pa(v: EvalValue, pa_name: str, py_f, out_dtype,
+def _dict_lookup_pa(v: EvalValue, pa_fn, py_f, out_dtype,
                     fname: str) -> EvalValue:
-    out = _pa_table(v, pa_name, fname)
-    if out is None:
-        return _dict_lookup(v, py_f, out_dtype, fname)
-    it = iter(out)
-    return _dict_lookup(v, lambda s: next(it), out_dtype, fname)
+    return _dict_lookup_values(v, _pa_values(v, pa_fn, py_f, fname),
+                               out_dtype)
 
 
 for _name, _pa, _f in (("lower", "utf8_lower", str.lower),
@@ -759,10 +810,12 @@ for _name, _pa, _f in (("lower", "utf8_lower", str.lower),
                        ("reverse", "utf8_reverse", lambda s: s[::-1])):
     register(_name, _str_resolver(T.VARCHAR),
              lambda ctx, o, a, _p=_pa, _f=_f, _n=_name:
-             _dict_map_pa(a[0], _p, _f, _n))
+             _dict_map_pa(a[0], lambda pc, src: getattr(pc, _p)(src), _f,
+                          _n))
 register("length", _str_resolver(T.BIGINT),
-         lambda ctx, o, a: _dict_lookup_pa(a[0], "utf8_length", len,
-                                           T.BIGINT, "length"))
+         lambda ctx, o, a: _dict_lookup_pa(
+             a[0], lambda pc, src: pc.utf8_length(src), len, T.BIGINT,
+             "length"))
 
 
 def _substr_eval(ctx, out_dtype, args):
@@ -929,3 +982,69 @@ register("day_of_week", _DATELIKE, _dow_eval)
 _REGISTRY["dow"] = _REGISTRY["day_of_week"]
 register("day_of_year", _DATELIKE, _doy_eval)
 _REGISTRY["doy"] = _REGISTRY["day_of_year"]
+
+
+# ---------------------------------------------------------------------------
+# $hash: the reference's internal 64-bit row hash. The uint64 lanes of the
+# reference are int64 here with the same 64 bits: products wrap the same,
+# and each right shift is masked to a logical one (torch has no uint64
+# shift on this build).
+# ---------------------------------------------------------------------------
+
+def _s64(c: int) -> int:
+    """The int64 with the bits of the uint64 constant ``c``."""
+    return c - (1 << 64) if c >= 1 << 63 else c
+
+
+def _srl64(x: torch.Tensor, k: int) -> torch.Tensor:
+    """Logical right shift of int64 lanes holding uint64 bits."""
+    return (x >> k) & ((1 << (64 - k)) - 1)
+
+
+_HASH_M1 = _s64(0xFF51AFD7ED558CCD)
+_HASH_M2 = _s64(0xC4CEB9FE1A85EC53)
+_HASH_GOLDEN = _s64(0x9E3779B97F4A7C15)
+_HASH_ADD = 0x2545F4914F6CDD1D
+
+
+def hash64(data: torch.Tensor) -> torch.Tensor:
+    """Murmur3's 64-bit finalizer over int64 lanes."""
+    x = data.to(torch.int64)
+    x = x ^ _srl64(x, 33)
+    x = x * _HASH_M1
+    x = x ^ _srl64(x, 33)
+    x = x * _HASH_M2
+    return x ^ _srl64(x, 33)
+
+
+def combine_hash(h1: torch.Tensor, h2: torch.Tensor) -> torch.Tensor:
+    return h1 * _HASH_GOLDEN + h2 + _HASH_ADD
+
+
+def hash_value(v: EvalValue, capacity: int) -> torch.Tensor:
+    """The 64-bit hash of a value (int64 lanes); NULLs hash to a fixed
+    tag. Floats hash their bits (REAL's sign-extended), everything else
+    its data widened to int64: dictionary ids for strings, the low limb
+    of a long decimal, as in the reference."""
+    data = v.full_data(capacity)
+    if v.dtype.kind is T.TypeKind.REAL:
+        raw = data.to(torch.float32).contiguous().view(torch.int32) \
+            .to(torch.int64)
+    elif v.dtype.kind is T.TypeKind.DOUBLE:
+        raw = data.to(torch.float64).contiguous().view(torch.int64)
+    else:
+        raw = data.to(torch.int64)
+    h = hash64(raw)
+    if v.validity is not None:
+        h = torch.where(v.full_validity(capacity), h, _HASH_GOLDEN)
+    return h
+
+
+def _hash_eval(ctx, out_dtype, args):
+    h = hash_value(args[0], ctx.capacity)
+    for a in args[1:]:
+        h = combine_hash(h, hash_value(a, ctx.capacity))
+    return EvalValue(h, None, T.BIGINT)
+
+
+register("$hash", lambda ts: T.BIGINT if ts else None, _hash_eval)
