@@ -63,6 +63,29 @@ Phases, each printing one line; any failure raises and exits non-zero:
    lineitem: the row order must be np.lexsort's; the key and row ids do
    not fit 64 bits, so the classic loop runs: B4 and B2's rank-and-scatter
    form once a pass, B5 once for each key word after the first.
+   spill: six paths, each run cold (scan cache cleared) and warm with
+   equal launches and equal offload counters, each exact, with budgets
+   computed from this run's batches and a fresh temporary SPILL_DIR that
+   must be empty after every run, as must the query pool:
+   spill_sort (the full sort with SORT_OFFLOAD_BYTES of 3 lineitem batches
+   and OFFLOAD_HOST_BUDGET_BYTES of 3.5: 3 batches end in each tier; rows
+   equal np.lexsort's), spill_join (Q3 with JOIN_BUILD_OFFLOAD_BYTES 0
+   and a host budget of 1.5 orders build batches: no build batch stays on
+   the device, the orders build writes a spill file; the Q3 oracle),
+   spill_merge_join (the analytic merge_join plan, its presorted orders
+   build through host and disk with the same budgets: it must come back
+   in key order; its oracle), spill_agg (Q18 with AGG_HOST_OFFLOAD and
+   AGG_COMPACT_THRESHOLD 2: at least 4 compacted runs in host RAM; the
+   Q18 oracle), spill_arbitration (the full sort under a
+   QUERY_HBM_CAP_BYTES of 3 batches and no budget: the arbitrator
+   reclaims for each batch past the cap; np.lexsort's rows) and spill_ssd
+   (Q6 through a fresh scan cache of half one run's scan bytes with the
+   SSD tier: a cold run demotes, a rerun and a second cache over the same
+   directory, as after a restart, hit it; the Q6 oracle). Each line: the
+   walls and peaks beside the same plan's without spill in this run, the
+   batches and bytes that reached host RAM and disk, the host and copy
+   milliseconds of the offloads and those of the disk writes and reads,
+   peak device memory, the query pool's peak and used, the launches.
 10. q6_generic: Q6 with a filter the kernel matcher rejects, through the
    generic aggregation: the Q6 value, and no filter-sum launch.
 11. gather_kernel: the flat-gather kernel (B5) against its plain PyTorch
@@ -159,7 +182,12 @@ Phases, each printing one line; any failure raises and exits non-zero:
    zoneinfo) and decimal_mul (a DECIMAL(38) sum of products and that sum
    times 3, against Python integers). Each prints its walls, peak device
    memory, launches (B2, B4 and B5 on the raw sort, group and join paths)
-   and the rows upper/lower/trim sent to the host.
+   and the rows upper/lower/trim sent to the host. Each cold run ingests
+   (the Values ingest cache cleared first); each warm run takes its
+   tables' batches from the cache. Then ingest_cache: raw_group twice, the
+   second run one ingest-cache hit, the device root holding exactly the
+   cached batch's bytes; a capped pool's reserve makes the arbitrator
+   evict it; under a root cap below its bytes nothing is cached.
 18. complex: ARRAY and MAP columns over the lineitem and orders scans,
    each plan cold and warm with equal launches, exact against numpy
    oracles over the generator's columns (integers only): cx_array_agg
@@ -211,7 +239,9 @@ are bytes over the H100's 3.35 TB/s.
 
 Each path phase sets every kernel's launch count to 0 just before each
 run of its query and reads the counts just after; the kernels line
-reports the cold run's. The line before the last is a
+reports the cold run's. Every phase line carries "offloads": the batches
+an OrderBy, a join build and an aggregation moved to host RAM since the
+line before. The line before the last is a
 JSON object describing each kernel; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -223,8 +253,11 @@ import datetime
 import functools
 import json
 import math
+import os
+import shutil
 import statistics
 import subprocess
+import tempfile
 import time
 
 import numpy as np
@@ -244,6 +277,10 @@ from velox_tpu_torch.exec import groupby
 from velox_tpu_torch.exec import hashtable as H
 from velox_tpu_torch.exec import misc_ops
 from velox_tpu_torch.exec.aggregation import AggregationOperator
+from velox_tpu_torch.exec.join import HashJoinOperator
+from velox_tpu_torch.exec.memory import MemoryPool
+from velox_tpu_torch.exec.operator import IngestCache
+from velox_tpu_torch.exec.orderby import OrderByOperator
 from velox_tpu_torch.exec.sort import (
     _word_bits, num_value_words, pack_words_u64, radix_sort_perm, sort_words,
 )
@@ -311,9 +348,8 @@ def q6_generic_plan():
 # the TPC-H queries of the tpch_rest phase: all but the path phases'
 REST_QUERIES = (2, 4, 5, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 19, 20,
                 21, 22)
-# tpch_rest's card-vs-CPU scale: the 13 queries before Q4, Q5, Q10, Q19
-# and Q21 joined took 130-163 s of CPU at SF 1 on an 8-core H100 host
-# (PERF.md)
+# tpch_rest's card-vs-CPU scale: the 18 queries took 163-198 s of CPU at
+# SF 1 on an 8-core H100 host (PERF.md)
 COMPARE_SF = 1.0
 # relative tolerance of DOUBLE results: the reference oracle's
 # (tests/tpch_sql.py TOLERANCES), 1e-9 unless listed
@@ -334,8 +370,22 @@ PATH_PLANS.update({f"q{q}": (lambda q=q: tpch_plan(q))
                    for q in REST_QUERIES})
 
 
+# the offload counters every phase line carries: batches moved to host RAM
+# since the line before, by an OrderBy, a join build or an aggregation
+OFFLOAD_KEYS = {"sort": M.K_SORT_OFFLOADS,
+                "join_build": M.K_JOIN_BUILD_OFFLOADS,
+                "agg": M.K_AGG_HOST_OFFLOADS}
+_offloads_seen = dict.fromkeys(OFFLOAD_KEYS, 0)
+
+
 def phase(name: str, **fields) -> None:
-    print(json.dumps({"phase": name, **fields}), flush=True)
+    counters = M.reporter().snapshot()["counters"]
+    offloads = {}
+    for k, key in OFFLOAD_KEYS.items():
+        now = int(counters.get(key, 0))
+        offloads[k], _offloads_seen[k] = now - _offloads_seen[k], now
+    print(json.dumps({"phase": name, **fields, "offloads": offloads}),
+          flush=True)
 
 
 def time_ms(fn, calls: int = 20, reps: int = 5) -> float:
@@ -1403,6 +1453,24 @@ def topn_phase(conn, ctx, li, order) -> dict:
     return runs["cold"]["launches"]
 
 
+def check_sorted(out, li, order, what: str) -> int:
+    """The rows of a full sort's output are np.lexsort's, column by
+    column; returns the row count."""
+    rows = 0
+    for b in out:
+        m = b.mask
+        n = int(m.sum().item())
+        for c in SORT_COLS:
+            got = b.columns[c].data[m].cpu().numpy()
+            if not np.array_equal(got, li[c][order[rows:rows + n]]):
+                raise AssertionError(f"{what}: {c} is not in np.lexsort "
+                                     "order")
+        rows += n
+    if rows != len(order):
+        raise AssertionError(f"{what} gave {rows} rows, not {len(order)}")
+    return rows
+
+
 def sort_full_phase(conn, ctx, li, order) -> dict:
     plan = sort_full_plan()
     bits = _key_bits(conn, SORT_COLS)
@@ -1429,19 +1497,7 @@ def sort_full_phase(conn, ctx, li, order) -> dict:
                     "radix_pos": passes, "flat_gather": 0}
         _expect_launches("sort_full", counts, dict(want, filter_sum=0,
                                                    gather_rows=0))
-        rows = 0
-        for b in out:
-            m = b.mask
-            n = int(m.sum().item())
-            for c in SORT_COLS:
-                got = b.columns[c].data[m].cpu().numpy()
-                if not np.array_equal(got, li[c][order[rows:rows + n]]):
-                    raise AssertionError(f"full sort: {c} is not in "
-                                         "np.lexsort order")
-            rows += n
-        if rows != len(order):
-            raise AssertionError(f"full sort gave {rows} rows, not "
-                                 f"{len(order)}")
+        rows = check_sorted(out, li, order, "full sort")
         shape.update(rows=rows, capacity=cap, classic_loop=classic,
                      passes=passes)
 
@@ -1474,6 +1530,324 @@ def q6_generic_phase(conn, ctx, li) -> dict:
         raise AssertionError("the filter-sum matcher took the generic plan")
     phase("q6_generic", revenue_scaled_e4=expect, **_runs_fields(runs))
     return runs["cold"]["launches"]
+
+
+# ---------------------------------------------------------------------------
+# spill: host offload and disk spill of OrderBy, join builds and
+# aggregation; arbitration under a query cap; the scan cache's SSD tier
+# ---------------------------------------------------------------------------
+
+# counters and timing sums a spill run reports, as deltas over the run
+SPILL_COUNTERS = dict(
+    OFFLOAD_KEYS, host_bytes=M.K_OFFLOAD_HOST_BYTES,
+    disk_writes=M.K_SPILL_DISK_WRITES,
+    disk_write_bytes=M.K_SPILL_DISK_WRITE_BYTES,
+    disk_read_bytes=M.K_SPILL_DISK_READ_BYTES,
+    ssd_writes=M.K_SSD_CACHE_WRITES, ssd_write_bytes=M.K_SSD_CACHE_WRITE_BYTES,
+    ssd_hits=M.K_SSD_CACHE_HITS, ssd_misses=M.K_SSD_CACHE_MISSES,
+    reclaims=M.K_MEM_RECLAIMS, reclaimed_bytes=M.K_MEM_RECLAIMED_BYTES,
+    ingest_hits=M.K_VALUES_INGEST_HITS)
+SPILL_MS = {"host_ms": M.K_OFFLOAD_HOST_MS, "copy_ms": M.K_OFFLOAD_COPY_MS,
+            "disk_write_ms": M.K_SPILL_DISK_WRITE_MS,
+            "disk_read_ms": M.K_SPILL_DISK_READ_MS}
+# what must be equal cold and warm
+SPILL_EQUAL = tuple(OFFLOAD_KEYS) + ("disk_writes",)
+
+
+def spill_metrics() -> dict:
+    snap = M.reporter().snapshot()
+    out = {k: int(snap["counters"].get(key, 0))
+           for k, key in SPILL_COUNTERS.items()}
+    out.update({k: snap["histograms"].get(key, {}).get("sum", 0.0)
+                for k, key in SPILL_MS.items()})
+    return out
+
+
+def split_nbytes(conn, table: str, cols) -> int:
+    """Device bytes of the table's first split over `cols`, read through
+    the data source (and so the scan cache) at run time."""
+    src = conn.create_data_source(table, cols, QueryCtx("cuda"))
+    return src.next(conn.default_splits(table)[0]).nbytes
+
+
+def spill_run(plan, config: dict, check, spill_dir=None) -> dict:
+    """One run of `plan` in a fresh QueryCtx with `config`, checked by
+    ``check(out, task)``: wall, launches, the spill counters' deltas and
+    timing sums, peak device memory (reset just before), the query pool's
+    peak and its used after the run (which must be 0), and the spill
+    directory empty after it."""
+    ctx = QueryCtx("cuda", config)
+    before = spill_metrics()
+    cache = DataCache.instance()
+    lookups = (cache.hits, cache.misses)
+    torch.cuda.reset_peak_memory_stats()
+    tasks = []
+    out, wall, launches = _run(plan, ctx, tasks)
+    peak = torch.cuda.max_memory_allocated()
+    moved = {k: v - before[k] for k, v in spill_metrics().items()}
+    moved["cache"] = [cache.hits - lookups[0], cache.misses - lookups[1]]
+    check(out, tasks[0])
+    del out
+    pool = ctx.memory_pool
+    if pool.used != 0:
+        raise AssertionError(f"the query pool holds {pool.used} bytes "
+                             "after the run")
+    if spill_dir is not None and os.listdir(spill_dir):
+        raise AssertionError(f"spill files left: {os.listdir(spill_dir)}")
+    return {"wall_s": wall, "launches": launches,
+            "max_memory_allocated": peak, "pool_peak": pool.peak,
+            "pool_used": pool.used, **moved}
+
+
+def baseline_walls(plan, ctx) -> tuple:
+    """The plan's cold and warm walls and peak device memory without
+    spill settings (the 4 GiB defaults), and the cold run's Task."""
+    DataCache.instance().clear()
+    tasks = []
+    base = {"wall_s": {}, "max_memory_allocated": {}}
+    for run in ("cold", "warm"):
+        torch.cuda.reset_peak_memory_stats()
+        _, wall, _ = _run(plan, ctx, tasks)
+        base["wall_s"][run] = wall
+        base["max_memory_allocated"][run] = torch.cuda.max_memory_allocated()
+    return base, tasks[0]
+
+
+def spill_path(name: str, plan, config: dict, check, must, base: dict,
+               spill_dir=None, **fields) -> dict:
+    """A spill path cold (scan cache cleared) and warm: both exact, both
+    meeting ``must(run)`` (the tiers the path must reach), with equal
+    launches and offload counters; prints its line and returns the cold
+    run's launches."""
+    runs = {}
+    for run in ("cold", "warm"):
+        if run == "cold":
+            DataCache.instance().clear()
+        runs[run] = spill_run(plan, config, check, spill_dir)
+        must(runs[run])
+    cold, warm = runs["cold"], runs["warm"]
+    for k in ("launches",) + SPILL_EQUAL:
+        if cold[k] != warm[k]:
+            raise AssertionError(f"{name}: {k} cold {cold[k]} != warm "
+                                 f"{warm[k]}")
+    keys = [k for k in cold if k not in ("wall_s", "launches")]
+    phase(name, wall_s={r: v["wall_s"] for r, v in runs.items()},
+          no_spill=base,
+          launches={k: v for k, v in cold["launches"].items() if v},
+          **{k: {r: v[k] for r, v in runs.items()} for k in keys}, **fields)
+    return cold["launches"]
+
+
+def _operators(task, cls) -> list:
+    return [op for op in task.operators if isinstance(op, cls)]
+
+
+def spill_phase(conn, ctx, li, order) -> dict:
+    """The spill paths at the connector's scale, each cold and warm, each
+    exact against its oracle, with budgets computed from this run's
+    batches: spill_sort (OrderBy through all three tiers), spill_join (Q3
+    with every build batch off the device), spill_merge_join (a presorted
+    build through host and disk: its order must survive), spill_agg (Q18's
+    compacted runs in host RAM), spill_arbitration (a query cap and no
+    budget: the arbitrator moves sort state) and spill_ssd (Q6 through a
+    small scan cache with the SSD tier, then after a restart). Returns
+    each path's cold launches."""
+    t0 = time.perf_counter()
+    od = table_columns(conn, "orders", ["o_orderkey", "o_custkey",
+                                        "o_totalprice", "o_orderpriority"])
+    q3_want = q3_oracle(conn, li)
+    q18_want = q18_oracle(conn, li, Q18_THRESHOLD)
+    q6_want = q6_oracle(li)
+    per_prio, _ = merge_join_oracle(conn, li, od)
+    del od
+    phase("spill_oracles", seconds=time.perf_counter() - t0)
+    by_path = {}
+    dirs = []
+
+    def new_dir() -> str:
+        dirs.append(tempfile.mkdtemp(prefix="chip_smoke_spill_"))
+        return dirs[-1]
+
+    def rows_equal(want):
+        def check(out, task):
+            got = _host_rows(out, list(want))
+            if got != want:
+                raise AssertionError(f"{got} != numpy oracle {want}")
+        return check
+
+    n_li = len(conn.default_splits("lineitem"))
+
+    # spill_sort: 3 batches on the device, the next to host RAM, whose
+    # budget of 3.5 batches sends all but the newest 3 of them to disk (at
+    # SF10, 9 splits: 3 batches end in each tier)
+    sort_plan = sort_full_plan()
+    batch = split_nbytes(conn, "lineitem", SORT_COLS)
+    sort_base, _ = baseline_walls(sort_plan, ctx)
+    buffered = []
+
+    def check_sort(out, task):
+        check_sorted(out, li, order, "spilled sort")
+        op, = _operators(task, OrderByOperator)
+        buffered.append(op.stats.input_batches)
+
+    def must_sort(run):
+        n = buffered[-1]
+        on_device = min(3, n)
+        want = (n - on_device, max(0, n - on_device - 3))
+        if (run["sort"], run["disk_writes"]) != want:
+            raise AssertionError(f"spill_sort: (to host, to disk) "
+                                 f"{(run['sort'], run['disk_writes'])} "
+                                 f"for {n} batches, expected {want}")
+        if run["pool_peak"] != on_device * batch:
+            raise AssertionError(f"spill_sort: pool peak {run['pool_peak']}")
+        run["tier_batches"] = {"device": on_device,
+                               "host": want[0] - want[1], "disk": want[1]}
+
+    d = new_dir()
+    by_path["spill_sort"] = spill_path(
+        "spill_sort", sort_plan,
+        {QC.SORT_OFFLOAD_BYTES: 3 * batch,
+         QC.OFFLOAD_HOST_BUDGET_BYTES: 7 * batch // 2, QC.SPILL_DIR: d},
+        check_sort, must_sort, sort_base, d, batch_nbytes=batch)
+
+    # spill_join: Q3 with a device budget of 0 for every build batch and a
+    # host budget of 1.5 orders build batches (the semi join's output)
+    q3 = tpch_plan(3)
+    q3_base, q3_task = baseline_walls(q3, ctx)
+    semi = [op for op in _operators(q3_task, HashJoinOperator)
+            if op.node.join_type is P.JoinType.LEFT_SEMI_FILTER]
+    st = semi[0].stats
+    build_batch = st.output_bytes // st.output_batches
+    # builds: customer's one batch and the orders batches
+    n_builds = 1 + st.output_batches
+
+    def must_join(run):
+        # nothing reserved: no build batch stayed on the device; only the
+        # orders build holds more than 1.5 of its batches
+        if not (run["pool_peak"] == 0 and run["join_build"] == n_builds
+                and (run["disk_writes"] >= 1 or st.output_batches < 2)):
+            raise AssertionError(f"spill_join: pool peak "
+                                 f"{run['pool_peak']}, {run['join_build']} "
+                                 f"of {n_builds} build batches offloaded, "
+                                 f"{run['disk_writes']} spill files")
+
+    d = new_dir()
+    by_path["spill_join"] = spill_path(
+        "spill_join", q3,
+        {QC.JOIN_BUILD_OFFLOAD_BYTES: 0,
+         QC.OFFLOAD_HOST_BUDGET_BYTES: 3 * build_batch // 2,
+         QC.SPILL_DIR: d},
+        rows_equal(q3_want), must_join, q3_base, d,
+        orders_build_batch_nbytes=build_batch,
+        orders_build_batches=st.output_batches)
+
+    # spill_merge_join: the orders build (2 batches, presorted) with the
+    # same budgets: one batch ends on disk and one in host RAM, and the
+    # build must come back in key order
+    mj = merge_join_plan()
+    mj_base, _ = baseline_walls(mj, ctx)
+    mj_batch = split_nbytes(conn, "orders", ["o_orderkey",
+                                             "o_orderpriority"])
+    n_od = len(conn.default_splits("orders"))
+    d = new_dir()
+
+    def check_mj(out, task):
+        _same_rows(_host_table(out), per_prio, 1e-9, "spilled merge join")
+
+    def must_mj(run):
+        # every build batch to host RAM, all but the newest to disk
+        if (run["join_build"], run["disk_writes"]) != (n_od, n_od - 1):
+            raise AssertionError(f"spill_merge_join: {run['join_build']} "
+                                 f"to host, {run['disk_writes']} to disk "
+                                 f"of {n_od} build batches")
+    by_path["spill_merge_join"] = spill_path(
+        "spill_merge_join", mj,
+        {QC.JOIN_BUILD_OFFLOAD_BYTES: 0,
+         QC.OFFLOAD_HOST_BUDGET_BYTES: 3 * mj_batch // 2, QC.SPILL_DIR: d},
+        check_mj, must_mj, mj_base, d, build_batch_nbytes=mj_batch,
+        build_batches=n_od)
+
+    # spill_agg: Q18's group-by compacts every 2 batches into a run in
+    # host RAM
+    q18_plan = PATH_PLANS["q18"]()
+    q18_base, _ = baseline_walls(q18_plan, ctx)
+
+    def must_agg(run):
+        # the lineitem group-by folds a run every 2 of its batches
+        if run["agg"] < n_li // 2:
+            raise AssertionError(f"spill_agg: {run['agg']} host runs")
+    by_path["spill_agg"] = spill_path(
+        "spill_agg", q18_plan,
+        {QC.AGG_HOST_OFFLOAD: True, QC.AGG_COMPACT_THRESHOLD: 2},
+        rows_equal(q18_want), must_agg, q18_base)
+
+    # spill_arbitration: the full sort under a query cap of 3 batches and
+    # the default budgets: each batch past the cap makes the arbitrator
+    # reclaim (the scan cache first, then the OrderBy's oldest batch)
+
+    def check_arb(out, task):
+        check_sorted(out, li, order, "capped sort")
+
+    def must_arb(run):
+        n = buffered[-1]
+        if n > 3 and not (run["reclaims"] > 0 and run["sort"] == n - 3):
+            raise AssertionError(f"spill_arbitration: {run['reclaims']} "
+                                 f"reclaims, {run['sort']} offloads")
+        if run["pool_peak"] > 3 * batch:
+            raise AssertionError("spill_arbitration: the pool passed its "
+                                 "cap")
+    by_path["spill_arbitration"] = spill_path(
+        "spill_arbitration", sort_plan, {QC.QUERY_HBM_CAP_BYTES: 3 * batch},
+        check_arb, must_arb, sort_base, query_cap=3 * batch)
+
+    # spill_ssd: Q6 through a scan cache of half one run's scan bytes with
+    # the SSD tier: a cold run demotes, a rerun promotes, and so does a
+    # second cache over the same directory, as after a restart
+    q6 = PATH_PLANS["q6"]()
+    q6_base, _ = baseline_walls(q6, ctx)
+    cache = DataCache.instance()
+    run_bytes = cache.used
+    small = max(run_bytes // 2, max(b.nbytes for _, b in cache.entries()))
+    cache.clear()
+    ssd_dir = new_dir()
+
+    def check_q6(out, task):
+        if q6_value(out) != q6_want:
+            raise AssertionError(f"Q6 through the SSD tier: "
+                                 f"{q6_value(out)} != {q6_want}")
+    runs = {}
+    try:
+        for run in ("cold", "rerun", "restart"):
+            if run != "rerun":
+                if DataCache._instance is not cache:
+                    DataCache._instance.clear()
+                DataCache._instance = DataCache(small)
+                DataCache._instance.enable_ssd(ssd_dir)
+            runs[run] = spill_run(q6, {}, check_q6)
+            runs[run]["ssd_entries"] = DataCache._instance._ssd.stats()[
+                "entries"]
+        DataCache._instance.clear()
+    finally:
+        DataCache._instance = cache
+    if not runs["cold"]["ssd_writes"] > 0:
+        raise AssertionError("spill_ssd: the cold run demoted nothing")
+    for run in ("rerun", "restart"):
+        if not runs[run]["ssd_hits"] > 0:
+            raise AssertionError(f"spill_ssd: no SSD hit on the {run}")
+        if runs[run]["launches"] != runs["cold"]["launches"]:
+            raise AssertionError(f"spill_ssd: the {run} launched "
+                                 "differently")
+    keys = [k for k in runs["cold"] if k not in ("wall_s", "launches")]
+    phase("spill_ssd", wall_s={r: v["wall_s"] for r, v in runs.items()},
+          no_spill=q6_base, cache_budget=small, run_scan_bytes=run_bytes,
+          launches={k: v for k, v in runs["cold"]["launches"].items() if v},
+          **{k: {r: v[k] for r, v in runs.items()} for k in keys})
+    by_path["spill_ssd"] = runs["cold"]["launches"]
+    shutil.rmtree(ssd_dir)
+    for d in dirs[:-1]:
+        os.rmdir(d)  # empty: each run checked it
+    phase("spill", seconds=time.perf_counter() - t0)
+    return by_path
 
 
 # ---------------------------------------------------------------------------
@@ -3594,7 +3968,8 @@ def types_phase(conn, ctx, li, seed: int) -> dict:
     seconds = time.perf_counter() - t0
     # one Values ingest of the orders table: the host pass into pinned
     # memory, the uploads and the device pack (every orders path below
-    # pays it on each run: the Values ingest cache is not ported)
+    # pays it on its cold run; its warm run takes the batch from the
+    # Values ingest cache)
     from velox_tpu_torch.vector.device import from_arrow
     ingest = {}
     for run in ("first", "second"):
@@ -3822,12 +4197,14 @@ def types_phase(conn, ctx, li, seed: int) -> dict:
     plans = dict(types_plans(orders, customer))
     plans.update(datetime_plans())
     cache = DataCache.instance()
+    ingest = IngestCache.instance()
     by_path = {}
     for name, plan in plans.items():
         runs = {}
         for run in ("cold", "warm"):
             if run == "cold":
                 cache.clear()
+                ingest.clear()
             info = {}
             torch.cuda.reset_peak_memory_stats()
             host0 = host_case_rows_now()
@@ -3859,7 +4236,77 @@ def types_phase(conn, ctx, li, seed: int) -> dict:
               launches={k: v for k, v in got.items() if k != "filter_sum"},
               **extra)
     cache.clear()
+    by_path["ingest_cache"] = ingest_cache_path(
+        plans["raw_group"], lambda out: check_group(out, {}), ctx)
     return by_path
+
+
+def ingest_cache_path(plan, check, ctx) -> dict:
+    """The Values ingest cache over the types phase's raw_group: the
+    first run ingests and caches the orders batch, reserved in the device
+    root; the second takes it from the cache (one K_VALUES_INGEST_HITS);
+    a capped pool's reserve makes the arbitrator evict it and the root
+    gets its bytes back; under a root cap below the batch's bytes a run
+    ingests and caches nothing. Every run exact; returns the first run's
+    launches."""
+    ingest = IngestCache.instance()
+    root = MemoryPool.device_root()
+    DataCache.instance().clear()
+    ingest.clear()
+    base = root.used
+    runs = {}
+
+    def one(run):
+        hits = spill_metrics()["ingest_hits"]
+        torch.cuda.reset_peak_memory_stats()
+        out, wall, launched = _run(plan, ctx)
+        check(out)
+        del out
+        runs[run] = {"wall_s": wall, "launches": launched,
+                     "ingest_hits": spill_metrics()["ingest_hits"] - hits,
+                     "max_memory_allocated":
+                         torch.cuda.max_memory_allocated(),
+                     "cached_bytes": ingest.used,
+                     "root_used_above_base": root.used - base}
+
+    one("ingest")
+    one("cached")
+    cached = ingest.used
+    if not (cached > 0 and root.used - base == cached
+            and runs["ingest"]["ingest_hits"] == 0
+            and runs["cached"]["ingest_hits"] == 1):
+        raise AssertionError(f"ingest cache: {runs}")
+    if runs["cached"]["launches"] != runs["ingest"]["launches"]:
+        raise AssertionError("ingest cache: the cached run launched "
+                             "differently")
+    # a query pool's reserve over a capped root: the arbitrator evicts it
+    pool = MemoryPool("capped", parent=root)
+    try:
+        MemoryPool.set_device_cap(root.used)
+        if not pool.reserve_or_reclaim(1):
+            raise AssertionError("ingest cache: nothing was reclaimed")
+    finally:
+        MemoryPool.set_device_cap(None)
+        pool.release(pool.used)
+    if ingest.stats()["entries"] or root.used != base:
+        raise AssertionError("ingest cache: the reclaimed entry kept its "
+                             "bytes")
+    try:
+        MemoryPool.set_device_cap(base + cached - 1)
+        one("capped_root")
+        one("capped_root_again")
+    finally:
+        MemoryPool.set_device_cap(None)
+    if (ingest.stats()["entries"], root.used,
+            runs["capped_root_again"]["ingest_hits"]) != (0, base, 0):
+        raise AssertionError("ingest cache: an entry was kept over the "
+                             "root's cap")
+    phase("ingest_cache", entry_bytes=cached,
+          **{k: {r: v[k] for r, v in runs.items()}
+             for k in runs["ingest"] if k != "launches"},
+          launches={k: v for k, v in runs["ingest"]["launches"].items()
+                    if v})
+    return runs["ingest"]["launches"]
 
 
 # ---------------------------------------------------------------------------
@@ -4733,8 +5180,9 @@ def main() -> None:
           seconds=time.perf_counter() - t0)
     by_phase.update({"q1": q1_phase(conn, ctx, li),
                      "topn": topn_phase(conn, ctx, li, order),
-                     "sort_full": sort_full_phase(conn, ctx, li, order),
-                     "q6_generic": q6_generic_phase(conn, ctx, li)})
+                     "sort_full": sort_full_phase(conn, ctx, li, order)})
+    by_phase.update(spill_phase(conn, ctx, li, order))
+    by_phase["q6_generic"] = q6_generic_phase(conn, ctx, li)
     del order
     gather = gather_phase(args.seed, conn)
     by_phase["q3"] = q3_phase(conn, ctx, li)

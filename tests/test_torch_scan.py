@@ -43,7 +43,7 @@ from velox_tpu_torch.connectors.connector import register_connector
 from velox_tpu_torch.core.config import QueryConfig as QC
 from velox_tpu_torch.exec import task as task_mod
 from velox_tpu_torch.exec.memory import MemoryArbitrator, MemoryPool
-from velox_tpu_torch.exec.operator import TableScanOperator
+from velox_tpu_torch.exec.operator import IngestCache, TableScanOperator
 from velox_tpu_torch.exec.task import QueryCtx, Task
 from velox_tpu_torch.testing.plan_builder import PlanBuilder
 from velox_tpu_torch.tpch import tpch_plan
@@ -59,6 +59,9 @@ SMALL_SPLITS = 4096
 def _tpch():
     tt.register_tpch(SF)
     TC.DataCache.instance().clear()
+    # the Values ingest cache reclaims at the scan cache's priority: an
+    # earlier test's entries would be asked first
+    IngestCache.instance().clear()
     yield
     tt.register_tpch(SF)
 
@@ -272,15 +275,18 @@ def test_concurrent_producers_keep_the_accounting(monkeypatch):
     assert root.used == base
 
 
-def test_instance_reads_the_flags(monkeypatch):
+def test_instance_reads_the_flags(monkeypatch, tmp_path):
     monkeypatch.setattr(TC.DataCache, "_instance", None)
     try:
         F.set_flag("scan_cache_bytes", 12345)
         assert TC.DataCache.instance().budget == 12345
+        assert TC.DataCache.instance()._ssd is None
         monkeypatch.setattr(TC.DataCache, "_instance", None)
-        F.set_flag("ssd_cache_dir", "/nonexistent")
-        with pytest.raises(NotImplementedError, match="A.7"):
-            TC.DataCache.instance()
+        F.set_flag("ssd_cache_dir", str(tmp_path / "ssd"))
+        cache = TC.DataCache.instance()
+        assert isinstance(cache._ssd, TC.SsdTier)
+        assert cache._ssd.dir == str(tmp_path / "ssd")
+        assert (tmp_path / "ssd").is_dir()
     finally:
         F.reset_flag("scan_cache_bytes")
         F.reset_flag("ssd_cache_dir")

@@ -105,3 +105,13 @@ K_SCAN_SPLITS = "velox_tpu.scan.splits_processed"
 K_SCAN_PREWARMED = "velox_tpu.scan.prewarmed_operators"
 K_SPILL_DISK_READ_BYTES = "velox_tpu.spill.disk_read_bytes"
 K_SPILL_DISK_WRITE_BYTES = "velox_tpu.spill.disk_write_bytes"
+# bytes copied to host RAM (every HostBatch: offloaded operator state and
+# the SSD tier's demotions)
+K_OFFLOAD_HOST_BYTES = "velox_tpu.spill.offload_host_bytes"
+# offload and spill timings (histograms, ms): host time of a HostBatch
+# (pinned allocation and the copies' enqueue), device time of its copies
+# (CUDA events), and the file write and read of a DiskBatch
+K_OFFLOAD_HOST_MS = "velox_tpu.spill.offload_host_ms"
+K_OFFLOAD_COPY_MS = "velox_tpu.spill.offload_copy_ms"
+K_SPILL_DISK_WRITE_MS = "velox_tpu.spill.disk_write_ms"
+K_SPILL_DISK_READ_MS = "velox_tpu.spill.disk_read_ms"

@@ -19,6 +19,7 @@ int32 (``_NARROW_INT32``), which the filter-sum kernel requires.
 
 from __future__ import annotations
 
+import functools
 from contextlib import nullcontext
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -157,10 +158,19 @@ class VirtualDictionary(Dictionary):
     def __repr__(self):
         return f"VirtualDictionary({self._size})"
 
+    def __reduce__(self):
+        # pickled as its size and formatter, never its materialized values
+        return (VirtualDictionary, (self._size, self._fmt))
+
+
+def _format_numbered(prefix: str, ids: np.ndarray) -> list:
+    return [f"{prefix}#{i:09d}" for i in ids.tolist()]
+
 
 def _numbered(prefix: str):
-    """``fmt`` for 'Prefix#%09d' values."""
-    return lambda ids: [f"{prefix}#{i:09d}" for i in ids.tolist()]
+    """``fmt`` for 'Prefix#%09d' values (a partial, so that a dictionary
+    pickles: the scan cache's SSD tier writes batches with theirs)."""
+    return functools.partial(_format_numbered, prefix)
 
 
 def _comment_dict(stream: int) -> Dictionary:

@@ -37,8 +37,12 @@ Single-step only, except one approx_percentile, whose PARTIAL step emits
 at most K weighted quantile knots a group and whose FINAL step
 re-selects by weighted rank (``_pct_compress``, ``_pct_final``).
 
-Not ported: host offload of partial runs (ROADMAP A.7) and the
-reference's compiled-program caches.
+*Host offload* (``host_offload``, the spill analogue of velox
+GroupingSet::spill): each compacted partial run moves to host RAM
+(exec/memory.py ``HostBatch``) and the runs come back, ahead of the
+pending partials, for the final merge. It turns single-shot mode off.
+
+Not ported: the reference's compiled-program caches.
 """
 
 from __future__ import annotations
@@ -49,9 +53,11 @@ import numpy as np
 import torch
 
 from velox_tpu_torch import types as T
+from velox_tpu_torch.common import metrics as M
 from velox_tpu_torch.core import plan as P
 from velox_tpu_torch.exec import groupby as G
 from velox_tpu_torch.exec.batch_utils import concat_batches, slice_batch
+from velox_tpu_torch.exec.memory import HostBatch
 from velox_tpu_torch.exec.operator import Operator
 from velox_tpu_torch.expression.eval import (
     EvalCtx, EvalValue, ExprSet, value_from_column,
@@ -115,7 +121,7 @@ class AggregationOperator(Operator):
     _SINGLE_MERGE_MAX_ROWS = 1 << 24
 
     def __init__(self, node: P.AggregationNode, device, pre_fn=None,
-                 compact_threshold: int = 8,
+                 host_offload: bool = False, compact_threshold: int = 8,
                  abandon_min_rows: int = 100_000,
                  abandon_min_pct: float = 0.8):
         super().__init__(node)
@@ -123,6 +129,9 @@ class AggregationOperator(Operator):
         # the fused upstream Filter/Project chain (exec/fuse.py), applied
         # to each batch before the aggregation reads it
         self._pre_fn = pre_fn
+        # compacted partial runs offloaded to host RAM
+        self._host_offload = host_offload
+        self._host_runs: List[HostBatch] = []
         self._step = node.step
         self._keys = list(node.grouping_keys)
         # static (min, max) bounds per grouping key (core/stats.py):
@@ -153,6 +162,7 @@ class AggregationOperator(Operator):
         # batch plus a sort of the concatenated partials
         self._single_shot = (
             bool(self._keys) and not self._collect_mode
+            and not host_offload
             and self._step is not P.AggregationStep.PARTIAL
             and not (self._vector
                      and self._step is P.AggregationStep.SINGLE))
@@ -856,7 +866,13 @@ class AggregationOperator(Operator):
             self._outputs.append(merged)
             self._partials = []
             return
-        self._partials = [self._shrink(merged, num_groups, tails)]
+        merged = self._shrink(merged, num_groups, tails)
+        if self._host_offload:
+            M.record_counter(M.K_AGG_HOST_OFFLOADS)
+            self._host_runs.append(HostBatch(merged))
+            self._partials = []
+        else:
+            self._partials = [merged]
 
     @staticmethod
     def _pow2_suffix_actives(mask: torch.Tensor):
@@ -907,6 +923,10 @@ class AggregationOperator(Operator):
         if not self._keys:
             self._outputs = [self._extract_global()]
             return
+        if self._host_runs:
+            self._partials = [h.restore() for h in self._host_runs] \
+                + self._partials
+            self._host_runs = []
         if not self._partials:
             return
         total_cap = sum(b.capacity for b in self._partials)

@@ -47,8 +47,10 @@ scatter-probe hash-join build past seven words is not needed (the rows
 are the same as a set). Raw-string keys (vector/strings.py) always do:
 their byte words and length word are the key words, a dictionary or
 constant side converts to bytes (functions/raw_strings.py ``as_raw``),
-and the two sides' byte matrices pad to one size class. Not ported:
-build-side offload (ROADMAP A.7).
+and the two sides' byte matrices pad to one size class. Both build
+stages hold their batches in an ``OffloadBuffer`` (exec/memory.py): past
+the device budget they go to host RAM and spill files (velox Spiller
+kHashJoinBuild) and come back in input order for the build.
 """
 
 from __future__ import annotations
@@ -66,6 +68,7 @@ from velox_tpu_torch.core.stats import (
 from velox_tpu_torch.exec.batch_utils import (
     concat_batches, take_columns_rows,
 )
+from velox_tpu_torch.exec.memory import OffloadBuffer
 from velox_tpu_torch.exec.operator import Operator
 from velox_tpu_torch.exec.sort import (
     pack_key_u64, packable_words, sort_perm_key, sort_words,
@@ -255,25 +258,32 @@ def array_join_range(node: P.HashJoinNode):
 
 
 class HashBuildStage:
-    """Collects build-side batches in a plain list and builds the table
-    once they are all in (the reference's OffloadBuffer is not ported)."""
+    """Collects build-side batches in ``buffer`` and builds the table
+    once they are all in. The Task hands it an ``OffloadBuffer`` with the
+    query's spill settings (parity: velox Spiller kHashJoinBuild,
+    exec/Spiller.h:29); without one every batch stays on the device,
+    unaccounted."""
 
-    def __init__(self, key_fields, array_range=None, key_ranges=None):
+    def __init__(self, key_fields, array_range=None, key_ranges=None,
+                 buffer: Optional[OffloadBuffer] = None):
         self._key_fields = list(key_fields)
         self._array_range = array_range
         self._key_ranges = key_ranges
-        self._batches: List[DeviceBatch] = []
+        self._buf = buffer if buffer is not None else OffloadBuffer(None)
 
     def add_input(self, batch: DeviceBatch):
-        self._batches.append(batch)
+        self._buf.add(batch)
+
+    def close(self) -> None:
+        """Drop the buffered batches (a build that did not finish)."""
+        self._buf.close()
 
     def _merged(self) -> DeviceBatch:
-        if not self._batches:
+        batches = self._buf.restore_all()
+        if not batches:
             raise RuntimeError("empty build side requires at least one "
                                "(possibly empty) batch")
-        merged = concat_batches(self._batches)
-        self._batches = []
-        return merged
+        return concat_batches(batches)
 
     def finish(self) -> SortedBuild:
         return build_table(self._merged(), self._key_fields,
@@ -315,9 +325,9 @@ def presorted_is_sorted(bt: SortedBuild) -> torch.Tensor:
 
 
 class MergeBuildStage(HashBuildStage):
-    """Collects the (presorted) right side of a merge join in a plain
-    list; ``finish`` checks the sort contract with one host read. (The
-    reference's OffloadBuffer is not ported, ROADMAP A.7.)"""
+    """Collects the (presorted) right side of a merge join, through the
+    same offload buffer, whose ``restore_all`` keeps the input order the
+    contract needs; ``finish`` checks the contract with one host read."""
 
     def finish(self) -> SortedBuild:
         from velox_tpu_torch.common.errors import VeloxRuntimeError

@@ -1,26 +1,197 @@
-"""Memory accounting: the pools and the arbitrator the scan cache needs.
+"""Memory accounting, host offload and disk spill.
 
-Counterpart of the accounting half of ``velox_tpu/exec/memory.py``
-(velox/common/memory MemoryPool usage tracking and the MemoryArbitrator's
-reclaim). The device root counts the scan cache's bytes
-(connectors/cache.py); operators reserve nothing yet. Host offload and
-disk spill (``HostBatch``, ``DiskBatch``, ``OffloadBuffer``) are not
-ported.
+Counterpart of ``velox_tpu/exec/memory.py``: velox/common/memory's
+MemoryPool usage tracking, the MemoryArbitrator's reclaim, and the spill
+framework (velox/exec/Spiller.h) mapped onto a device's memory tiers.
+Operator state that crosses its device budget moves to host RAM
+(``HostBatch``: every tensor of the batch in pinned memory on a CUDA
+card, a clone on the CPU); past the host budget the oldest host batches
+go to spill files (``DiskBatch``). ``OffloadBuffer`` holds an OrderBy's
+input or a join build's batches across the three tiers, reserves its
+device bytes in the query's pool and gives them up when the arbitrator
+asks. ``restore_all`` returns every batch in the order it was added,
+whichever tier it reached (the reference returns device, then host, then
+disk batches, which reorders a sort's ties and a merge join's presorted
+build once two tiers hold batches).
 """
 
 from __future__ import annotations
 
+import os
+import tempfile
+import threading
+import time
+import uuid
 import weakref
-from typing import Dict, List, Optional
+from collections import OrderedDict
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
 
 from velox_tpu_torch.common import metrics as M
-from velox_tpu_torch.vector.device import DeviceBatch
+from velox_tpu_torch.common.errors import VeloxRuntimeError
+from velox_tpu_torch.vector.device import DeviceBatch, DeviceColumn
 
 
 def batch_nbytes(batch: DeviceBatch) -> int:
-    """Device bytes held by a batch: data, validity, DECIMAL(38) high
-    limbs and the mask."""
+    """Device bytes held by a batch: data, validity, the mask and every
+    child column's and explicit starts' bytes."""
     return batch.nbytes
+
+
+def _flatten(batch: DeviceBatch) -> Tuple[tuple, List[torch.Tensor]]:
+    """(layout, tensors): every tensor of the batch (data, validity,
+    starts and child columns, recursively; the mask; the error count) in
+    one list, and the structure that puts them back. Dtypes and
+    dictionaries stay in the layout by reference."""
+    tensors: List[torch.Tensor] = []
+
+    def slot(t: Optional[torch.Tensor]) -> Optional[int]:
+        if t is None:
+            return None
+        tensors.append(t)
+        return len(tensors) - 1
+
+    def column(c: DeviceColumn) -> tuple:
+        return (c.dtype, c.dictionary, slot(c.data), slot(c.validity),
+                slot(c.starts), tuple(column(ch) for ch in c.children))
+
+    cols = tuple((name, column(c)) for name, c in batch.columns.items())
+    return (cols, slot(batch.mask), slot(batch.errors)), tensors
+
+
+def _unflatten(layout: tuple, tensors: List[torch.Tensor]) -> DeviceBatch:
+    def get(i: Optional[int]) -> Optional[torch.Tensor]:
+        return None if i is None else tensors[i]
+
+    def column(d: tuple) -> DeviceColumn:
+        dtype, dictionary, data, validity, starts, children = d
+        return DeviceColumn(tensors[data], get(validity), dtype, dictionary,
+                            tuple(column(ch) for ch in children), get(starts))
+
+    cols, mask, errors = layout
+    return DeviceBatch({name: column(d) for name, d in cols}, tensors[mask],
+                       get(errors))
+
+
+def _ms_since(t0: float) -> float:
+    return (time.perf_counter() - t0) * 1e3
+
+
+class HostBatch:
+    """A device batch offloaded to host RAM: each of its tensors copied
+    out (``_flatten``), dictionaries kept by reference. From a CUDA batch
+    the copies go into pinned host tensors, asynchronously on the current
+    stream; a host buffer that cannot be pinned raises rather than fall
+    back to pageable memory. From a CPU batch the tensors are cloned.
+    ``restore()`` puts the batch back on the device it came from."""
+
+    def __init__(self, batch: DeviceBatch):
+        t0 = time.perf_counter()
+        self.layout, tensors = _flatten(batch)
+        self.device = batch.device
+        self.nbytes = batch_nbytes(batch)
+        self._start = self._ready = None
+        if self.device.type == "cuda":
+            stream = torch.cuda.current_stream(self.device)
+            self._start = torch.cuda.Event(enable_timing=True)
+            self._ready = torch.cuda.Event(enable_timing=True)
+            self._start.record(stream)
+            self.tensors = []
+            for t in tensors:
+                h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                h.copy_(t, non_blocking=True)
+                self.tensors.append(h)
+            self._ready.record(stream)
+        else:
+            self.tensors = [t.clone() for t in tensors]
+        M.record_histogram(M.K_OFFLOAD_HOST_MS, _ms_since(t0))
+        M.record_counter(M.K_OFFLOAD_HOST_BYTES, self.nbytes)
+
+    def wait(self) -> None:
+        """Block until the device-to-host copies are complete: numpy may
+        read the host tensors only after this."""
+        if self._ready is not None:
+            self._ready.synchronize()
+            M.record_histogram(M.K_OFFLOAD_COPY_MS,
+                               self._start.elapsed_time(self._ready))
+            self._start = self._ready = None
+
+    def arrays(self) -> List[np.ndarray]:
+        """The host tensors as numpy arrays (sharing memory)."""
+        self.wait()
+        return [t.numpy() for t in self.tensors]
+
+    def restore(self) -> DeviceBatch:
+        self.wait()
+        return _upload(self.layout, self.tensors, self.device)
+
+    def __getstate__(self):
+        # pickled (the SSD tier) as numpy arrays, dictionaries by value
+        return {"layout": self.layout, "device": str(self.device),
+                "nbytes": self.nbytes, "arrays": self.arrays()}
+
+    def __setstate__(self, state):
+        self.layout = state["layout"]
+        self.device = torch.device(state["device"])
+        self.nbytes = state["nbytes"]
+        self.tensors = [torch.from_numpy(a) for a in state["arrays"]]
+        self._start = self._ready = None
+
+
+def _upload(layout: tuple, tensors: List[torch.Tensor],
+            device: torch.device) -> DeviceBatch:
+    """The batch of host `tensors` on `device`. On a CUDA card the copies
+    complete before it returns: the batch may be handed to any stream."""
+    if device.type != "cuda":
+        return _unflatten(layout, tensors)
+    out = [t.to(device, non_blocking=True) for t in tensors]
+    torch.cuda.current_stream(device).synchronize()
+    return _unflatten(layout, out)
+
+
+class DiskBatch:
+    """A host batch spilled to a file: its arrays in one ``.npz`` under
+    ``spill_dir``, its layout (dtypes, dictionaries) kept here. The disk
+    tier below host offload (parity: velox Spiller writing spill files,
+    exec/Spiller.h:29-92). The file goes on ``restore()`` and on
+    ``delete()``. A failed write raises."""
+
+    def __init__(self, host: HostBatch, spill_dir: str):
+        os.makedirs(spill_dir, exist_ok=True)
+        self.path = os.path.join(spill_dir,
+                                 f"spill-{uuid.uuid4().hex}.npz")
+        self.layout = host.layout
+        self.device = host.device
+        self.nbytes = host.nbytes
+        arrays = host.arrays()
+        self.n_arrays = len(arrays)
+        t0 = time.perf_counter()
+        try:
+            np.savez(self.path, **{f"a{i}": a for i, a in enumerate(arrays)})
+        except BaseException:
+            self.delete()
+            raise
+        M.record_histogram(M.K_SPILL_DISK_WRITE_MS, _ms_since(t0))
+        M.record_counter(M.K_SPILL_DISK_WRITES)
+        M.record_counter(M.K_SPILL_DISK_WRITE_BYTES, self.nbytes)
+
+    def restore(self) -> DeviceBatch:
+        t0 = time.perf_counter()
+        with np.load(self.path) as z:
+            tensors = [torch.from_numpy(z[f"a{i}"])
+                       for i in range(self.n_arrays)]
+        self.delete()
+        M.record_histogram(M.K_SPILL_DISK_READ_MS, _ms_since(t0))
+        M.record_counter(M.K_SPILL_DISK_READ_BYTES, self.nbytes)
+        return _upload(self.layout, tensors, self.device)
+
+    def delete(self) -> None:
+        try:
+            os.remove(self.path)
+        except FileNotFoundError:
+            pass
 
 
 class MemoryPool:
@@ -141,3 +312,212 @@ class MemoryArbitrator:
         M.record_counter(M.K_MEM_RECLAIMS)
         M.record_counter(M.K_MEM_RECLAIMED_BYTES, freed)
         return freed
+
+
+class DeviceLru:
+    """LRU of device-resident values under a byte budget (None: no
+    budget) and an optional entry cap, under a lock. Each entry's bytes
+    are reserved in the device root; an entry that cannot be reserved is
+    not kept. The arbitrator reclaims from it first (``PRI_CACHE``),
+    evicting LRU entries. The scan cache and the Values ingest cache are
+    two of them; a subclass's ``_evicted`` sees what left, after the lock
+    is released."""
+
+    def __init__(self, budget_bytes: Optional[int] = None,
+                 max_entries: Optional[int] = None):
+        self.budget = budget_bytes
+        self.max_entries = max_entries
+        self.used = 0
+        self._entries: "OrderedDict" = OrderedDict()  # key -> (value, n)
+        self._lock = threading.Lock()
+        self._pool = MemoryPool.device_root()
+        MemoryArbitrator.instance().register(
+            self, MemoryArbitrator.PRI_CACHE)
+
+    def _lookup(self, key):
+        with self._lock:
+            hit = self._entries.get(key)
+            if hit is None:
+                return None
+            self._entries.move_to_end(key)
+            return hit[0]
+
+    def _full(self, n: int) -> bool:
+        return (self.budget is not None and self.used + n > self.budget) \
+            or (self.max_entries is not None
+                and len(self._entries) >= self.max_entries)
+
+    def _pop_lru(self) -> Tuple:
+        key, (value, n) = self._entries.popitem(last=False)
+        self.used -= n
+        self._pool.release(n)
+        return key, value, n
+
+    def _insert(self, key, value, n: int) -> List[Tuple]:
+        """Keep `value` under `key` (unless it is over the budget or the
+        device root refuses its bytes); returns the (key, value, bytes)
+        evicted for it, after ``_evicted`` has seen them."""
+        if self.budget is not None and n > self.budget:
+            return []
+        evicted = []
+        with self._lock:
+            old = self._entries.pop(key, None)
+            if old is not None:
+                self.used -= old[1]
+                self._pool.release(old[1])
+            while self._entries and self._full(n):
+                evicted.append(self._pop_lru())
+            # a capped root refuses: skip the entry rather than oust
+            # operator state (the arbitrator cannot help: a cache is its
+            # first reclaim target)
+            if self._pool.reserve(n):
+                self._entries[key] = (value, n)
+                self.used += n
+        self._evicted(evicted)
+        return evicted
+
+    def _evicted(self, evicted: List[Tuple]) -> None:
+        """Hook: entries that left by eviction or reclaim."""
+
+    def reclaim(self, needed: int) -> int:
+        """Arbitrator hook: evict LRU entries until `needed` bytes are
+        freed; returns the bytes freed."""
+        evicted = []
+        with self._lock:
+            freed = 0
+            while self._entries and freed < needed:
+                evicted.append(self._pop_lru())
+                freed += evicted[-1][2]
+        self._evicted(evicted)
+        return freed
+
+    def clear(self) -> None:
+        """Drop every entry and release its bytes."""
+        with self._lock:
+            while self._entries:
+                self._pop_lru()
+
+
+class OffloadBuffer:
+    """Byte-budgeted batch buffer across three tiers: batches stay on the
+    device until ``budget_bytes`` (or the pool) is exceeded, then go to
+    host RAM (``HostBatch``), and past ``host_budget_bytes`` the oldest
+    host batches go to spill files (``DiskBatch``) under ``spill_dir``
+    (a temporary directory of its own when None). ``max_spill_bytes``
+    caps the disk bytes. With a ``pool``, device batches are reserved in
+    it and the arbitrator may force the oldest of them to host RAM.
+    Parity: the spill framework for join builds and sort buffers
+    (velox/exec/Spiller.h:29-92, kHashJoinBuild / kOrderBy)."""
+
+    def __init__(self, budget_bytes: Optional[int], metric_key=None,
+                 pool: Optional[MemoryPool] = None,
+                 host_budget_bytes: Optional[int] = None,
+                 spill_dir: Optional[str] = None,
+                 max_spill_bytes: Optional[int] = None):
+        self.budget = budget_bytes
+        self.used = 0
+        self.host_budget = host_budget_bytes
+        self.host_used = 0
+        self.max_spill_bytes = max_spill_bytes
+        self.disk_used = 0
+        # (sequence number, batch) in each tier: restore_all sorts by it
+        self._device: List[Tuple[int, DeviceBatch]] = []
+        self._host: List[Tuple[int, HostBatch]] = []
+        self._disk: List[Tuple[int, DiskBatch]] = []
+        self._seq = 0
+        self._metric_key = metric_key
+        self._spill_dir = spill_dir
+        self._own_dir: Optional[str] = None  # made here, removed here
+        self._pool = pool
+        if pool is not None:
+            MemoryArbitrator.instance().register(
+                self, MemoryArbitrator.PRI_OPERATOR)
+
+    def _dir(self) -> str:
+        if self._spill_dir is None:
+            self._spill_dir = self._own_dir = tempfile.mkdtemp(
+                prefix="velox_tpu_torch_spill_")
+        return self._spill_dir
+
+    def _to_host(self, seq: int, batch: DeviceBatch) -> None:
+        if self._metric_key is not None:
+            M.record_counter(self._metric_key)
+        h = HostBatch(batch)
+        self._host.append((seq, h))
+        self.host_used += h.nbytes
+        if self.host_budget is None:
+            return
+        while self._host and self.host_used > self.host_budget:
+            oseq, oldest = self._host[0]
+            if self.max_spill_bytes is not None and \
+                    self.disk_used + oldest.nbytes > self.max_spill_bytes:
+                raise VeloxRuntimeError(
+                    f"spill limit exceeded: {self.disk_used} + "
+                    f"{oldest.nbytes} bytes > max_spill_bytes="
+                    f"{self.max_spill_bytes}")
+            self._disk.append((oseq, DiskBatch(oldest, self._dir())))
+            self._host.pop(0)
+            self.host_used -= oldest.nbytes
+            self.disk_used += oldest.nbytes
+
+    def add(self, batch: DeviceBatch) -> None:
+        seq, self._seq = self._seq, self._seq + 1
+        n = batch_nbytes(batch)
+        if (self.budget is not None and self.used + n > self.budget) or (
+                self._pool is not None
+                and not self._pool.reserve_or_reclaim(n)):
+            self._to_host(seq, batch)
+            return
+        self.used += n
+        self._device.append((seq, batch))
+
+    def reclaim(self, needed: int) -> int:
+        """Arbitrator hook: move the oldest device batches to host RAM
+        until `needed` bytes are freed; returns the bytes freed (parity:
+        Operator::reclaim, exec/Operator.h:557)."""
+        freed = 0
+        while self._device and freed < needed:
+            seq, batch = self._device.pop(0)
+            n = batch_nbytes(batch)
+            self._to_host(seq, batch)
+            self.used -= n
+            if self._pool is not None:
+                self._pool.release(n)
+            freed += n
+        return freed
+
+    def _release(self) -> None:
+        if self._pool is not None:
+            MemoryArbitrator.instance().unregister(self)
+            self._pool.release(self.used)
+        self.used = 0
+        if self._own_dir is not None:
+            os.rmdir(self._own_dir)
+            self._own_dir = self._spill_dir = None
+
+    def close(self) -> None:
+        """Drop every batch: release the pool's bytes and delete the
+        spill files."""
+        for _, d in self._disk:
+            d.delete()
+        self._device, self._host, self._disk = [], [], []
+        self.host_used = self.disk_used = 0
+        self._release()
+
+    def __len__(self) -> int:
+        return len(self._device) + len(self._host) + len(self._disk)
+
+    def restore_all(self) -> List[DeviceBatch]:
+        """Every buffered batch back on the device, in the order it was
+        added (spill files are deleted as they are read)."""
+        out = list(self._device)
+        out += [(s, h.restore()) for s, h in self._host]
+        self._host = []
+        while self._disk:
+            s, d = self._disk.pop(0)
+            out.append((s, d.restore()))
+        self._device = []
+        self.host_used = self.disk_used = 0
+        self._release()
+        out.sort(key=lambda sb: sb[0])
+        return [b for _, b in out]

@@ -7,9 +7,9 @@ Filter/Project operator, and the Arrow stream source. Each operator's
 per-batch work is eager torch code on the batch's device; the driver
 loop in exec/task.py only moves batch handles. The scan can generate and
 upload its next splits on a producer thread while the query works on the
-current one.
-
-Not ported yet: the Values ingest cache (ROADMAP A.7).
+current one. Repeated Values runs over the same host table take its
+uploaded batch from the ingest cache (``IngestCache``), which reserves
+its bytes in the device root and gives them up to the arbitrator.
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ import torch
 from velox_tpu_torch.common import metrics as M
 from velox_tpu_torch.common import testvalue as TV
 from velox_tpu_torch.core import plan as P
+from velox_tpu_torch.exec.memory import DeviceLru, batch_nbytes
 from velox_tpu_torch.vector.device import (
     DeviceBatch, DeviceColumn, from_arrow,
 )
@@ -88,11 +89,46 @@ class SourceOperator(Operator):
         raise RuntimeError(f"{type(self).__name__} takes no input")
 
 
+class IngestCache(DeviceLru):
+    """The Values ingest cache: the uploaded batch of a host table, keyed
+    by (id(table), string encoding, device), at most ``MAX_ENTRIES`` in
+    LRU order. An entry holds its table, so the id stays its own while it
+    is cached. As a ``DeviceLru`` each entry's bytes are reserved in the
+    device root, an entry that cannot be reserved is not cached, and the
+    arbitrator reclaims from it first. (The reference's cache reserves
+    nothing and cannot be reclaimed, velox_tpu/exec/operator.py:113-121.)"""
+
+    MAX_ENTRIES = 8
+    _instance: Optional["IngestCache"] = None
+
+    def __init__(self):
+        super().__init__(max_entries=self.MAX_ENTRIES)
+
+    @classmethod
+    def instance(cls) -> "IngestCache":
+        if cls._instance is None:
+            cls._instance = cls()
+        return cls._instance
+
+    def get(self, key, table) -> Optional[DeviceBatch]:
+        hit = self._lookup(key)
+        if hit is None or hit[0] is not table:
+            return None
+        M.record_counter(M.K_VALUES_INGEST_HITS)
+        return hit[1]
+
+    def put(self, key, table, batch: DeviceBatch) -> None:
+        self._insert(key, (table, batch), batch_nbytes(batch))
+
+    def stats(self):
+        return {"used": self.used, "entries": len(self._entries)}
+
+
 class ValuesOperator(SourceOperator):
     """Parity: velox/exec/Values.h:21. Uploads each pyarrow table (or
     passes through a ready DeviceBatch) to the query's device, its VARCHAR
     columns in the node's ``string_encoding`` ("dict", "raw", "auto", or a
-    dict of column name to one of them)."""
+    dict of column name to one of them), through the ingest cache."""
 
     def __init__(self, node: P.ValuesNode, device):
         super().__init__(node)
@@ -107,8 +143,15 @@ class ValuesOperator(SourceOperator):
         self._i += 1
         if isinstance(t, DeviceBatch):
             return t
-        return from_arrow(t, string_encoding=self.node.string_encoding,
-                          device=self._device)
+        enc = self.node.string_encoding
+        key = (id(t), tuple(sorted(enc.items())) if isinstance(enc, dict)
+               else enc, str(self._device))
+        cache = IngestCache.instance()
+        batch = cache.get(key, t)
+        if batch is None:
+            batch = from_arrow(t, string_encoding=enc, device=self._device)
+            cache.put(key, t, batch)
+        return batch
 
     def is_finished(self):
         return self._i >= len(self._tables)

@@ -8,18 +8,21 @@ merges it with each incoming batch (one key-only sort per batch, then a
 gather of the k winning rows): the analogue of the reference's bounded
 row-container heap.
 
-OrderBy buffers its input in a plain list; the reference's host and disk
-offload (exec/memory.py) is not ported.
+OrderBy buffers its input in an ``OffloadBuffer`` (exec/memory.py): past
+its device budget, batches go to host RAM and past the host budget to
+spill files (velox Spiller kOrderBy); they come back in input order for
+the one sort.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Optional
 
 import torch
 
 from velox_tpu_torch.core import plan as P
 from velox_tpu_torch.exec.batch_utils import concat_batches, take
+from velox_tpu_torch.exec.memory import OffloadBuffer
 from velox_tpu_torch.exec.operator import Operator
 from velox_tpu_torch.exec.sort import radix_sort_perm, sort_words
 from velox_tpu_torch.expression.eval import value_from_column
@@ -45,26 +48,31 @@ def _key_ranges(node, keys):
 
 
 class OrderByOperator(Operator):
-    """Full sort: buffer all input, sort once at the end."""
+    """Full sort: buffer all input in ``buffer``, sort once at the end.
+    The Task hands it an ``OffloadBuffer`` with the query's spill
+    settings; without one every batch stays on the device, unaccounted."""
 
-    def __init__(self, node: P.OrderByNode):
+    def __init__(self, node: P.OrderByNode,
+                 buffer: Optional[OffloadBuffer] = None):
         super().__init__(node)
         self._keys = list(node.keys)
         self._orders = list(node.orders)
         self._ranges = _key_ranges(node, self._keys)
-        self._buffer: List[DeviceBatch] = []
+        self._buffer = buffer if buffer is not None else OffloadBuffer(None)
         self._out: Optional[DeviceBatch] = None
 
     def add_input(self, batch):
-        self._buffer.append(batch)
+        self._buffer.add(batch)
 
     def no_more_input(self):
         super().no_more_input()
-        if self._buffer:
-            merged = concat_batches(self._buffer)
-            self._buffer = []
+        if len(self._buffer):
+            merged = concat_batches(self._buffer.restore_all())
             self._out = sort_batch(merged, self._keys, self._orders,
                                    self._ranges)
+
+    def close(self):
+        self._buffer.close()
 
     def get_output(self):
         out, self._out = self._out, None

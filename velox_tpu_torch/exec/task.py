@@ -41,6 +41,21 @@ unread.
 Scans take their splits from the device scan cache
 (connectors/cache.py) and, by default on a CUDA device, generate and
 upload the next splits on a producer thread (``SCAN_PREFETCH_DEPTH``).
+
+*Memory and spill* (exec/memory.py). An OrderBy's input and a join
+build's batches go through an ``OffloadBuffer`` that reserves them in
+the query's pool (``QueryCtx.memory_pool``, capped by
+``QUERY_HBM_CAP_BYTES``; past the cap the arbitrator evicts the scan
+cache, then moves operator state to host RAM). ``SORT_OFFLOAD_BYTES``
+and ``JOIN_BUILD_OFFLOAD_BYTES`` (4 GiB each by default) bound the
+device bytes of each buffer; ``ORDERBY_SPILL_ENABLED`` and
+``JOIN_SPILL_ENABLED`` switch those budgets off (a merge join's build
+reads its budget without the switch, as in the reference).
+``OFFLOAD_HOST_BUDGET_BYTES`` bounds a buffer's host bytes before its
+oldest host batches go to spill files in ``SPILL_DIR`` (a temporary
+directory when empty), and ``MAX_SPILL_BYTES`` caps those files' bytes.
+``AGG_HOST_OFFLOAD`` moves an aggregation's compacted partial runs to
+host RAM.
 """
 
 from __future__ import annotations
@@ -70,7 +85,7 @@ from velox_tpu_torch.exec.operator import (
     ArrowStreamOperator, FilterProjectOperator, LimitOperator, Operator,
     SourceOperator, TableScanOperator, ValuesOperator,
 )
-from velox_tpu_torch.exec.memory import MemoryPool
+from velox_tpu_torch.exec.memory import MemoryPool, OffloadBuffer
 from velox_tpu_torch.exec.misc_ops import (
     AssignUniqueIdOperator, EnforceSingleRowOperator, ExpandOperator,
     GroupIdOperator, MarkDistinctOperator, NestedLoopJoinOperator,
@@ -97,7 +112,6 @@ _UNARY = {
     P.RowNumberNode: RowNumberOperator,
     P.TopNRowNumberNode: TopNRowNumberOperator,
     P.TopNNode: TopNOperator,
-    P.OrderByNode: OrderByOperator,
     P.UnnestNode: UnnestOperator,
 }
 
@@ -172,6 +186,31 @@ class Task:
         # probe-side scans started before their join's build runs:
         # node id -> a live TableScanOperator (its prefetch running)
         self._prewarmed_scans: Dict[str, TableScanOperator] = {}
+
+    def _spill_kwargs(self, budget_key: str,
+                      switch_key: Optional[str]) -> dict:
+        """An ``OffloadBuffer``'s arguments: its device budget (4 GiB by
+        default; None when the operator class's spill switch is off), the
+        query's pool and the disk-tier knobs (parity: the reference's
+        ``Task._spill_kwargs`` and its budget reads)."""
+        qc = self.ctx.query_config
+        on = switch_key is None or qc.get_bool(switch_key, True)
+        hb = qc.get_int(QueryConfig.OFFLOAD_HOST_BUDGET_BYTES, 0)
+        sd = qc.get_str(QueryConfig.SPILL_DIR)
+        ms = qc.get_int(QueryConfig.MAX_SPILL_BYTES, 0)
+        return {"budget_bytes": qc.get_int(budget_key, 4 << 30) if on
+                else None,
+                "pool": self.ctx.memory_pool,
+                "host_budget_bytes": hb or None,
+                "spill_dir": sd or None,
+                "max_spill_bytes": ms or None}
+
+    def _build_buffer(self, switch_key: Optional[str]) -> OffloadBuffer:
+        """A join build's buffer under ``JOIN_BUILD_OFFLOAD_BYTES``."""
+        return OffloadBuffer(metric_key=M.K_JOIN_BUILD_OFFLOADS,
+                             **self._spill_kwargs(
+                                 QueryConfig.JOIN_BUILD_OFFLOAD_BYTES,
+                                 switch_key))
 
     # ---- public API --------------------------------------------------------
 
@@ -271,6 +310,7 @@ class Task:
             def mk_agg(pre):
                 return AggregationOperator(
                     node, self.ctx.device, pre_fn=pre,
+                    host_offload=qc.get_bool(QueryConfig.AGG_HOST_OFFLOAD),
                     compact_threshold=qc.get_int(
                         QueryConfig.AGG_COMPACT_THRESHOLD, 8),
                     abandon_min_rows=qc.get_int(
@@ -282,6 +322,12 @@ class Task:
             if op is None:
                 op = mk_agg(None if chain.is_identity else chain_fn(chain))
             yield from self._drive(chain.source, op)
+        elif isinstance(node, P.OrderByNode):
+            yield from self._drive(node.source, OrderByOperator(
+                node, OffloadBuffer(metric_key=M.K_SORT_OFFLOADS,
+                                    **self._spill_kwargs(
+                                        QueryConfig.SORT_OFFLOAD_BYTES,
+                                        QueryConfig.ORDERBY_SPILL_ENABLED))))
         elif type(node) in _UNARY:
             yield from self._drive(node.source, _UNARY[type(node)](node))
         elif isinstance(node, P.HashJoinNode):
@@ -326,9 +372,10 @@ class Task:
     def _run_join(self, node: P.HashJoinNode, dynamic: bool = True
                   ) -> Iterator[DeviceBatch]:
         return self._build_then_probe(
-            node, HashBuildStage(node.right_keys,
-                                 array_range=array_join_range(node),
-                                 key_ranges=build_key_ranges(node)),
+            node, HashBuildStage(
+                node.right_keys, array_range=array_join_range(node),
+                key_ranges=build_key_ranges(node),
+                buffer=self._build_buffer(QueryConfig.JOIN_SPILL_ENABLED)),
             HashJoinOperator(node), dynamic)
 
     def _run_merge_join(self, node: P.MergeJoinNode
@@ -343,8 +390,9 @@ class Task:
                 join_type=node.join_type, left_keys=node.left_keys,
                 right_keys=node.right_keys, filter=node.filter,
                 output_columns=node.output_columns), dynamic=False)
-        return self._build_then_probe(node, MergeBuildStage(node.right_keys),
-                                      MergeJoinOperator(node))
+        return self._build_then_probe(node, MergeBuildStage(
+            node.right_keys, buffer=self._build_buffer(None)),
+            MergeJoinOperator(node))
 
     def _build_then_probe(self, node, build, probe, dynamic: bool = False
                           ) -> Iterator[DeviceBatch]:
@@ -359,13 +407,18 @@ class Task:
                 QueryConfig.HASH_PROBE_FINISH_EARLY_ON_EMPTY_BUILD, True)
         ) else None
         started = self._prewarm_probe_scans(node.left, gate)
-        for batch in self._run_node(node.right):
-            batch = self._strip_errors(batch)
-            if gate is not None and not gate.is_set() \
-                    and bool(batch.mask.any()):
-                gate.set()
-            build.add_input(batch)
-        table = build.finish()
+        try:
+            for batch in self._run_node(node.right):
+                batch = self._strip_errors(batch)
+                if gate is not None and not gate.is_set() \
+                        and bool(batch.mask.any()):
+                    gate.set()
+                build.add_input(batch)
+            table = build.finish()
+        finally:
+            # a build that raised or was abandoned keeps no pool bytes or
+            # spill files (after finish there is nothing left to drop)
+            build.close()
         probe.set_built_table(table)
         left = (self._maybe_push_dynamic_filter(node, table) if dynamic
                 else node.left)
