@@ -233,6 +233,34 @@ Phases, each printing one line; any failure raises and exits non-zero:
    walls, peak device memory and launches; B5 must launch on every plan
    but spark_remote's, B4 and B2 or B3 on spark_shuffle_hash and
    spark_strings.
+20. hive: in one temporary directory, removed at the end. hive_write:
+   three TableWrite plans over the TPC-H connector on the card, through
+   the Hive connector as Parquet: lineitem's 8 columns of Q1/Q3/Q6/Q18
+   and orders' 5 bucketed by their order key into 8 files, customer's 3
+   partitioned by c_mktsegment; each summary row's rows equal the
+   table's, 8 bucket files each and 5 partition directories, every
+   file's schema the declared types; the sink's host seconds of
+   to_arrow, bucketing and the Parquet write apart. Then, each cold (the
+   scan cache cleared) and warm, exact, with equal launches: hive_q6,
+   hive_q1, hive_q3 and hive_q18 (tpch_plan(q, connector_id="hive"),
+   Q18 at 300) against the q6, q1, q3 and q18 oracles (no B1 launch:
+   the connector has no column stats; hive_q3 prunes 4 of customer's 5
+   partition splits); hive_grouped (GroupedTask over the buckets: per
+   l_orderkey sum(l_quantity) over 300 joined with orders, 8 groups,
+   every qualifying order of the bincount oracle); hive_local_exchange
+   (Q1 as PARTIAL, a LocalPartition of 4 drivers, FINAL) and its join
+   (lineitem joined with orders behind the LocalPartition, counted: all
+   of lineitem's rows); hive_orc (orders' 4 columns written to one ORC
+   file, count, sum and max per year against numpy). Then trace_replay
+   (Q1 with its FINAL aggregation traced, replayed on the card: the
+   traced run's rows), substrait_q6 (Q6 from Substrait JSON: the q6
+   oracle and B1 once a split; then Q3 through plan JSON: the q3
+   oracle), pages (PageSerde round trips of a cached lineitem split and
+   of Q3's output, zlib and none: equal under to_arrow; bytes and
+   seconds) and debug_sync (hive_q1 with DEBUG_SYNC_OPERATORS, its
+   print_plan_with_stats printed). One cold split's host decode and
+   upload seconds are printed apart (hive_split). Each line: walls,
+   splits read and pruned, cache lookups, peak device memory, launches.
 
 Every number a phase prints is measured in this run, on this card; bounds
 are bytes over the H100's 3.35 TB/s.
@@ -5155,6 +5183,474 @@ def spark_phase(conn, ctx, li) -> dict:
     return by_path
 
 
+# ---------------------------------------------------------------------------
+# hive: the Hive connector, TableWrite, LocalPartition, GroupedTask,
+# tracing, Substrait, plan JSON and pages at the connector's scale
+# ---------------------------------------------------------------------------
+
+HIVE_LINEITEM = ["l_orderkey", "l_quantity", "l_extendedprice", "l_discount",
+                 "l_tax", "l_returnflag", "l_linestatus", "l_shipdate"]
+HIVE_ORDERS = ["o_orderkey", "o_custkey", "o_orderdate", "o_shippriority",
+               "o_totalprice"]
+HIVE_CUSTOMER = ["c_custkey", "c_name", "c_mktsegment"]
+HIVE_BUCKETS = 8
+HIVE_ORC_ORDERS = ["o_orderkey", "o_custkey", "o_orderdate", "o_totalprice"]
+
+
+def _dec_lit(v, p, s):
+    raw = int(v).to_bytes(16, "little", signed=True)
+    import base64
+    return {"decimal": {"value": base64.b64encode(raw).decode(),
+                        "precision": p, "scale": s}}
+
+
+def _sel(i):
+    return {"selection": {"directReference": {"structField": {"field": i}},
+                          "rootReference": {}}}
+
+
+def _sfn(anchor, *args):
+    return {"scalarFunction": {"functionReference": anchor,
+                               "arguments": [{"value": a} for a in args]}}
+
+
+def substrait_q6() -> dict:
+    """TPC-H Q6 as a Substrait JSON plan (the plan of
+    tests/test_serde_substrait.py, written out here so that this script
+    imports nothing of the tests)."""
+    exts = [{"extensionFunction": {"functionAnchor": a, "name": n}}
+            for a, n in [(1, "and:bool"), (2, "gte:date_date"),
+                         (3, "lt:date_date"), (4, "multiply:dec_dec"),
+                         (5, "sum:dec"), (6, "between:dec"),
+                         (7, "lt:dec_dec")]]
+    cond = _sfn(1, _sfn(2, _sel(0), {"literal": {"date": D94}}),
+                _sfn(3, _sel(0), {"literal": {"date": D95}}),
+                _sfn(6, _sel(3), {"literal": _dec_lit(5, 3, 2)},
+                     {"literal": _dec_lit(7, 3, 2)}),
+                _sfn(7, _sel(2), {"literal": _dec_lit(240, 3, 1)}))
+    read = {"read": {"baseSchema": {"names": Q6_COLS},
+                     "namedTable": {"names": ["lineitem"]},
+                     "filter": cond}}
+    project = {"project": {"input": read,
+                           "expressions": [_sfn(4, _sel(1), _sel(3))],
+                           "common": {"emit": {"outputMapping": [4]}}}}
+    agg = {"aggregate": {"input": project, "groupings": [], "measures": [{
+        "measure": {"functionReference": 5,
+                    "arguments": [{"value": _sel(0)}],
+                    "outputType": {"decimal": {"precision": 18,
+                                               "scale": 4}}}}]}}
+    return {"extensions": exts,
+            "relations": [{"root": {"input": agg, "names": ["revenue"]}}]}
+
+
+def hive_q1_exchange_plan():
+    """Q1 over Hive lineitem as PARTIAL -> LocalPartition -> FINAL."""
+    import dataclasses
+    plan = tpch_plan(1, connector_id="hive")
+    final = plan.source
+    return dataclasses.replace(plan, source=dataclasses.replace(
+        final, source=P.LocalPartitionNode("lp-q1", source=final.source)))
+
+
+def hive_join_count_plan():
+    """lineitem joined with orders, behind a LocalPartition, counted: the
+    plan under which the reference's drivers build from a slice of
+    orders."""
+    b = PlanBuilder()
+    orders = b.new_builder().table_scan("orders", ["o_orderkey"],
+                                        connector_id="hive")
+    return (b.table_scan("lineitem", ["l_orderkey"], connector_id="hive")
+            .hash_join(["l_orderkey"], ["o_orderkey"], orders,
+                       output=["l_orderkey"])
+            .local_partition()
+            .single_aggregation([], ["count() as n"]).plan())
+
+
+def hive_grouped_plan():
+    """lineitem sum(l_quantity) per l_orderkey over 300, joined with
+    orders on the key: the plan GroupedTask runs once per bucket."""
+    b = PlanBuilder()
+    orders = b.new_builder().table_scan(
+        "orders", ["o_orderkey", "o_custkey", "o_totalprice"],
+        connector_id="hive")
+    return (b.table_scan("lineitem", ["l_orderkey", "l_quantity"],
+                         connector_id="hive")
+            .single_aggregation(["l_orderkey"], ["sum(l_quantity) as s"])
+            .filter(f"s > {Q18_THRESHOLD:.1f}")
+            .hash_join(["l_orderkey"], ["o_orderkey"], orders,
+                       output=["o_orderkey", "o_custkey", "o_totalprice",
+                               "s"]).plan())
+
+
+def hive_orc_plan():
+    return (PlanBuilder()
+            .table_scan("orders_orc", HIVE_ORC_ORDERS, connector_id="hive")
+            .project(["year(o_orderdate) as y", "o_totalprice", "o_custkey"])
+            .single_aggregation(["y"], ["count(*) as n",
+                                        "sum(o_totalprice) as s",
+                                        "max(o_custkey) as m"])
+            .plan())
+
+
+def _counter(key) -> int:
+    return int(M.reporter().snapshot()["counters"].get(key, 0))
+
+
+def _scaled(v, scale: int) -> int:
+    """A Decimal (or int) at ``scale`` as its unscaled integer."""
+    import decimal
+    return int(decimal.Decimal(v).scaleb(scale))
+
+
+def _hive_run(plan, ctx, check, grouped: bool = False,
+              keep_task: bool = False) -> dict:
+    """Cold (the scan cache cleared) and warm runs of a plan, each checked
+    by ``check(out)`` and with equal launches: walls, splits read and
+    pruned, peak device memory, launches and cache lookups of each (and
+    its Task, with ``keep_task``)."""
+    from velox_tpu_torch.exec.task import GroupedTask
+    cache = DataCache.instance()
+    runs = {}
+    for run in ("cold", "warm"):
+        if run == "cold":
+            cache.clear()
+        splits, pruned = _counter(M.K_SCAN_SPLITS), \
+            _counter(M.K_SPLITS_PRUNED)
+        hits, misses = cache.hits, cache.misses
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if grouped:
+            task = GroupedTask(plan, ctx)
+            out = task.run()
+            extra = {"groups": task.n_groups}
+        else:
+            task = Task(plan, ctx)
+            out = list(task.batches())
+            task.check_errors()
+            extra = {}
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        check(out)
+        runs[run] = {"wall_s": wall,
+                     "splits_read": _counter(M.K_SCAN_SPLITS) - splits,
+                     "splits_pruned": _counter(M.K_SPLITS_PRUNED) - pruned,
+                     "cache": [cache.hits - hits, cache.misses - misses],
+                     "max_memory_allocated":
+                         torch.cuda.max_memory_allocated(),
+                     "launches": launches, **extra}
+        if keep_task:
+            runs[run]["task"] = task
+        del out, task
+    if runs["warm"]["launches"] != runs["cold"]["launches"]:
+        raise AssertionError(f"warm launches {runs['warm']['launches']} != "
+                             f"cold {runs['cold']['launches']}")
+    return runs
+
+
+def _hive_line(name, runs, **fields) -> None:
+    import pyarrow as pa
+    keys = ("wall_s", "splits_read", "splits_pruned", "cache",
+            "max_memory_allocated")
+    phase(name, **{k: {r: v[k] for r, v in runs.items()} for k in keys},
+          launches=runs["cold"]["launches"], pyarrow=pa.__version__,
+          **fields)
+
+
+def _hive_write(conn, ctx, root) -> dict:
+    """hive_write: lineitem and orders bucketed by their order key into
+    HIVE_BUCKETS files, customer partitioned by c_mktsegment, through
+    TableWrite over the TPC-H connector on the card."""
+    import glob
+
+    import pyarrow.parquet as pq
+    from velox_tpu_torch.connectors.tpch import TPCH_SCHEMAS
+    from velox_tpu_torch.exec.writer import TableWriterOperator
+    out = {}
+    for table, cols, kw in (
+            ("lineitem", HIVE_LINEITEM,
+             dict(bucket_count=HIVE_BUCKETS, bucket_keys=["l_orderkey"])),
+            ("orders", HIVE_ORDERS,
+             dict(bucket_count=HIVE_BUCKETS, bucket_keys=["o_orderkey"])),
+            ("customer", HIVE_CUSTOMER,
+             dict(partition_keys=["c_mktsegment"]))):
+        path = os.path.join(root, table)
+        plan = PlanBuilder().table_scan(table, cols).table_write(
+            path, **kw).plan()
+        tasks = []
+        batches, wall, launches = _run(plan, ctx, tasks)
+        rows = _host_rows(batches, ["rows", "bytes"])
+        sink = next(op.sink for op in tasks[0].operators
+                    if isinstance(op, TableWriterOperator))
+        want = conn.gen.num_rows(table)
+        if rows["rows"] != [want]:
+            raise AssertionError(f"hive_write {table}: {rows['rows']} rows "
+                                 f"written, expected {want}")
+        files = sorted(glob.glob(os.path.join(path, "**", "*.parquet"),
+                                 recursive=True))
+        if table == "customer":
+            dirs = sorted(os.listdir(path))
+            if len(dirs) != 5 or len(files) != 5:
+                raise AssertionError(f"customer partitions {dirs}")
+            declared = [c for c in cols if c != "c_mktsegment"]
+        else:
+            if [os.path.basename(f) for f in files] != [
+                    f"{b:05d}_0_part.parquet" for b in range(HIVE_BUCKETS)]:
+                raise AssertionError(f"{table} bucket files {files}")
+            declared = cols
+        for f in files:
+            schema = pq.read_schema(f)
+            types = [T.to_arrow(TPCH_SCHEMAS[table].field_type(c))
+                     for c in declared]
+            if schema.names != declared or \
+                    [x.type for x in schema] != types:
+                raise AssertionError(f"{f}: schema {schema} is not the "
+                                     f"declared {types}")
+        out[table] = {"wall_s": wall, "rows": want, "bytes": rows["bytes"][0],
+                      "files": len(files), "seconds": dict(sink.seconds),
+                      "launches": launches}
+    phase("hive_write", **out)
+    return out
+
+
+def hive_phase(conn, ctx, li) -> dict:
+    """The hive paths (see the module docstring), in one temporary
+    directory that is removed at the end."""
+    import pyarrow as pa
+    from velox_tpu_torch.connectors.hive import register_hive
+    from velox_tpu_torch.core.serde import plan_from_json, plan_to_json
+    from velox_tpu_torch.exec.trace import replay_operator
+    from velox_tpu_torch.serializers import PageSerde
+    from velox_tpu_torch.substrait import from_substrait
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="hive-")
+    by_path = {}
+    try:
+        hive = register_hive("hive")
+        write = _hive_write(conn, ctx, root)
+        for t in ("lineitem", "orders", "customer"):
+            hive.register_table(t, os.path.join(root, t))
+        t0 = time.perf_counter()
+        want = {"q6": q6_oracle(li), "q1": q1_oracle(li),
+                "q3": q3_oracle(conn, li),
+                "q18": q18_oracle(conn, li, Q18_THRESHOLD)}
+        qty = np.bincount(li["l_orderkey"], weights=li["l_quantity"])
+        od = table_columns(conn, "orders", HIVE_ORC_ORDERS)
+        big = qty[od["o_orderkey"]] > Q18_THRESHOLD * 100
+        want["grouped"] = sorted(zip(
+            od["o_orderkey"][big].tolist(), od["o_custkey"][big].tolist(),
+            od["o_totalprice"][big].tolist(),
+            qty[od["o_orderkey"][big]].astype(np.int64).tolist()))
+        years = od["o_orderdate"].astype("datetime64[D]").astype(
+            "datetime64[Y]").astype(np.int64) + 1970
+        want["orc"] = []
+        for y in np.unique(years):
+            s = years == y
+            want["orc"].append({"y": int(y), "n": int(s.sum()),
+                                "s": int(od["o_totalprice"][s].sum()),
+                                "m": int(od["o_custkey"][s].max())})
+        phase("hive_oracles", seconds=time.perf_counter() - t0,
+              pyarrow=pa.__version__)
+
+        def rows_check(name):
+            def check(out):
+                got = _host_rows(out, list(want[name]))
+                if got != want[name]:
+                    raise AssertionError(f"hive_{name} {got} != numpy "
+                                         f"oracle {want[name]}")
+            return check
+
+        peaks = {}
+
+        def q6_check(out):
+            if q6_value(out) != want["q6"]:
+                raise AssertionError(f"hive_q6 {q6_value(out)} != "
+                                     f"{want['q6']}")
+
+        # one cold split's host decode and upload (the pageable copy)
+        from velox_tpu_torch.connectors import hive as HV
+        split = hive.default_splits("lineitem")[0]
+        t0 = time.perf_counter()
+        t = HV._read_row_groups(split.path, None, split.row_group_lo,
+                                split.row_group_hi, Q1_COLS)
+        decode_s = time.perf_counter() - t0
+        src = hive.create_data_source("lineitem", Q1_COLS, ctx)
+        dicts = src.dictionaries()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        from velox_tpu_torch.vector.device import from_arrow
+        from_arrow(t, capacity=src._capacity, dictionaries=dicts,
+                   device=ctx.device)
+        torch.cuda.synchronize()
+        phase("hive_split", rows=t.num_rows, decode_s=decode_s,
+              upload_s=time.perf_counter() - t0,
+              splits={n: len(hive.default_splits(n))
+                      for n in ("lineitem", "orders", "customer")},
+              capacity=src._capacity)
+        del t
+
+        for name, plan, check, launched in (
+                ("hive_q6", tpch_plan(6, connector_id="hive"), q6_check,
+                 ()),
+                ("hive_q1", tpch_plan(1, connector_id="hive"),
+                 rows_check("q1"), ("radix_hist", "radix_pos")),
+                ("hive_q3", tpch_plan(3, connector_id="hive"),
+                 rows_check("q3"), ("radix_hist", "radix_rank",
+                                    "flat_gather")),
+                ("hive_q18", q18("hive", threshold=float(Q18_THRESHOLD)),
+                 rows_check("q18"), ("radix_hist", "radix_rank",
+                                     "flat_gather"))):
+            runs = _hive_run(plan, ctx, check)
+            got = runs["cold"]["launches"]
+            if got["filter_sum"]:
+                raise AssertionError(f"{name}: B1 launched: {got}")
+            for k in launched:
+                if not got[k]:
+                    raise AssertionError(f"{name}: {k} never launched")
+            pruned = [r["splits_pruned"] for r in runs.values()]
+            if name == "hive_q3" and pruned != [4, 4]:
+                raise AssertionError(f"hive_q3 pruned {pruned} customer "
+                                     "splits, expected 4 a run")
+            by_path[name] = got
+            peaks[name] = runs["cold"]["max_memory_allocated"]
+            _hive_line(name, runs)
+
+        def grouped_check(out):
+            got = sorted(zip(
+                out.column("o_orderkey").to_pylist(),
+                out.column("o_custkey").to_pylist(),
+                [_scaled(v, 2) for v in out.column("o_totalprice")
+                 .to_pylist()],
+                [_scaled(v, 2) for v in out.column("s").to_pylist()]))
+            if got != want["grouped"]:
+                raise AssertionError(f"hive_grouped: {len(got)} rows != "
+                                     f"oracle's {len(want['grouped'])}")
+        runs = _hive_run(hive_grouped_plan(), ctx, grouped_check,
+                         grouped=True)
+        if any(r["groups"] != HIVE_BUCKETS for r in runs.values()):
+            raise AssertionError("hive_grouped: group count")
+        by_path["hive_grouped"] = runs["cold"]["launches"]
+        _hive_line("hive_grouped", runs, groups=HIVE_BUCKETS,
+                   rows=len(want["grouped"]),
+                   hive_q18_max_memory_allocated=peaks["hive_q18"])
+
+        drivers = QueryCtx(ctx.device, {QC.LOCAL_EXCHANGE_DRIVERS: 4})
+        runs = _hive_run(hive_q1_exchange_plan(), drivers, rows_check("q1"))
+        by_path["hive_local_exchange"] = runs["cold"]["launches"]
+        _hive_line("hive_local_exchange", runs, drivers=4)
+        n_li = len(li["l_orderkey"])
+
+        def count_check(out):
+            got = _host_rows(out, ["n"])["n"]
+            if got != [n_li]:
+                raise AssertionError(f"hive_local_exchange join: {got} != "
+                                     f"[{n_li}]")
+        runs = _hive_run(hive_join_count_plan(), drivers, count_check)
+        if not runs["cold"]["launches"]["flat_gather"]:
+            raise AssertionError("hive_local_exchange join: B5 never "
+                                 "launched")
+        by_path["hive_local_exchange_join"] = runs["cold"]["launches"]
+        _hive_line("hive_local_exchange_join", runs, drivers=4, rows=n_li,
+                   build="shared: one build of every orders split")
+
+        orc_path = os.path.join(root, "orders_orc", "orders.orc")
+        _, wall, _ = _run(PlanBuilder().table_scan(
+            "orders", HIVE_ORC_ORDERS).table_write(orc_path).plan(), ctx)
+        hive.register_table("orders_orc", orc_path)
+
+        def orc_check(out):
+            got = _host_rows(out, ["y", "n", "s", "m"])
+            got = sorted((dict(zip(got, r)) for r in zip(*got.values())),
+                         key=lambda r: r["y"])
+            if got != want["orc"]:
+                raise AssertionError(f"hive_orc {got} != {want['orc']}")
+        runs = _hive_run(hive_orc_plan(), ctx, orc_check)
+        by_path["hive_orc"] = runs["cold"]["launches"]
+        _hive_line("hive_orc", runs, write_s=wall,
+                   stripes=len(hive.default_splits("orders_orc")),
+                   file_bytes=os.path.getsize(orc_path))
+
+        # trace_replay: Q1 over the TPC-H connector, its FINAL
+        # aggregation's inputs traced and replayed on the card
+        plan = tpch_plan(1)
+        final_id = plan.source.id
+        tdir = os.path.join(root, "trace")
+        tctx = QueryCtx(ctx.device, {QC.TRACE_ENABLED: True,
+                                     QC.TRACE_DIR: tdir,
+                                     QC.TRACE_NODE_IDS: final_id})
+        t0 = time.perf_counter()
+        traced = Task(plan, tctx).run()
+        traced_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        replayed = replay_operator(tdir, final_id, ctx.device)
+        replay_s = time.perf_counter() - t0
+        keys = [("l_returnflag", "ascending"), ("l_linestatus", "ascending")]
+        if replayed.sort_by(keys).to_pylist() != traced.to_pylist():
+            raise AssertionError("trace_replay: replayed rows differ")
+        phase("trace_replay", node=final_id, traced_s=traced_s,
+              replay_s=replay_s, rows=replayed.num_rows,
+              traced_batches=len(os.listdir(os.path.join(
+                  tdir, f"node-{final_id}"))) - 1)
+
+        # substrait_q6, then Q3 through plan JSON
+        splan = from_substrait(substrait_q6())
+        out, wall, launches = _run(splan, ctx)
+        if q6_value(out) != want["q6"]:
+            raise AssertionError("substrait_q6 != the Q6 oracle")
+        if launches["filter_sum"] != len(conn.default_splits("lineitem")):
+            raise AssertionError(f"substrait_q6: B1 launched "
+                                 f"{launches['filter_sum']} times")
+        by_path["substrait_q6"] = launches
+        text = plan_to_json(tpch_plan(3))
+        out3, wall3, launches3 = _run(plan_from_json(text), ctx)
+        if _host_rows(out3, list(want["q3"])) != want["q3"]:
+            raise AssertionError("Q3 through plan JSON != the Q3 oracle")
+        phase("substrait_q6", wall_s=wall, launches=launches,
+              q3_json_bytes=len(text), q3_json_wall_s=wall3,
+              q3_json_launches=launches3)
+
+        # pages: one cached lineitem split and Q3's output through pages
+        batch = conn.create_data_source("lineitem", Q1_COLS, ctx).next(
+            conn.default_splits("lineitem")[0])
+        pages = {}
+        for what, b in (("lineitem_split", batch), ("q3_output", out3[0])):
+            for codec in ("zlib", "none"):
+                serde = PageSerde(codec, device=ctx.device)
+                t0 = time.perf_counter()
+                buf = serde.serialize(b)
+                ser = time.perf_counter() - t0
+                t0 = time.perf_counter()
+                back = serde.deserialize(buf)
+                torch.cuda.synchronize()
+                de = time.perf_counter() - t0
+                if not to_arrow(back).equals(to_arrow(b)):
+                    raise AssertionError(f"pages {what} {codec}: differs")
+                pages[f"{what}_{codec}"] = {"bytes": len(buf),
+                                            "serialize_s": ser,
+                                            "deserialize_s": de}
+        phase("pages", batch_rows=int(batch.mask.sum()), **pages)
+        del batch, out, out3
+
+        # debug_sync: hive_q1 with DEBUG_SYNC_OPERATORS
+        sync = QueryCtx(ctx.device, {QC.DEBUG_SYNC_OPERATORS: True})
+        runs = _hive_run(tpch_plan(1, connector_id="hive"), sync,
+                         rows_check("q1"), keep_task=True)
+        for line in runs["warm"].pop("task").print_plan_with_stats() \
+                .splitlines():
+            print(line, flush=True)
+        runs["cold"].pop("task")
+        by_path["debug_sync"] = runs["cold"]["launches"]
+        _hive_line("debug_sync", runs)
+    finally:
+        DataCache.instance().clear()
+        shutil.rmtree(root, ignore_errors=True)
+    phase("hive", seconds=time.perf_counter() - t_phase,
+          write_seconds={t: w["seconds"] for t, w in write.items()})
+    return by_path
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sf", type=float, default=10.0,
@@ -5193,6 +5689,7 @@ def main() -> None:
     by_phase.update(types_phase(conn, ctx, li, args.seed))
     by_phase.update(complex_phase(conn, ctx, li))
     by_phase.update(spark_phase(conn, ctx, li))
+    by_phase.update(hive_phase(conn, ctx, li))
 
     main_shape = kernel["timings"][FILTER_TIMED[0]]
     kernels = [{

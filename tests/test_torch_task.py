@@ -8,6 +8,7 @@ and Q3, Q18 and the join have their own files: test_torch_aggregation.py,
 test_torch_sort.py, test_torch_join.py.)
 """
 
+import dataclasses
 import subprocess
 import sys
 import textwrap
@@ -27,6 +28,8 @@ from velox_tpu.tpch import tpch_plan as jax_tpch_plan
 from velox_tpu_torch.common import metrics as TM
 from velox_tpu_torch.common.errors import VeloxUserError
 from velox_tpu_torch.connectors.tpch import register_tpch
+from velox_tpu_torch.core import expressions as ex
+from velox_tpu_torch.core import plan as P
 from velox_tpu_torch.exec.task import QueryCtx, Task
 from velox_tpu_torch.ops.filter_reduce import filtered_sum_product
 from velox_tpu_torch.testing.plan_builder import PlanBuilder
@@ -134,20 +137,23 @@ def test_checked_overflow_raises_in_both():
 def _needs_unported(query: int):
     """A plan shaped like TPC-H `query` that needs something the port
     lacks: for 1, Q1's grouping with an aggregate it does not have; for 3,
-    Q3's lineitem-orders join with lineitem behind a local exchange
-    (LocalPartition, ROADMAP A.8); for 18, Q18's orders written out by a
-    TableWrite (A.8). (Q3's and Q18's own plans run:
-    tests/test_torch_join.py.)"""
+    Q3's lineitem-orders join with lineitem arriving through an Exchange
+    (ROADMAP A.10); for 18, Q18's orders sent to a PartitionedOutput
+    (A.10). (Q3's and Q18's own plans run: tests/test_torch_join.py.)"""
     b = PlanBuilder()
     if query == 3:
         orders = b.new_builder().table_scan("orders", ["o_orderkey"])
-        return (b.table_scan("lineitem", ["l_orderkey"])
-                .local_partition(["l_orderkey"], kind="hash")
+        join = (b.table_scan("lineitem", ["l_orderkey"])
                 .hash_join(["l_orderkey"], ["o_orderkey"], orders,
                            output=["l_orderkey"]).plan())
+        return dataclasses.replace(join, left=P.ExchangeNode(
+            "exchange-lineitem", row_type=join.left.output_type()))
     if query == 18:
-        return (b.table_scan("orders", ["o_orderkey", "o_custkey"])
-                .table_write("/nonexistent/q18_orders").plan())
+        scan = b.table_scan("orders", ["o_orderkey", "o_custkey"]).plan()
+        return P.PartitionedOutputNode(
+            "output-orders", source=scan, num_partitions=2,
+            keys=(ex.field("o_orderkey", scan.output_type().field_type(
+                "o_orderkey")),))
     return (b.table_scan("lineitem", ["l_returnflag", "l_linestatus",
                                       "l_quantity"])
             .partial_aggregation(["l_returnflag", "l_linestatus"],
@@ -163,11 +169,53 @@ def test_unported_plan_raises(query):
 
 def test_unported_node_kinds_raise():
     """Each kind still to port names itself and its ROADMAP item."""
-    with pytest.raises(NotImplementedError,
-                       match=r"LocalPartitionNode.*A\.8"):
+    with pytest.raises(NotImplementedError, match=r"ExchangeNode.*A\.10"):
         Task(_needs_unported(3), CPU).run()
-    with pytest.raises(NotImplementedError, match=r"TableWriteNode.*A\.8"):
+    with pytest.raises(NotImplementedError,
+                       match=r"PartitionedOutputNode.*A\.10"):
         Task(_needs_unported(18), CPU).run()
+
+
+def test_local_partition_join_runs():
+    """Q3's lineitem-orders join behind a local exchange, once among the
+    kinds to port, runs and equals the reference."""
+    def build(builder):
+        b = builder()
+        orders = b.new_builder().table_scan("orders", ["o_orderkey"])
+        return (b.table_scan("lineitem", ["l_orderkey"])
+                .local_partition(["l_orderkey"], kind="hash")
+                .hash_join(["l_orderkey"], ["o_orderkey"], orders,
+                           output=["l_orderkey"])
+                .single_aggregation([], ["count() as n",
+                                         "sum(l_orderkey) as s"]).plan())
+    want = JTask(build(JPlanBuilder)).run()
+    got = Task(build(PlanBuilder), CPU).run()
+    assert got.to_pylist() == want.to_pylist()
+    assert got.column("n")[0].as_py() == 60213
+
+
+def test_table_write_runs(tmp_path):
+    """Q18's orders written out by a TableWrite, once among the kinds to
+    port, writes the reference's rows."""
+    from velox_tpu.connectors.hive import register_hive as jregister_hive
+    from velox_tpu_torch.connectors.hive import register_hive
+    jregister_hive("hive")
+    register_hive("hive")
+    paths = {}
+
+    def build(builder, tag):
+        paths[tag] = str(tmp_path / tag / "q18_orders.parquet")
+        return (builder().table_scan("orders", ["o_orderkey", "o_custkey"])
+                .table_write(paths[tag]).plan())
+    want = JTask(build(JPlanBuilder, "ref")).run()
+    got = Task(build(PlanBuilder, "port"), CPU).run()
+    assert got.column("rows").to_pylist() == \
+        want.column("rows").to_pylist() == [15000]
+    assert got.column("path").to_pylist() == [paths["port"]]
+    import pyarrow.parquet as pq
+    back, ref = pq.read_table(paths["port"]), pq.read_table(paths["ref"])
+    assert back.to_pylist() == ref.cast(back.schema).to_pylist()
+    assert back.schema.field("o_orderkey").type == pa.int64()
 
 
 def test_unnest_runs():
@@ -208,7 +256,8 @@ def test_port_never_imports_jax():
                                        "velox_tpu_torch."):
             importlib.import_module(m.name)
         bad = sorted(k for k in sys.modules
-                     if k.split(".")[0] in ("jax", "jaxlib", "velox_tpu"))
+                     if k.split(".")[0] in ("jax", "jaxlib", "velox_tpu",
+                                            "pandas"))
         assert not bad, bad
         for m in ("velox_tpu_torch.exec.join", "velox_tpu_torch.ops.gather"):
             assert m in sys.modules, m

@@ -1,7 +1,10 @@
 """Connector SPI: pluggable table providers.
 
 Role parity: ``velox/connectors/Connector.h:193,407-472`` (Connector /
-DataSource / ConnectorSplit) with a process-wide registry.
+DataSource / DataSink / ConnectorSplit) with a process-wide registry.
+A DataSource uploads each split onto the device its query names; a
+DataSink (connectors/hive.py ``HiveDataSink``) takes device batches and
+writes them to files on the host, and exec/writer.py drives it.
 """
 
 from __future__ import annotations
@@ -30,6 +33,16 @@ class DataSource:
         """Per-column string dictionaries, one per table and shared by all
         its batches, so dictionary ids compare across batches."""
         return {}
+
+
+class DataSink:
+    """Write-side SPI. Parity: connectors/Connector.h:444."""
+
+    def append(self, batch: DeviceBatch) -> None:
+        raise NotImplementedError
+
+    def close(self):
+        raise NotImplementedError
 
 
 class Connector:

@@ -124,13 +124,18 @@ class VirtualDictionary(Dictionary):
 
     Used for per-row-unique strings (c_name = 'Customer#%09d', ...): the
     device column stores the integer id, and values materialize lazily.
-    ``fmt`` maps an int64 id array to the list of its values.
+    ``fmt`` maps an int64 id array to the list of its values;
+    ``fmt_bytes``, when given, maps it to the same values as a
+    fixed-width uint8 byte matrix (None when it cannot), so that
+    ``arrow_take`` builds no Python object per row.
     """
 
-    def __init__(self, size: int, fmt):
+    def __init__(self, size: int, fmt, fmt_bytes=None):
         self._size = size
         self._fmt = fmt
+        self._fmt_bytes = fmt_bytes
         self._values: Optional[np.ndarray] = None
+        self._arrow = None
         self.is_sorted = True
 
     def __len__(self):
@@ -146,6 +151,21 @@ class VirtualDictionary(Dictionary):
         return np.array(self._fmt(np.asarray(ids, dtype=np.int64)),
                         dtype=object)
 
+    def arrow_take(self, ids: np.ndarray, validity: Optional[np.ndarray],
+                   arrow_type):
+        import pyarrow as pa
+        ids = np.asarray(ids, dtype=np.int64)
+        matrix = (self._fmt_bytes(ids) if self._fmt_bytes is not None
+                  and arrow_type == pa.string() else None)
+        if matrix is None:  # formatted row by row
+            out = self.take(ids)
+            if validity is not None:
+                out[~validity] = None
+            return pa.array(out.tolist(), type=arrow_type)
+        from velox_tpu_torch.vector import strings as S
+        return S.to_arrow(matrix, np.full(len(ids), matrix.shape[1],
+                                          dtype=np.int32), validity)
+
     def id_of(self, value) -> int:
         # invert the format by scanning the embedded integer
         digits = "".join(ch for ch in str(value) if ch.isdigit())
@@ -159,18 +179,39 @@ class VirtualDictionary(Dictionary):
         return f"VirtualDictionary({self._size})"
 
     def __reduce__(self):
-        # pickled as its size and formatter, never its materialized values
-        return (VirtualDictionary, (self._size, self._fmt))
+        # pickled as its size and formatters, never its materialized values
+        return (VirtualDictionary, (self._size, self._fmt, self._fmt_bytes))
 
 
 def _format_numbered(prefix: str, ids: np.ndarray) -> list:
     return [f"{prefix}#{i:09d}" for i in ids.tolist()]
 
 
+def _digits(v: np.ndarray, width: int) -> np.ndarray:
+    """Non-negative ints as a (rows, width) matrix of ASCII decimal
+    digits, zero-padded on the left."""
+    powers = 10 ** np.arange(width - 1, -1, -1, dtype=np.int64)
+    return ((v[:, None] // powers) % 10 + 48).astype(np.uint8)
+
+
+def _format_numbered_bytes(prefix: str, ids: np.ndarray):
+    """``_format_numbered``'s values as a byte matrix, or None for an id
+    outside [0, 10**9) (whose text is not 9 digits)."""
+    if len(ids) and (ids.min() < 0 or ids.max() >= 10 ** 9):
+        return None
+    head = np.frombuffer(f"{prefix}#".encode(), dtype=np.uint8)
+    return np.hstack([np.broadcast_to(head, (len(ids), len(head))),
+                      _digits(ids, 9)])
+
+
 def _numbered(prefix: str):
     """``fmt`` for 'Prefix#%09d' values (a partial, so that a dictionary
     pickles: the scan cache's SSD tier writes batches with theirs)."""
     return functools.partial(_format_numbered, prefix)
+
+
+def _numbered_bytes(prefix: str):
+    return functools.partial(_format_numbered_bytes, prefix)
 
 
 def _comment_dict(stream: int) -> Dictionary:
@@ -286,13 +327,16 @@ class TpchTableGen:
                 "o_orderstatus": Dictionary(ORDER_STATUS),
                 "o_orderpriority": Dictionary(ORDER_PRIORITIES),
                 "o_clerk": VirtualDictionary(
-                    max(1, nsupp // 10) * 1000 + 1, _numbered("Clerk")),
+                    max(1, nsupp // 10) * 1000 + 1, _numbered("Clerk"),
+                    _numbered_bytes("Clerk")),
                 "o_comment": comment,
             },
             "customer": {
-                "c_name": VirtualDictionary(ncust + 1, _numbered("Customer")),
+                "c_name": VirtualDictionary(ncust + 1, _numbered("Customer"),
+                                            _numbered_bytes("Customer")),
                 "c_address": comment,
-                "c_phone": VirtualDictionary(ncust + 1, _phones),
+                "c_phone": VirtualDictionary(ncust + 1, _phones,
+                                             _phones_bytes),
                 "c_mktsegment": Dictionary(MKT_SEGMENTS),
                 "c_comment": comment,
             },
@@ -317,9 +361,11 @@ class TpchTableGen:
                 "p_comment": comment,
             },
             "supplier": {
-                "s_name": VirtualDictionary(nsupp + 1, _numbered("Supplier")),
+                "s_name": VirtualDictionary(nsupp + 1, _numbered("Supplier"),
+                                            _numbered_bytes("Supplier")),
                 "s_address": comment,
-                "s_phone": VirtualDictionary(nsupp + 1, _phones),
+                "s_phone": VirtualDictionary(nsupp + 1, _phones,
+                                             _phones_bytes),
                 "s_comment": comment,
             },
             "partsupp": {"ps_comment": comment},
@@ -652,14 +698,28 @@ class TpchTableGen:
         return getattr(self, f"gen_{table}")(lo, hi, columns)
 
 
+def _phone_parts(ids: np.ndarray):
+    h = _mix64(ids.astype(_U64) * _U64(31) + _U64(7))
+    return (10 + ids % 25, h % _U64(900) + _U64(100),
+            (h >> _U64(10)) % _U64(900) + _U64(100),
+            (h >> _U64(20)) % _U64(9000) + _U64(1000))
+
+
 def _phones(ids: np.ndarray) -> list:
     """Phone numbers 'cc-aaa-bbb-cccc' of customer/supplier ids."""
-    h = _mix64(ids.astype(_U64) * _U64(31) + _U64(7))
-    cc = (10 + ids % 25).tolist()
-    a = (h % _U64(900) + _U64(100)).tolist()
-    b = ((h >> _U64(10)) % _U64(900) + _U64(100)).tolist()
-    c = ((h >> _U64(20)) % _U64(9000) + _U64(1000)).tolist()
+    cc, a, b, c = (p.tolist() for p in _phone_parts(ids))
     return [f"{w}-{x}-{y}-{z}" for w, x, y, z in zip(cc, a, b, c)]
+
+
+def _phones_bytes(ids: np.ndarray):
+    """``_phones``'s values as a 15-byte matrix, or None for a negative
+    id (whose country code is not two digits)."""
+    if len(ids) and ids.min() < 0:
+        return None
+    cc, a, b, c = (p.astype(np.int64) for p in _phone_parts(ids))
+    dash = np.full((len(ids), 1), ord("-"), dtype=np.uint8)
+    return np.hstack([_digits(cc, 2), dash, _digits(a, 3), dash,
+                      _digits(b, 3), dash, _digits(c, 4)])
 
 
 # ---------------------------------------------------------------------------

@@ -87,8 +87,10 @@ def collapse_chain(node: P.PlanNode) -> FusedChain:
         st = node.output_type()
         names = list(st.names)
         exprs = [ex.field(n, t) for n, t in zip(st.names, st.children)]
-        # strip the filter from the scan node: it is now part of the chain
+        # strip the filter from the scan node: it is now part of the chain;
+        # the scan keeps it as ``prune_filter`` to prune its splits
         bare = dataclasses.replace(node, filter=None)
+        object.__setattr__(bare, "prune_filter", node.filter)
         return FusedChain(bare, node.filter, names, exprs)
     st = node.output_type()
     names = list(st.names)

@@ -44,6 +44,8 @@ class OperatorStats:
     add_input_wall_ns: int = 0
     get_output_wall_ns: int = 0
     finish_wall_ns: int = 0
+    # a join probe's build: the wall of the build table's finish
+    build_wall_ns: int = 0
 
     def as_dict(self):
         return dict(self.__dict__)

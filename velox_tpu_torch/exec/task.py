@@ -18,14 +18,38 @@ NestedLoopJoin (exec/misc_ops.py, built and probed the same way),
 EnforceSingleRow, MergeJoin (the presorted build compacts without a
 sort, and probes binary-search it; key tuples beyond one packed lane
 take the hash join), MarkDistinct, AssignUniqueId, Expand, GroupId
-(exec/misc_ops.py), Window, RowNumber and TopNRowNumber (exec/window.py).
-An aggregation over an OrderBy on its grouping keys streams
-(exec/streaming_agg.py, unless ``STREAMING_AGG_ENABLED`` is false), and
-one whose aggregate is ``map_union`` runs as an Unnest of the maps and a
-``map_agg`` of their entries. The kinds still to port raise
-NotImplementedError naming their ROADMAP item: TableWrite and
-LocalPartition/LocalMerge (A.8), Exchange, MergeExchange and
-PartitionedOutput (A.10).
+(exec/misc_ops.py), Window, RowNumber and TopNRowNumber (exec/window.py),
+TableWrite (exec/writer.py, through a connector's DataSink), LocalPartition
+and LocalMerge. An aggregation over an OrderBy on its grouping keys
+streams (exec/streaming_agg.py, unless ``STREAMING_AGG_ENABLED`` is
+false), and one whose aggregate is ``map_union`` runs as an Unnest of the
+maps and a ``map_agg`` of their entries. The kinds still to port raise
+NotImplementedError naming their ROADMAP item: Exchange, MergeExchange
+and PartitionedOutput (A.10).
+
+*Local exchange* (exec/local_exchange.py). A LocalPartition runs
+``LOCAL_EXCHANGE_DRIVERS`` driver threads (1 by default; 0 runs the node
+inline), each over its slice of the splits of the scans that feed its
+probe pipeline, into one queue bounded by
+``MAX_LOCAL_EXCHANGE_BUFFER_BYTES``. A join under the boundary builds
+once, from every split of its build side, and its drivers share the
+table (Velox's HashJoinBridge; the reference slices the build side too
+and loses rows, ROADMAP C). A LocalMerge runs as an OrderBy.
+*Grouped execution* (``GroupedTask``): one Task per bucket of the
+bucketed scans, each scan pinned to its group's splits through the
+``splits.<node id>`` setting, which any scan honours. A scan's filter (or
+``prune_filter``) drops the splits that a connector's ``prune_splits``
+proves empty.
+
+*Debugging and tracing.* ``TRACE_ENABLED`` with ``TRACE_DIR`` records
+the plan and the input batches of the operators of ``TRACE_NODE_IDS``
+(all when empty) for exec/trace.py's replay. ``DEBUG_SYNC_OPERATORS``
+synchronizes the device after each operator call on a CUDA device, so
+operator walls hold their device time. ``DEBUG_DISABLE_CSE`` turns off
+the evaluator's common-subexpression cache for the run. Each operator's
+``add_input`` and ``finish`` run inside a common/process_trace.py
+``TraceContext`` span. ``print_plan_with_stats`` renders the plan with
+each operator's batches, bytes and walls.
 
 *Dynamic filters* (``DYNAMIC_FILTERS``, HashProbe.cpp:393): once an
 inner or semi join's build is done, the build keys' ``IN`` list (at most
@@ -62,6 +86,7 @@ from __future__ import annotations
 
 import threading
 import time
+from contextlib import contextmanager
 from typing import Dict, Iterator, List, Optional
 
 import torch
@@ -74,8 +99,11 @@ from velox_tpu_torch.core import plan as P
 from velox_tpu_torch.core.config import QueryConfig
 from velox_tpu_torch.core.stats import resolve_column_unique
 from velox_tpu_torch.exec.aggregation import AggregationOperator
+from velox_tpu_torch.common import testvalue as TV
+from velox_tpu_torch.common.process_trace import TraceContext
 from velox_tpu_torch.exec.batch_utils import concat_batches
 from velox_tpu_torch.exec.fuse import chain_fn, collapse_chain
+from velox_tpu_torch.exec.local_exchange import LocalExchangeQueue
 from velox_tpu_torch.exec.join import (
     HashBuildStage, HashJoinOperator, MergeBuildStage, MergeJoinOperator,
     SortedBuild, array_join_range, build_key_ranges, has_raw_key,
@@ -99,6 +127,7 @@ from velox_tpu_torch.exec.streaming_agg import (
 from velox_tpu_torch.exec.window import (
     RowNumberOperator, TopNRowNumberOperator, WindowOperator,
 )
+from velox_tpu_torch.exec.writer import TableWriterOperator
 from velox_tpu_torch.vector.device import DeviceBatch
 
 # single-source operators: node kind -> operator class
@@ -117,12 +146,12 @@ _UNARY = {
 
 # joins whose unmatched probe rows are dropped: they take dynamic filters
 _FILTERED_JOINS = (P.JoinType.INNER, P.JoinType.LEFT_SEMI_FILTER)
+# joins that emit build rows after the probe: one prober must see them all
+_BUILD_SIDE_JOINS = (P.JoinType.RIGHT, P.JoinType.FULL,
+                     P.JoinType.RIGHT_SEMI_FILTER)
 
 # node kinds still to port, and their ROADMAP item
 _UNPORTED = {
-    P.TableWriteNode: "A.8",
-    P.LocalPartitionNode: "A.8",
-    P.LocalMergeNode: "A.8",
     P.ExchangeNode: "A.10",
     P.MergeExchangeNode: "A.10",
     P.PartitionedOutputNode: "A.10",
@@ -174,6 +203,9 @@ class QueryCtx:
         self.memory_pool = MemoryPool(f"query-{id(self):x}", cap or None,
                                       parent=MemoryPool.device_root())
 
+    def get(self, key, default=None):
+        return self.config.get(key, default)
+
 
 class Task:
     """Serial single-fragment execution (Task::next parity)."""
@@ -186,6 +218,23 @@ class Task:
         # probe-side scans started before their join's build runs:
         # node id -> a live TableScanOperator (its prefetch running)
         self._prewarmed_scans: Dict[str, TableScanOperator] = {}
+        # a local exchange's driver thread: its (index, count) split
+        # slice, None while it runs a join's build side
+        self._driver = threading.local()
+        # join builds that the drivers of a local exchange share
+        self._shared_builds: Dict[str, "_SharedBuild"] = {}
+        self._shared_lock = threading.Lock()
+        qc = ctx.query_config
+        self._sync_ops = qc.get_bool(QueryConfig.DEBUG_SYNC_OPERATORS)
+        self._trace_dir = (qc.get_str(QueryConfig.TRACE_DIR)
+                           if qc.get_bool(QueryConfig.TRACE_ENABLED) else "")
+        ids = qc.get_str(QueryConfig.TRACE_NODE_IDS)
+        self._trace_ids = set(x for x in ids.split(",") if x) or None
+        self._trace_writers: Dict[str, object] = {}
+        self._trace_lock = threading.Lock()
+        if self._trace_dir:
+            from velox_tpu_torch.exec.trace import write_plan
+            write_plan(self._trace_dir, plan)
 
     def _spill_kwargs(self, budget_key: str,
                       switch_key: Optional[str]) -> dict:
@@ -251,14 +300,26 @@ class Task:
             for op in self._prewarmed_scans.values():
                 op.close()
             self._prewarmed_scans.clear()
+            for w in self._trace_writers.values():
+                w.close()
+            self._trace_writers = {}
 
     def run(self):
         """Execute to completion; return a pyarrow Table."""
         import pyarrow as pa
 
+        from velox_tpu_torch.expression import eval as ev
         from velox_tpu_torch.vector.device import to_arrow
         t0 = time.perf_counter()
-        out = list(self.batches())
+        cse_off = self.ctx.query_config.get_bool(
+            QueryConfig.DEBUG_DISABLE_CSE)
+        if cse_off:
+            ev.set_cse_disabled(True)
+        try:
+            out = list(self.batches())
+        finally:
+            if cse_off:
+                ev.set_cse_disabled(False)
         self.check_errors()
         tables = [to_arrow(b) for b in out]
         M.record_counter(M.K_TASK_QUERIES)
@@ -275,6 +336,55 @@ class Task:
 
     def stats(self):
         return [op.stats.as_dict() for op in self.operators]
+
+    def print_plan_with_stats(self) -> str:
+        """The plan tree with each operator's batches, bytes and walls.
+        Parity: velox printPlanWithStats (TpchBenchmark.cpp:82-103)."""
+        by_node: Dict[str, List] = {}
+        for op in self.operators:
+            by_node.setdefault(op.stats.plan_node_id, []).append(op.stats)
+
+        def fmt(node: P.PlanNode, indent: int) -> List[str]:
+            pad = "  " * indent
+            lines = [f"{pad}- {node.name}[{node.id}]"]
+            for st in by_node.get(node.id, []):
+                ms = (st.add_input_wall_ns + st.get_output_wall_ns
+                      + st.finish_wall_ns) / 1e6
+                extra = (f" (+build {st.build_wall_ns / 1e6:.1f} ms)"
+                         if st.build_wall_ns else "")
+                lines.append(
+                    f"{pad}    {st.operator_type}: in={st.input_batches} "
+                    f"out={st.output_batches} batches "
+                    f"({st.input_bytes / 1e6:.0f}/"
+                    f"{st.output_bytes / 1e6:.0f} MB), {ms:.1f} ms{extra}")
+            for s in node.sources:
+                lines.extend(fmt(s, indent + 1))
+            return lines
+
+        return "\n".join(fmt(self.plan, 0))
+
+    def _sync(self) -> None:
+        """``DEBUG_SYNC_OPERATORS``: wait for the device's queued work, so
+        that the operator call's wall holds it (nothing on the CPU, whose
+        work is done when the call returns)."""
+        if self._sync_ops and self.ctx.device.type == "cuda":
+            torch.cuda.synchronize(self.ctx.device)
+
+    def _maybe_trace(self, op: Operator, batch: DeviceBatch) -> None:
+        """Record an operator's input batch for replay (Operator::
+        traceInput, exec/Operator.h:437)."""
+        if not self._trace_dir:
+            return
+        nid = op.stats.plan_node_id
+        if self._trace_ids is not None and nid not in self._trace_ids:
+            return
+        with self._trace_lock:
+            w = self._trace_writers.get(nid)
+            if w is None:
+                from velox_tpu_torch.exec.trace import TraceWriter
+                w = self._trace_writers[nid] = TraceWriter(self._trace_dir,
+                                                           nid)
+            w.record(batch)
 
     # ---- pipeline construction ----------------------------------------------
 
@@ -336,6 +446,21 @@ class Task:
             yield from self._run_merge_join(node)
         elif isinstance(node, P.NestedLoopJoinNode):
             yield from self._run_nested_loop_join(node)
+        elif isinstance(node, P.TableWriteNode):
+            yield from self._drive(node.source,
+                                   TableWriterOperator(node, self.ctx.device))
+        elif isinstance(node, P.LocalPartitionNode):
+            n = self.ctx.query_config.get_int(
+                QueryConfig.LOCAL_EXCHANGE_DRIVERS, 1)
+            if n >= 1:
+                yield from self._run_local_partition(node, n)
+            else:  # inline
+                yield from self._run_node(node.source)
+        elif isinstance(node, P.LocalMergeNode):
+            # the merge of the gathered runs is a sort, as in the reference
+            yield from self._run_node(P.OrderByNode(
+                node.id, source=node.source, keys=node.keys,
+                orders=node.orders))
         elif isinstance(node, P.LimitNode):
             # OrderBy + Limit(offset=0) => TopN: a bounded key-only sort
             # per batch instead of a full sort (parity: the Limit-over-
@@ -400,25 +525,31 @@ class Task:
         the probe pipeline streams through the join; the probe side's
         scans start first. With ``dynamic``, the build may push a filter
         onto the probe side or finish the join early: the probe scans
-        then wait for a build batch that holds a row."""
-        gate = threading.Event() if (
-            dynamic and self._pushes_dynamic_filter(node)
-            and self.ctx.query_config.get_bool(
-                QueryConfig.HASH_PROBE_FINISH_EARLY_ON_EMPTY_BUILD, True)
-        ) else None
-        started = self._prewarm_probe_scans(node.left, gate)
-        try:
-            for batch in self._run_node(node.right):
-                batch = self._strip_errors(batch)
-                if gate is not None and not gate.is_set() \
-                        and bool(batch.mask.any()):
-                    gate.set()
-                build.add_input(batch)
-            table = build.finish()
-        finally:
-            # a build that raised or was abandoned keeps no pool bytes or
-            # spill files (after finish there is nothing left to drop)
-            build.close()
+        then wait for a build batch that holds a row. Under a local
+        exchange the drivers share one build of every split."""
+        gate, started = None, []
+        drv = self._slice()
+        if drv is not None:
+            if drv[1] > 1 and node.join_type in _BUILD_SIDE_JOINS:
+                build.close()
+                raise NotImplementedError(
+                    f"a {node.join_type.value} join emits its unmatched "
+                    "build rows once; it cannot run under a LocalPartition "
+                    "with more than one driver")
+            try:
+                table, build_ns = self._shared_build(
+                    node.id, lambda: self._build(node, build, None))
+            finally:
+                build.close()  # the stage of a driver that did not build
+        else:
+            if dynamic and self._pushes_dynamic_filter(node) \
+                    and self.ctx.query_config.get_bool(
+                        QueryConfig.HASH_PROBE_FINISH_EARLY_ON_EMPTY_BUILD,
+                        True):
+                gate = threading.Event()
+            started = self._prewarm_probe_scans(node.left, gate)
+            table, build_ns = self._build(node, build, gate)
+        probe.stats.build_wall_ns = build_ns
         probe.set_built_table(table)
         left = (self._maybe_push_dynamic_filter(node, table) if dynamic
                 else node.left)
@@ -431,6 +562,56 @@ class Task:
         if gate is not None:
             gate.set()
         yield from self._drive(left, probe)
+
+    def _slice(self):
+        """This thread's (index, count) split slice when it is a local
+        exchange's driver running its probe pipeline, else None."""
+        return getattr(self._driver, "slice", None)
+
+    @contextmanager
+    def _every_split(self):
+        """A join's build side reads every split, in a driver too."""
+        drv = self._slice()
+        self._driver.slice = None
+        try:
+            yield
+        finally:
+            self._driver.slice = drv
+
+    def _build(self, node, build, gate: Optional[threading.Event]):
+        """Run a join's build pipeline over every split and finish its
+        table: returns the table and the nanoseconds of its finish."""
+        try:
+            with self._every_split():
+                for batch in self._run_node(node.right):
+                    batch = self._strip_errors(batch)
+                    if gate is not None and not gate.is_set() \
+                            and bool(batch.mask.any()):
+                        gate.set()
+                    build.add_input(batch)
+            t0 = time.perf_counter_ns()
+            table = build.finish()
+            self._sync()
+            return table, time.perf_counter_ns() - t0
+        finally:
+            # a build that raised or was abandoned keeps no pool bytes or
+            # spill files (after finish there is nothing left to drop)
+            build.close()
+
+    def _shared_build(self, node_id: str, make):
+        """The build of join ``node_id``, made once by the first driver
+        that reaches it; the others wait for it and share the table."""
+        with self._shared_lock:
+            entry = self._shared_builds.setdefault(node_id, _SharedBuild())
+        with entry.lock:
+            if entry.table is None and entry.error is None:
+                try:
+                    entry.table = make()
+                except BaseException as e:
+                    entry.error = e
+            if entry.error is not None:
+                raise entry.error
+            return entry.table
 
     def _pushes_dynamic_filter(self, node: P.HashJoinNode) -> bool:
         """Dynamic filters are on, the join drops unmatched probe rows
@@ -517,13 +698,23 @@ class Task:
     def _run_nested_loop_join(self, node: P.NestedLoopJoinNode
                               ) -> Iterator[DeviceBatch]:
         """The whole build side first (one concatenated batch), then the
-        probe pipeline streams through the product."""
-        self._prewarm_probe_scans(node.left)
-        builds = [self._strip_errors(b) for b in self._run_node(node.right)]
-        if not builds:
-            raise RuntimeError("empty nested-loop build side")
+        probe pipeline streams through the product. Under a local
+        exchange the drivers share one build of every split."""
+        def build():
+            with self._every_split():
+                builds = [self._strip_errors(b)
+                          for b in self._run_node(node.right)]
+            if not builds:
+                raise RuntimeError("empty nested-loop build side")
+            return concat_batches(builds)
+
+        if self._slice() is not None:
+            batch = self._shared_build(node.id, build)
+        else:
+            self._prewarm_probe_scans(node.left)
+            batch = build()
         op = NestedLoopJoinOperator(node)
-        op.set_build(concat_batches(builds))
+        op.set_build(batch)
         yield from self._drive(node.left, op)
 
     def _try_filter_sum(self, node: P.AggregationNode, chain, mk_agg):
@@ -563,10 +754,13 @@ class Task:
         before the build side runs, so that the probe's generation and
         upload overlap the build: the analogue of velox running HashBuild
         and the probe pipeline as concurrent drivers. Their producers wait
-        for ``gate``, when given. Returns the scans' node ids."""
+        for ``gate``, when given. Returns the scans' node ids. Not below
+        a LocalPartition, whose drivers make their own scans."""
         started: List[str] = []
 
         def walk(n: P.PlanNode) -> None:
+            if isinstance(n, P.LocalPartitionNode):
+                return
             if isinstance(n, P.TableScanNode) \
                     and n.id not in self._prewarmed_scans:
                 self._prewarmed_scans[n.id] = self._make_scan(n, gate)
@@ -580,12 +774,27 @@ class Task:
     def _make_scan(self, node: P.TableScanNode,
                    gate: Optional[threading.Event] = None
                    ) -> TableScanOperator:
-        warm = self._prewarmed_scans.pop(node.id, None)
-        if warm is not None:
-            return warm
+        """A scan over the ``splits.<node id>`` setting's splits or the
+        connector's default ones, a local exchange's driver taking its
+        slice of them, less the splits that the connector's
+        ``prune_splits`` proves empty under the scan's filter (or its
+        ``prune_filter``)."""
+        drv = self._slice()
+        if drv is None:
+            warm = self._prewarmed_scans.pop(node.id, None)
+            if warm is not None:
+                return warm
         conn = get_connector(node.connector_id)
         source = conn.create_data_source(node.table, node.columns, self.ctx)
-        splits = conn.default_splits(node.table)
+        splits = self.ctx.get(f"splits.{node.id}") \
+            or conn.default_splits(node.table)
+        if drv is not None:
+            i, k = drv
+            splits = list(splits)[i::k]
+        pf = node.filter if node.filter is not None \
+            else getattr(node, "prune_filter", None)
+        if pf is not None and hasattr(conn, "prune_splits"):
+            splits = conn.prune_splits(node.table, splits, pf)
         # a producer thread by default on a CUDA device, where it overlaps
         # host generation and the upload with the device's work; on the
         # CPU the query's work runs on the same cores as the generator
@@ -594,6 +803,47 @@ class Task:
             QueryConfig.SCAN_PREFETCH_DEPTH, default)
         return TableScanOperator(node, source, splits, prefetch=depth,
                                  gate=gate)
+
+    def _run_local_partition(self, node: P.LocalPartitionNode, n: int
+                             ) -> Iterator[DeviceBatch]:
+        """``n`` driver threads run the source subtree, each over its
+        ``[i::n]`` slice of the probe pipeline's splits, into one
+        byte-bounded queue that this generator drains. Its ``finally``
+        stops the queue and joins every driver, so that no thread of the
+        task launches work once the task is over."""
+        q = LocalExchangeQueue(n, max_bytes=self.ctx.query_config.get_int(
+            QueryConfig.MAX_LOCAL_EXCHANGE_BUFFER_BYTES, 32 << 20))
+
+        def produce(i):
+            try:
+                self._driver.slice = (i, n)
+                for batch in self._run_node(node.source):
+                    TV.adjust("LocalPartition::produce", (i, batch))
+                    if not q.put(batch, batch.nbytes):
+                        return
+                q.producer_done()
+            except BaseException as e:  # raised again by the consumer
+                q.producer_done(e)
+            finally:
+                self._driver.slice = None
+
+        threads = [threading.Thread(target=produce, args=(i,), daemon=True,
+                                    name=f"velox-lp-{node.id}-{i}")
+                   for i in range(n)]
+        for t in threads:
+            t.start()
+        try:
+            while True:
+                batch = q.get()
+                if batch is None:
+                    return
+                yield batch
+        finally:
+            q.stop()
+            for t in threads:
+                while t.is_alive():
+                    t.join(timeout=0.25)
+                    q.stop()  # re-signal in case of a put/stop race
 
     # ---- driver loop (Driver::runInternal parity) ---------------------------
 
@@ -604,14 +854,19 @@ class Task:
         for batch in self._run_node(source_node):
             batch = self._strip_errors(batch)
             M.record_counter(M.K_TASK_BATCHES)
+            TV.adjust("Task::drive::addInput", (op, batch))
+            self._maybe_trace(op, batch)
             t0 = time.perf_counter_ns()
-            op.add_input(batch)
+            with TraceContext(f"{st.operator_type}[{op.node.id}] add_input"):
+                op.add_input(batch)
+                self._sync()
             st.add_input_wall_ns += time.perf_counter_ns() - t0
             st.input_batches += 1
             st.input_bytes += batch.nbytes
             while True:
                 t0 = time.perf_counter_ns()
                 out = op.get_output()
+                self._sync()
                 st.get_output_wall_ns += time.perf_counter_ns() - t0
                 if out is None:
                     break
@@ -619,7 +874,9 @@ class Task:
                 st.output_bytes += out.nbytes
                 yield out
         t0 = time.perf_counter_ns()
-        op.no_more_input()
+        with TraceContext(f"{st.operator_type}[{op.node.id}] finish"):
+            op.no_more_input()
+            self._sync()
         st.finish_wall_ns += time.perf_counter_ns() - t0
         while True:
             out = op.get_output()
@@ -639,9 +896,91 @@ class Task:
         while not op.is_finished():
             t0 = time.perf_counter_ns()
             out = op.get_output()
+            self._sync()
             st.get_output_wall_ns += time.perf_counter_ns() - t0
             if out is None:
                 break
             st.output_batches += 1
             st.output_bytes += out.nbytes
             yield out
+
+
+class _SharedBuild:
+    """One join's build, shared by the drivers of a local exchange."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.table = None
+        self.error: Optional[BaseException] = None
+
+
+class GroupedTask:
+    """Grouped execution: the plan runs once per group of leaf splits.
+
+    Role parity: ``velox/exec/Task.h:151-171`` and ``TaskStructs.h:89``
+    (ExecutionMode::kGrouped): a bucketed table's splits are grouped by
+    bucket and the plan runs group by group, so that a join build or an
+    aggregation holds one group's rows at a time. Each group runs as a
+    fresh Task on this task's device, its bucketed scans pinned to the
+    group's splits through the ``splits.<node id>`` setting. A scan of an
+    unbucketed table reads all its splits in every group (velox's mixed
+    grouped execution), which suits a broadcast build side. As in the
+    reference, the result is right only when the plan's join and group
+    keys align with the bucketing.
+    """
+
+    def __init__(self, plan: P.PlanNode, ctx: QueryCtx):
+        self.plan = plan
+        self.ctx = ctx
+        self.group_tasks: List[Task] = []
+        self._scan_groups = self._collect_groups()
+
+    def _scan_nodes(self) -> List[P.TableScanNode]:
+        out = []
+
+        def walk(n):
+            if isinstance(n, P.TableScanNode):
+                out.append(n)
+            for s in n.sources:
+                walk(s)
+        walk(self.plan)
+        return out
+
+    def _collect_groups(self):
+        groups: Dict[str, List] = {}
+        n_groups = None
+        for node in self._scan_nodes():
+            conn = get_connector(node.connector_id)
+            sg = conn.split_groups(node.table) \
+                if hasattr(conn, "split_groups") else None
+            if sg:
+                if n_groups is None:
+                    n_groups = len(sg)
+                elif len(sg) != n_groups:
+                    raise ValueError(
+                        "grouped execution: scans have mismatched "
+                        f"group counts ({len(sg)} vs {n_groups})")
+                groups[node.id] = sg
+        if n_groups is None:
+            raise ValueError("grouped execution: no bucketed scan found")
+        self.n_groups = n_groups
+        return groups
+
+    def run(self):
+        import pyarrow as pa
+        tables = []
+        for g in range(self.n_groups):
+            cfg = dict(self.ctx.config)
+            for node_id, groups in self._scan_groups.items():
+                cfg[f"splits.{node_id}"] = groups[g]
+            task = Task(self.plan, QueryCtx(self.ctx.device, cfg))
+            self.group_tasks.append(task)
+            t = task.run()
+            if t.num_rows:
+                tables.append(t)
+        M.record_counter(M.K_GROUPED_EXECUTIONS)
+        if not tables:
+            schema = T.to_arrow(self.plan.output_type())
+            return pa.table({n: pa.array([], type=f.type)
+                             for n, f in zip(schema.names, schema)})
+        return pa.concat_tables(tables)

@@ -143,6 +143,17 @@ class EvalCtx:
         self.errors = mask if self.errors is None else (self.errors | mask)
 
 
+_cse_disabled = False
+
+
+def set_cse_disabled(flag: bool):
+    """kDebugDisableCommonSubExpressions: evaluate every subtree anew
+    instead of once per batch (a debugging aid; the Task sets it around
+    a run whose config asks for it)."""
+    global _cse_disabled
+    _cse_disabled = flag
+
+
 class ExprSet:
     """A set of expressions evaluated together with CSE."""
 
@@ -179,6 +190,8 @@ def special_form(name):
 
 
 def _eval(expr: ex.TypedExpr, ctx: EvalCtx, cache) -> EvalValue:
+    if _cse_disabled:
+        return _eval_uncached(expr, ctx, cache)
     hit = cache.get(expr)
     if hit is not None:
         return hit

@@ -33,6 +33,7 @@ from velox_tpu_torch.core import expressions as ex
 from velox_tpu_torch.core import plan as P
 from velox_tpu_torch.exec.operator import Operator
 from velox_tpu_torch.native.build import load_kernel, sm_count
+from velox_tpu_torch.ops import count_launch
 from velox_tpu_torch.ops.int128 import add128
 from velox_tpu_torch.vector.device import DeviceBatch, DeviceColumn
 
@@ -196,7 +197,7 @@ def _launch(cols: List[torch.Tensor], ranges, ai: int, bi: int,
     if err != 0:
         raise RuntimeError(f"filter_sum kernel launch failed: CUDA error "
                            f"{err}")
-    filtered_sum_product.launches += 1
+    count_launch(filtered_sum_product)
     return out
 
 

@@ -30,6 +30,7 @@ from typing import List, Optional, Sequence
 import torch
 
 from velox_tpu_torch.native.build import load_kernel
+from velox_tpu_torch.ops import count_launch
 
 _INDEX_DTYPES = (torch.int32, torch.int64)
 # columns one gather_rows launch takes (csrc/flat_gather.cu kMaxCols)
@@ -142,7 +143,7 @@ def flat_gather(data: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     dev = data.device
     if dev.type == "cuda":
         out = _launch_one(data, idx)
-        flat_gather.launches += 1
+        count_launch(flat_gather)
         return out
     if dev.type == "cpu":
         return flat_gather_reference(data, idx)
@@ -166,7 +167,7 @@ def gather_rows(columns: Sequence[torch.Tensor],
     dev = idx.device
     if dev.type == "cuda":
         outs = _launch(columns, idx)
-        gather_rows.launches += 1
+        count_launch(gather_rows)
         return outs
     if dev.type == "cpu":
         return [flat_gather_reference(c, idx) for c in columns]

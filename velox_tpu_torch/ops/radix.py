@@ -66,6 +66,8 @@ from typing import Optional
 
 import torch
 
+from velox_tpu_torch.ops import count_launch
+
 RADIX = 256
 TILE_ROWS = 8192   # rows per tile: kTile in csrc/radix_pass.cu
 
@@ -270,7 +272,7 @@ def radix_hist(src: torch.Tensor,
                             dtype=torch.int32, device=dev)
         _launch("vt_radix_hist", src, src.element_size(), width or 8,
                 src.shape[0], table)
-        radix_hist.launches += 1
+        count_launch(radix_hist)
         return table
     if dev.type == "cpu":
         return radix_hist_reference(src, width)
@@ -289,7 +291,7 @@ def radix_rank(digits: torch.Tensor,
     if dev.type == "cuda":
         out = torch.empty_like(digits)
         _launch("vt_radix_rank", digits, digits.shape[0], tile_offset, out)
-        radix_rank.launches += 1
+        count_launch(radix_rank)
         return out
     if dev.type == "cpu":
         return radix_rank_reference(digits, tile_offset)
@@ -306,7 +308,7 @@ def radix_pos(digits: torch.Tensor, tile_base: torch.Tensor) -> torch.Tensor:
     if dev.type == "cuda":
         out = torch.empty_like(digits)
         _launch("vt_radix_pos", digits, digits.shape[0], tile_base, out)
-        radix_pos.launches += 1
+        count_launch(radix_pos)
         return out
     if dev.type == "cpu":
         return radix_pos_reference(digits, tile_base)
@@ -327,7 +329,7 @@ def radix_scatter_pass(state: torch.Tensor, width: int,
     if dev.type == "cuda":
         out = torch.empty_like(state)
         _launch("vt_radix_scatter", state, width, state.shape[0], dest, out)
-        radix_pos.launches += 1
+        count_launch(radix_pos)
         return out
     if dev.type == "cpu":
         return radix_scatter_pass_reference(state, width, dest)
@@ -355,7 +357,7 @@ def radix_rank_scatter(word: torch.Tensor, width: int, perm: torch.Tensor,
         nword = torch.empty_like(word) if keep_word else None
         _launch("vt_radix_rank_scatter", word, perm, width, word.shape[0],
                 dest, nword, nperm, aligned=(perm,))
-        radix_rank.launches += 1
+        count_launch(radix_rank)
         return nword, nperm
     if dev.type == "cpu":
         return radix_rank_scatter_reference(word, width, perm, dest,

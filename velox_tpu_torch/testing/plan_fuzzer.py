@@ -9,7 +9,8 @@ mirroring the SQL the oracle runs.
 A copy of ``velox_tpu/testing/plan_fuzzer.py`` aimed at this package's
 Task: ``run_one`` and ``run_many`` take the device the plans run on, and
 ``make_case`` builds a seed's plan with either package's PlanBuilder, so
-that one seed's plan can run through both engines.
+that one seed's plan can run through both engines. Its tables are pyarrow
+tables (the reference's are pandas frames), the same rows.
 """
 
 from __future__ import annotations
@@ -17,7 +18,6 @@ from __future__ import annotations
 from typing import List, Tuple
 
 import numpy as np
-import pandas as pd
 import pyarrow as pa
 
 from velox_tpu_torch.exec.task import QueryCtx, Task
@@ -25,19 +25,14 @@ from velox_tpu_torch.testing.oracle import SqliteOracle, assert_frames_match
 from velox_tpu_torch.testing.plan_builder import PlanBuilder
 
 
-def _rand_table(rng: np.random.RandomState, n: int) -> pd.DataFrame:
-    cols = {
-        "a": rng.randint(0, 20, n).astype("int64"),
-        "b": rng.randint(-100, 100, n).astype("int64"),
-        "c": rng.randint(0, 1000, n).astype("int64"),
-        "d": rng.choice(["x", "y", "z", "w"], n),
-    }
-    df = pd.DataFrame(cols)
+def _rand_table(rng: np.random.RandomState, n: int) -> pa.Table:
+    a = rng.randint(0, 20, n).astype("int64")
+    b = rng.randint(-100, 100, n).astype("int64")
+    c = rng.randint(0, 1000, n).astype("int64")
+    d = rng.choice(["x", "y", "z", "w"], n)
     # sprinkle nulls into b (nullable int)
     mask = rng.rand(n) < 0.1
-    df["b"] = df["b"].astype("Int64")
-    df.loc[mask, "b"] = None
-    return df
+    return pa.table({"a": a, "b": pa.array(b, mask=mask), "c": c, "d": d})
 
 
 _FILTERS = [
@@ -73,24 +68,24 @@ def make_case(seed: int, n_rows: int = 500, builder=PlanBuilder):
     """One random plan (built with ``builder``) and its SQL over the
     loaded oracle: (plan, sql, oracle, description)."""
     rng = np.random.RandomState(seed)
-    df = _rand_table(rng, n_rows)
+    table = _rand_table(rng, n_rows)
     oracle = SqliteOracle()
-    oracle.load("t", df)
+    oracle.load("t", table)
 
     filt, filt_sql = _FILTERS[rng.randint(len(_FILTERS))]
     proj, proj_sql = _PROJECTIONS[rng.randint(len(_PROJECTIONS))]
     gkeys, gaggs, agg_sql = _AGGS[rng.randint(len(_AGGS))]
 
-    pb = builder().values([pa.table(df)])
+    pb = builder().values([table])
     inner_sql = "t"
     desc = []
     if rng.rand() < 0.4:
         # join a small dimension table on column a
-        dim = pd.DataFrame({
+        dim = pa.table({
             "ak": np.arange(0, 20, 2, dtype="int64"),
             "w": rng.randint(0, 50, 10).astype("int64")})
         oracle.load("dim", dim)
-        bb = pb.new_builder().values([pa.table(dim)])
+        bb = pb.new_builder().values([dim])
         pb = pb.hash_join(["a"], ["ak"], bb,
                           output=["a", "b", "c", "d", "w"])
         inner_sql = ("(select t.a, t.b, t.c, t.d, dim.w from t "
@@ -133,10 +128,9 @@ def run_one(seed: int, device, n_rows: int = 500) -> Tuple[str, int]:
     """Build one random plan + equivalent SQL; execute both; compare.
     Returns (description, result row count)."""
     plan, sql, oracle, desc = make_case(seed, n_rows)
-    got = Task(plan, QueryCtx(device)).run().to_pandas()
-    exp = oracle.query(sql)
-    assert_frames_match(got, exp, sort=True)
-    return desc, len(got)
+    got = Task(plan, QueryCtx(device)).run()
+    assert_frames_match(got, oracle.query(sql), sort=True)
+    return desc, got.num_rows
 
 
 def run_many(seeds, device) -> List[str]:

@@ -54,12 +54,13 @@ class Dictionary:
     array of Python str/bytes; device columns hold int32 ids into it.
     """
 
-    __slots__ = ("values", "_index", "is_sorted")
+    __slots__ = ("values", "_index", "is_sorted", "_arrow")
 
     def __init__(self, values):
         self.values = np.asarray(values, dtype=object)
         self._index: Optional[Dict] = None
         self.is_sorted = False  # memoized by ordered-comparison checks
+        self._arrow = None  # (arrow type, the values as one Arrow array)
 
     def __len__(self):
         return len(self.values)
@@ -74,6 +75,21 @@ class Dictionary:
         """Materialize values for the given ids (overridable for lazily
         formatted dictionaries, e.g. tpch c_name)."""
         return self.values[np.clip(ids, 0, len(self) - 1)]
+
+    def arrow_take(self, ids: np.ndarray, validity: Optional[np.ndarray],
+                   arrow_type):
+        """The values of ``ids`` as one Arrow array of ``arrow_type``,
+        NULL where ``validity`` is false: one Arrow take over the
+        dictionary's values, converted to Arrow once per dictionary, so
+        no Python object is built per row. Ids clip as ``take``'s do."""
+        import pyarrow as pa
+        import pyarrow.compute as pc
+        if self._arrow is None or self._arrow[0] != arrow_type:
+            self._arrow = (arrow_type, pa.array(self.values,
+                                                type=arrow_type))
+        idx = np.clip(ids, 0, max(len(self) - 1, 0)).astype(np.int64)
+        mask = None if validity is None else ~validity
+        return pc.take(self._arrow[1], pa.array(idx, mask=mask))
 
     def __repr__(self):
         return f"Dictionary({len(self.values)} values)"
@@ -294,7 +310,8 @@ def column_from_arrow(arr, capacity: int,
                 missing = [v for v, r in zip(values, remap) if r < 0]
                 raise ValueError(
                     f"values {missing[:5]} missing from stable dictionary")
-            ids = remap[ids]
+            if len(values):  # else every row is NULL and keeps id 0
+                ids = remap[ids]
             col_dict = dictionary
         else:
             col_dict = Dictionary(values)
@@ -394,13 +411,18 @@ def to_arrow(batch: DeviceBatch):
     """DeviceBatch -> pyarrow Table (active rows only, in order)."""
     import pyarrow as pa
 
-    rows = np.flatnonzero(_host(batch.mask))
+    mask = _host(batch.mask)
+    n = int(mask.sum())
+    # a scan batch's prefix mask takes each column's first n rows as a
+    # view; any other mask gathers the active rows
+    rows = slice(0, n) if mask[:n].all() else np.flatnonzero(mask)
     arrays = [_column_to_arrow(col, rows) for col in batch.columns.values()]
     return pa.table(arrays, names=list(batch.columns))
 
 
-def _column_to_arrow(col: DeviceColumn, rows: np.ndarray):
-    """The column's values at row positions ``rows``, as a pyarrow array."""
+def _column_to_arrow(col: DeviceColumn, rows):
+    """The column's values at row positions ``rows`` (an index array or a
+    slice), as a pyarrow array."""
     if col.dtype.is_complex:
         return _complex_to_arrow(col, rows)
     data = _host(col.data)[rows]
@@ -411,11 +433,11 @@ def _column_to_arrow(col: DeviceColumn, rows: np.ndarray):
         return S.to_arrow(data, lens, valid)
     if col.dtype.is_long_decimal:
         hi = _host(col.children[0].data)[rows]
-        return _long_decimal_to_arrow(data, hi, valid, col.dtype)
+        return _decimal_to_arrow(data, hi, valid, col.dtype)
     return _np_to_arrow(data, valid, col)
 
 
-def _complex_to_arrow(col: DeviceColumn, rows: np.ndarray):
+def _complex_to_arrow(col: DeviceColumn, rows):
     """ARRAY/MAP/ROW values at ``rows``: each ROW field at the same rows,
     each ARRAY/MAP row's element slice [start, start + count) gathered
     from the children."""
@@ -455,27 +477,35 @@ def _complex_to_arrow(col: DeviceColumn, rows: np.ndarray):
     return out
 
 
-def _decimals(ints, valid, scale: int):
-    import decimal as pydec
-    with pydec.localcontext() as c:
-        c.prec = 50  # the default 28 digits would round 38-digit values
-        return [None if (valid is not None and not v)
-                else pydec.Decimal(int(x)).scaleb(-scale)
-                for x, v in zip(ints, valid if valid is not None
-                                else np.ones(len(ints), bool))]
-
-
-def _long_decimal_to_arrow(lo: np.ndarray, hi: np.ndarray,
-                           valid: Optional[np.ndarray], dt: T.DataType):
-    """Long decimal (lo data + hi child limb) -> pyarrow decimal128."""
+def _decimal_to_arrow(lo: np.ndarray, hi: Optional[np.ndarray],
+                      valid: Optional[np.ndarray], dt: T.DataType):
+    """A DECIMAL column as an Arrow decimal128 array built from its
+    buffers: the 16-byte little-endian values are the (lo, hi) int64 limb
+    pairs, ``hi`` being the long decimal's high limb or, for DECIMAL(p <=
+    18) (int64 or int32-narrowed storage), the sign extension of ``lo``.
+    NULL slots hold zero."""
     import pyarrow as pa
-    lo_u = lo.astype(np.int64).view(np.uint64)
-    ints = [(int(h) << 64) | int(l) for l, h in zip(lo_u, hi)]
-    return pa.array(_decimals(ints, valid, dt.scale), type=T.to_arrow(dt))
+    n = len(lo)
+    limbs = np.empty((n, 2), dtype=np.int64)
+    limbs[:, 0] = lo
+    if hi is None:
+        np.right_shift(limbs[:, 0], 63, out=limbs[:, 1])
+    else:
+        limbs[:, 1] = hi
+    mask_buf = None
+    if valid is not None and not valid.all():
+        limbs[~valid] = 0
+        mask_buf = pa.py_buffer(np.packbits(valid, bitorder="little")
+                                .tobytes())
+    return pa.Array.from_buffers(T.to_arrow(dt), n,
+                                 [mask_buf, pa.py_buffer(limbs)])
 
 
 def _np_to_arrow(data: np.ndarray, validity: Optional[np.ndarray],
                  col: DeviceColumn):
+    """A 1-D column's values as an Arrow array of its declared type,
+    whatever its storage width (a BIGINT stored as int32 comes out
+    int64)."""
     import pyarrow as pa
 
     dt = col.dtype
@@ -483,18 +513,13 @@ def _np_to_arrow(data: np.ndarray, validity: Optional[np.ndarray],
     if dt.is_string:
         if col.dictionary is None:
             raise ValueError("a 1-D string column without a dictionary")
-        out = col.dictionary.take(data)
-        if validity is not None:
-            out = out.copy()
-            out[~validity] = None
-        return pa.array(out.tolist(), type=T.to_arrow(dt))
+        return col.dictionary.arrow_take(data, validity, T.to_arrow(dt))
     if dt.kind is T.TypeKind.DECIMAL:
-        return pa.array(_decimals(data, validity, dt.scale),
-                        type=T.to_arrow(dt))
+        return _decimal_to_arrow(data, None, validity, dt)
     if dt.kind is T.TypeKind.TIMESTAMP:
         return pa.array(data.astype("datetime64[us]"), mask=pa_mask)
     if dt.kind is T.TypeKind.DATE:
         return pa.array(data, type=pa.date32(), mask=pa_mask)
     if dt.kind is T.TypeKind.UNKNOWN:
         return pa.nulls(len(data))
-    return pa.array(data, mask=pa_mask)
+    return pa.array(data, type=T.to_arrow(dt), mask=pa_mask)
