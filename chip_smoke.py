@@ -129,7 +129,7 @@ Phases, each printing one line; any failure raises and exits non-zero:
    for their gathers, and Q15's DECIMAL(38) max must run through the
    radix sort (B4). The host time of the dictionary-string passes (the
    pass and the enqueue of its gather, no sync) is timed per query.
-   Then each query runs at SF 1 on the card and on the CPU in this
+   Then each query runs at SF 0.1 on the card and on the CPU in this
    process: equal rows, doubles within the relative tolerance.
 15. analytic: six paths of the analytic operators, each cold and warm,
    each exact against a numpy oracle over the generator's columns (on
@@ -261,6 +261,37 @@ Phases, each printing one line; any failure raises and exits non-zero:
    print_plan_with_stats printed). One cold split's host decode and
    upload seconds are printed apart (hive_split). Each line: walls,
    splits read and pruned, cache lookups, peak device memory, launches.
+21. distributed: DistributedTask on a mesh of 8 shards, all on cuda:0
+   (scan.splits_per_table 8, the reference's split count: orders in 8
+   splits, lineitem in 40 splits of 375,000 orders, 5 waves of 8), each
+   plan cold (the scan
+   cache cleared) and warm with equal launches and exchanges, exact:
+   dist_q6 (the generic global aggregation: B1 never runs on the mesh),
+   dist_q1, dist_topn (a TopN a shard and a final one), dist_q3, dist_q18
+   against the q6/q1/q3/q18 oracles and np.lexsort's first 1000 rows;
+   dist_partitioned_join (Q3 with JOIN_BROADCAST_THRESHOLD 0: both sides
+   of both joins repartitioned by key) and dist_skew (lineitem's
+   if(l_orderkey % 4 = 0, l_orderkey, 1) joined with orders, threshold 0:
+   three quarters of the probe rows on one destination, K_SKEW_SPLITS at
+   least 1; count and sum(o_totalprice) against numpy). B4 and B3 must
+   launch on every path but dist_q6. Each line: walls, peaks, launches,
+   per kind of exchange its count, rows, bytes and host reads, and the
+   skew splits. Then dist_tpch_rest: the 18 other queries at SF 1 on the
+   mesh, cold and warm, equal to the serial Task's rows on the card.
+22. exchange: plan fragments on the card, each cold and warm, exact:
+   xchg_q1 (Q1's PARTIAL into a PartitionedOutput hashed on the flags, 4
+   partitions, 4 consumers' Exchange -> FINAL with the producer's
+   dictionaries; q1 oracle), xchg_q3 (Q3 with its lineitem scan through
+   an Exchange from a producer Task; q3 oracle), xchg_q18 (Q18's orders
+   through a PartitionedOutput of 2 partitions, each consumer's top 100
+   merged; q18 oracle), xchg_merge (the orderBy config over 4 producers of
+   a quarter of the splits each into a MergeExchange, LIMIT 1000;
+   np.lexsort's rows) and xchg_socket (a producer in a second, spawned
+   process on the card serves l_quantity's pages, hashed into 2 partitions,
+   over 127.0.0.1; the consumers here count rows and sum l_quantity
+   against numpy). Each line: walls, peaks, pages and page bytes, rows
+   sent and the bucketize's host reads, the page operators' host
+   seconds, launches; B4 and B3 must launch on each.
 
 Every number a phase prints is measured in this run, on this card; bounds
 are bytes over the H100's 3.35 TB/s.
@@ -277,11 +308,13 @@ JSON object describing each kernel; the last line is
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import datetime
 import functools
 import json
 import math
 import os
+import queue
 import shutil
 import statistics
 import subprocess
@@ -377,8 +410,9 @@ def q6_generic_plan():
 REST_QUERIES = (2, 4, 5, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16, 17, 19, 20,
                 21, 22)
 # tpch_rest's card-vs-CPU scale: the 18 queries took 163-198 s of CPU at
-# SF 1 on an 8-core H100 host (PERF.md)
-COMPARE_SF = 1.0
+# SF 1 on an 8-core H100 host (PERF.md); SF 0.1 leaves the time limit room
+# for the distributed and exchange phases
+COMPARE_SF = 0.1
 # relative tolerance of DOUBLE results: the reference oracle's
 # (tests/tpch_sql.py TOLERANCES), 1e-9 unless listed
 DOUBLE_REL_TOL = {17: 1e-6}
@@ -406,14 +440,18 @@ OFFLOAD_KEYS = {"sort": M.K_SORT_OFFLOADS,
 _offloads_seen = dict.fromkeys(OFFLOAD_KEYS, 0)
 
 
+_T0 = time.perf_counter()
+
+
 def phase(name: str, **fields) -> None:
+    """One JSON line; ``t`` is the seconds since the script started."""
     counters = M.reporter().snapshot()["counters"]
     offloads = {}
     for k, key in OFFLOAD_KEYS.items():
         now = int(counters.get(key, 0))
         offloads[k], _offloads_seen[k] = now - _offloads_seen[k], now
-    print(json.dumps({"phase": name, **fields, "offloads": offloads}),
-          flush=True)
+    print(json.dumps({"phase": name, **fields, "offloads": offloads,
+                      "t": time.perf_counter() - _T0}), flush=True)
 
 
 def time_ms(fn, calls: int = 20, reps: int = 5) -> float:
@@ -650,6 +688,22 @@ def kernel_phase(rng) -> dict:
     return {"max_abs_err": max_err, "timings": timings}
 
 
+def _once(fn):
+    """An oracle over this run's host columns (the same objects all run
+    long), computed once instead of once a phase that checks it."""
+    memo = {}
+
+    @functools.wraps(fn)
+    def wrapper(*args):
+        key = tuple(a if isinstance(a, (int, float, str)) else id(a)
+                    for a in args)
+        if key not in memo:
+            memo[key] = (args, fn(*args))  # args kept: their ids stay
+        return memo[key][1]
+    return wrapper
+
+
+@_once
 def q6_oracle(li) -> int:
     m = ((li["l_shipdate"] >= D94) & (li["l_shipdate"] < D95)
          & (li["l_discount"] >= 5) & (li["l_discount"] <= 7)
@@ -1274,6 +1328,7 @@ def _half_up(s: int, c: int) -> int:
     return -q if s < 0 else q
 
 
+@_once
 def q1_oracle(li) -> dict:
     flags, status = np.array(["A", "N", "R"]), np.array(["F", "O"])
     m = li["l_shipdate"] <= D980902
@@ -1479,6 +1534,17 @@ def topn_phase(conn, ctx, li, order) -> dict:
     phase("topn", key_bits=bits, batches=n_batches, passes=passes,
           **_runs_fields(runs))
     return runs["cold"]["launches"]
+
+
+def lexsort_order(li) -> np.ndarray:
+    """np.lexsort's order of lineitem by SORT_COLS. The three keys pack
+    into one int64 whose values are unique (order key and line number
+    are), so one unstable argsort of it is the same permutation in a
+    third of the time; past 26 order-key bits, the lexsort itself."""
+    ship, okey, line = (li[c] for c in SORT_COLS)
+    if okey.max() >= 1 << 26 or line.max() >= 8 or line.min() < 0:
+        return np.lexsort([li[c] for c in reversed(SORT_COLS)])
+    return np.argsort(((ship - ship.min()) << 29) | (okey << 3) | line)
 
 
 def check_sorted(out, li, order, what: str) -> int:
@@ -2089,6 +2155,7 @@ def table_columns(conn, table: str, cols) -> dict:
             for k, v in conn.gen.generate(table, 0, n, cols).items()}
 
 
+@_once
 def q3_oracle(conn, li) -> dict:
     """Q3 in numpy: direct-address joins over the generator's columns,
     exact int64 revenue at scale 4, the plan's tie order (revenue desc,
@@ -2120,6 +2187,7 @@ def q3_oracle(conn, li) -> dict:
             "o_shippriority": [int(x) for x in od["o_shippriority"][top]]}
 
 
+@_once
 def q18_oracle(conn, li, threshold: int) -> dict:
     """Q18 in numpy: np.bincount of l_quantity by l_orderkey, above the
     threshold at scale 2, joined to orders and customer, the top 100 by
@@ -5651,6 +5719,534 @@ def hive_phase(conn, ctx, li) -> dict:
     return by_path
 
 
+# ---------------------------------------------------------------------------
+# distributed: DistributedTask over an 8-shard mesh; exchange: plan
+# fragments wired through OutputBuffers, pages and the socket transport
+# ---------------------------------------------------------------------------
+
+MESH_SHARDS = 8  # the reference's tests' mesh
+CARD = torch.device("cuda", 0)  # the device of the fragments' Tasks
+DIST_REST_SF = 1.0  # dist_tpch_rest's scale: the mesh against the serial Task
+
+
+def _exchange_summary(exchanges) -> dict:
+    """Per kind of exchange: how many, the rows and bytes that reached a
+    destination shard, and the host reads that sized them."""
+    out = {}
+    for s in exchanges:
+        k = out.setdefault(s.kind, {"exchanges": 0, "rows": 0, "bytes": 0,
+                                    "host_reads": 0})
+        k["exchanges"] += 1
+        k["rows"] += s.rows
+        k["bytes"] += s.bytes
+        k["host_reads"] += s.host_reads
+    return out
+
+
+def _dist_run(plan, mesh, cfg, check) -> dict:
+    """Cold (the scan cache cleared) and warm runs of a plan on the mesh,
+    each held by ``check(out)``, with equal launches and exchanges:
+    walls, peak device memory, launches, the exchanges and the skew
+    splits of each."""
+    from velox_tpu_torch.parallel import DistributedTask
+    cache = DataCache.instance()
+    runs = {}
+    for run in ("cold", "warm"):
+        if run == "cold":
+            cache.clear()
+        skew = _counter(M.K_SKEW_SPLITS)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        task = DistributedTask(plan, mesh, QueryCtx(mesh.devices[0],
+                                                    dict(cfg)))
+        out = list(task.batches())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        check(out)
+        runs[run] = {"wall_s": wall,
+                     "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                     "launches": launches,
+                     "exchanges": _exchange_summary(task.exchanges),
+                     "skew_splits": _counter(M.K_SKEW_SPLITS) - skew}
+        del out, task
+    cold, warm = runs["cold"], runs["warm"]
+    if warm["launches"] != cold["launches"] \
+            or warm["exchanges"] != cold["exchanges"]:
+        raise AssertionError(f"warm launches/exchanges {warm} != cold {cold}")
+    return runs
+
+
+def _path_line(name, runs, **fields) -> None:
+    phase(name, **{k: {r: v[k] for r, v in runs.items()}
+                   for k in ("wall_s", "max_memory_allocated")},
+          **{k: runs["cold"][k] for k in ("launches", "exchanges",
+                                          "skew_splits")}, **fields)
+
+
+def _radix_launched(name, launches) -> None:
+    """An exchange path's bucketize or sort ran B4 and B3."""
+    for k in ("radix_hist", "radix_pos"):
+        if launches[k] == 0:
+            raise AssertionError(f"{name}: {k} (B4/B3) never launched")
+
+
+def _top_rows(got: dict, want: dict, what: str) -> None:
+    if got != want:
+        raise AssertionError(f"{what}: {got} != numpy oracle {want}")
+
+
+def dist_skew_plan():
+    """lineitem's k = l_orderkey where l_orderkey % 4 = 0, else 1 (three
+    quarters of the rows on one key, so on one of 8 destinations),
+    joined with orders on o_orderkey; count and sum(o_totalprice)."""
+    b = PlanBuilder()
+    orders = b.new_builder().table_scan("orders",
+                                        ["o_orderkey", "o_totalprice"])
+    return (b.table_scan("lineitem", ["l_orderkey"])
+            .project(["if(l_orderkey % 4 = 0, l_orderkey, 1) as k"])
+            .hash_join(["k"], ["o_orderkey"], orders,
+                       output=["o_totalprice"])
+            .single_aggregation([], ["count() as n",
+                                     "sum(o_totalprice) as s"]).plan())
+
+
+def dist_skew_oracle(conn, li) -> dict:
+    od = table_columns(conn, "orders", ["o_orderkey", "o_totalprice"])
+    k = np.where(li["l_orderkey"] % 4 == 0, li["l_orderkey"], 1)
+    price = np.zeros(int(od["o_orderkey"].max()) + 1, np.int64)
+    present = np.zeros(len(price), bool)
+    price[od["o_orderkey"]] = od["o_totalprice"]
+    present[od["o_orderkey"]] = True
+    hit = present[k]
+    return {"n": [int(hit.sum())], "s": [_psum(price[k[hit]])]}
+
+
+# the distributed paths: (plan, config), by name (tools/
+# profile_port_paths.py --paths dist_q1,... profiles the same)
+DIST_PATHS = {
+    "dist_q6": (PATH_PLANS["q6"], {}),
+    "dist_q1": (PATH_PLANS["q1"], {}),
+    "dist_topn": (topn_plan, {}),
+    "dist_q3": (PATH_PLANS["q3"], {}),
+    "dist_q18": (PATH_PLANS["q18"], {}),
+    "dist_partitioned_join": (PATH_PLANS["q3"],
+                              {QC.JOIN_BROADCAST_THRESHOLD: 0}),
+    "dist_skew": (dist_skew_plan, {QC.JOIN_BROADCAST_THRESHOLD: 0}),
+}
+
+
+def distributed_phase(conn, li, top) -> dict:
+    """The plans of the path phases through DistributedTask on an 8-shard
+    mesh (every shard on cuda:0), cold and warm, exact; then the other
+    TPC-H queries at SF 1 against the serial Task on the card."""
+    from velox_tpu_torch.parallel import make_mesh
+    t_phase = time.perf_counter()
+    mesh = make_mesh(MESH_SHARDS, CARD.type)
+    want_q1, want_q3 = q1_oracle(li), q3_oracle(conn, li)
+    want_q18 = q18_oracle(conn, li, Q18_THRESHOLD)
+    want_skew = dist_skew_oracle(conn, li)
+    q6_want = q6_oracle(li)
+    want_topn = {c: [int(x) for x in li[c][top]] for c in SORT_COLS[:2]}
+    by_path = {}
+
+    def exact(want, what):
+        return lambda out: _top_rows(_host_rows(out, list(want)), want, what)
+
+    def q6_check(out):
+        if q6_value(out) != q6_want:
+            raise AssertionError(f"dist_q6 {q6_value(out)} != {q6_want}")
+
+    checks = {
+        "dist_q6": q6_check, "dist_q1": exact(want_q1, "dist_q1"),
+        "dist_topn": exact(want_topn, "dist_topn"),
+        "dist_q3": exact(want_q3, "dist_q3"),
+        "dist_q18": exact(want_q18, "dist_q18"),
+        "dist_partitioned_join": exact(want_q3, "partitioned q3"),
+        "dist_skew": exact(want_skew, "dist_skew")}
+    for name, (make, cfg) in DIST_PATHS.items():
+        runs = _dist_run(make(), mesh, cfg, checks[name])
+        launches = runs["cold"]["launches"]
+        if launches["filter_sum"]:
+            raise AssertionError(f"{name}: B1 ran on the distributed path")
+        if name != "dist_q6":
+            # every path but Q6 repartitions or runs a TopN: B4 and B3
+            _radix_launched(name, launches)
+        if name == "dist_skew" and runs["cold"]["skew_splits"] < 1:
+            raise AssertionError("dist_skew: no skew split")
+        _path_line(name, runs, shards=mesh.size,
+                   devices=[str(d) for d in mesh.distinct_devices()])
+        by_path[name] = launches
+    # the other TPC-H queries at SF 1: the mesh against the serial Task
+    register_tpch(DIST_REST_SF, connector_id="tpch_dist")
+    ctx = QueryCtx(mesh.devices[0])
+    rest = {}
+    for q in REST_QUERIES:
+        plan = tpch_plan(q, connector_id="tpch_dist")
+        out, serial_wall, _ = _run(plan, ctx)
+        want = _host_table(out)
+        tol = DOUBLE_REL_TOL.get(q, 1e-9)
+        runs = _dist_run(plan, mesh, {}, lambda o: _same_rows(
+            _host_table(o), want, tol, f"dist Q{q} vs the serial Task"))
+        rest[q] = {"rows": len(want[1]), "serial_wall_s": serial_wall,
+                   "wall_s": {r: v["wall_s"] for r, v in runs.items()},
+                   "max_memory_allocated": runs["warm"][
+                       "max_memory_allocated"],
+                   "launches": runs["cold"]["launches"],
+                   "exchanges": runs["cold"]["exchanges"]}
+        phase("dist_tpch_rest_query", q=q, sf=DIST_REST_SF, **rest[q])
+    DataCache.instance().clear()
+    phase("distributed", seconds=time.perf_counter() - t_phase,
+          rest_queries=sorted(rest))
+    return by_path
+
+
+def _replace_node(node, pred, make):
+    """(the plan with its first node matching ``pred`` replaced by
+    ``make(node)``, that node), or (the plan, None)."""
+    if pred(node):
+        return make(node), node
+    for f in dataclasses.fields(node):
+        v = getattr(node, f.name)
+        if isinstance(v, P.PlanNode):
+            new, found = _replace_node(v, pred, make)
+            if found is not None:
+                return dataclasses.replace(node, **{f.name: new}), found
+    return node, None
+
+
+def _scan_of(table):
+    return lambda n: isinstance(n, P.TableScanNode) and n.table == table
+
+
+def _xchg_run(conn, stages, check) -> dict:
+    """Cold and warm runs of a set of fragments: ``stages()`` yields, in
+    order, (plan, config) of each Task to run and collects the consumers'
+    outputs in a list it returns last; ``check`` holds those. Walls,
+    peaks, launches, pages and bytes through the OutputBuffers."""
+    from velox_tpu_torch.exec.exchange import (
+        OutputBufferManager, PartitionedOutputOperator,
+    )
+    cache = DataCache.instance()
+    runs = {}
+    for run in ("cold", "warm"):
+        if run == "cold":
+            cache.clear()
+        pages0, bytes0 = _counter(M.K_EXCHANGE_PAGES), \
+            _counter(M.K_EXCHANGE_BYTES)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs, ids = [], []
+        op_s: dict = {}
+        sent = reads = 0
+        for plan, cfg, keep in stages(run):
+            task = Task(plan, QueryCtx(CARD, cfg))
+            got = list(task.batches())
+            task.check_errors()
+            for op in task.operators:
+                if isinstance(op, PartitionedOutputOperator):
+                    sent += op.rows_emitted
+                    # a keyed bucketize reads its counts once a batch
+                    reads += op.stats.input_batches if op.node.keys else 0
+            for st in task.stats():
+                if st["operator_type"] in _PAGE_OPERATORS:
+                    op_s[st["operator_type"]] = op_s.get(
+                        st["operator_type"], 0.0) + 1e-9 * (
+                        st["add_input_wall_ns"] + st["get_output_wall_ns"]
+                        + st["finish_wall_ns"])
+            if "task.id" in cfg:
+                ids.append(cfg["task.id"])
+            if keep:
+                outs.append(got)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_launches()
+        for tid in ids:
+            OutputBufferManager.instance().remove(tid)
+        check(outs)
+        runs[run] = {"wall_s": wall,
+                     "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                     "launches": launches,
+                     "pages": _counter(M.K_EXCHANGE_PAGES) - pages0,
+                     "page_bytes": _counter(M.K_EXCHANGE_BYTES) - bytes0,
+                     "page_operator_s": op_s, "rows_sent": sent,
+                     "bucketize_host_reads": reads}
+        del outs
+    if runs["warm"]["launches"] != runs["cold"]["launches"]:
+        raise AssertionError("warm and cold runs launched differently")
+    return runs
+
+
+# the operators that make and read pages: their host walls (bucketize,
+# to_arrow and the codec; the pull, the codec and from_arrow)
+_PAGE_OPERATORS = ("PartitionedOutputOperator", "ExchangeOperator")
+
+
+def _xchg_line(name, runs, **fields) -> None:
+    phase(name, **{k: {r: v[k] for r, v in runs.items()}
+                   for k in ("wall_s", "max_memory_allocated", "pages",
+                             "page_bytes", "page_operator_s", "rows_sent",
+                             "bucketize_host_reads")},
+          launches=runs["cold"]["launches"], **fields)
+
+
+def _merged_top(outs, names, key, n) -> dict:
+    """The consumers' rows together, the first ``n`` under ``key``."""
+    rows = []
+    for out in outs:
+        got = _host_rows(out, names)
+        rows += list(zip(*(got[c] for c in names)))
+    rows.sort(key=key)
+    return {c: [r[i] for r in rows[:n]] for i, c in enumerate(names)}
+
+
+def _socket_producer(sf: float, device: str, results, stop) -> None:
+    """A second process: lineitem's l_quantity through a
+    PartitionedOutput (hash on it, 2 partitions) on the card,
+    twice (cold, then warm from its scan cache), served over TCP on
+    127.0.0.1 until ``stop``."""
+    from velox_tpu_torch.core import expressions as ex
+    from velox_tpu_torch.exec.exchange_net import (
+        serve_exchange, shutdown_exchange_servers,
+    )
+    try:
+        conn = register_tpch(sf)
+        scan = _socket_scan()
+        plan = P.PartitionedOutputNode(
+            "sock-out", source=scan, num_partitions=2,
+            keys=(ex.field("l_quantity", scan.output_type().field_type(
+                "l_quantity")),))
+        walls, launches = {}, {}
+        sync = (torch.cuda.synchronize if torch.device(device).type == "cuda"
+                else (lambda: None))
+        for run in ("cold", "warm"):
+            reset_launches()
+            sync()
+            t0 = time.perf_counter()
+            Task(plan, QueryCtx(device, {"task.id": f"sock-{run}"})).run()
+            sync()
+            walls[run] = time.perf_counter() - t0
+            launches[run] = read_launches()
+        host, port = serve_exchange("127.0.0.1")
+        results.put({"addr": f"{host}:{port}", "produce_s": walls,
+                     "launches": launches,
+                     "splits": len(conn.default_splits("lineitem"))})
+        stop.wait(600)
+        shutdown_exchange_servers()
+    except BaseException as e:
+        results.put({"error": f"{type(e).__name__}: {e}"})
+
+
+def _socket_scan():
+    return PlanBuilder().table_scan("lineitem", ["l_quantity"]).plan()
+
+
+def _xchg_socket(li, sf: float) -> dict:
+    """The socket transport across two CUDA processes: the consumers
+    here sum l_quantity and count rows of both destinations, exact."""
+    import multiprocessing
+    from velox_tpu_torch.core import expressions as ex
+    from velox_tpu_torch.exec import exchange as X
+    from velox_tpu_torch.exec.exchange_net import SocketExchangeSource
+    want = {"n": len(li["l_quantity"]), "q": _psum(li["l_quantity"])}
+    mp = multiprocessing.get_context("spawn")
+    results, stop = mp.Queue(), mp.Event()
+    t0 = time.perf_counter()
+    proc = mp.Process(target=_socket_producer,
+                      args=(sf, str(CARD), results, stop), daemon=True)
+    proc.start()
+    try:
+        info = None
+        while info is None:
+            try:
+                info = results.get(timeout=2)
+            except queue.Empty:
+                if not proc.is_alive() or time.perf_counter() - t0 > 300:
+                    raise AssertionError(
+                        "xchg_socket producer gave no address (exit code "
+                        f"{proc.exitcode})") from None
+        if "error" in info:
+            raise AssertionError(f"xchg_socket producer: {info['error']}")
+        started = time.perf_counter() - t0
+        prev = X._SOURCE_FACTORY
+        X.register_exchange_source_factory(SocketExchangeSource)
+        rt = _socket_scan().output_type()
+        qt = rt.field_type("l_quantity")
+        runs = {}
+        try:
+            for run in ("cold", "warm"):
+                reset_launches()
+                torch.cuda.synchronize()
+                t1 = time.perf_counter()
+                n = q = 0
+                for dst in range(2):
+                    exch = P.ExchangeNode("sock-in", row_type=rt)
+                    plan = P.AggregationNode(
+                        "sock-agg", source=exch,
+                        step=P.AggregationStep.SINGLE, grouping_keys=(),
+                        aggregate_names=("n", "q"), aggregates=(
+                            P.AggregateCall("count", (), T.BIGINT),
+                            P.AggregateCall("sum", (ex.field(
+                                "l_quantity", qt),), T.decimal(38, 2))))
+                    out = list(Task(plan, QueryCtx(
+                        CARD, {"exchange.sock-in.tasks":
+                         [f"{info['addr']}/sock-{run}"],
+                         "task.destination": dst})).batches())
+                    got = _host_rows(out, ["n", "q"])
+                    n += got["n"][0]
+                    q += got["q"][0]
+                torch.cuda.synchronize()
+                runs[run] = {"wall_s": time.perf_counter() - t1,
+                             "launches": read_launches()}
+                if {"n": n, "q": q} != want:
+                    raise AssertionError(f"xchg_socket {run}: {n}, {q} != "
+                                         f"numpy {want}")
+        finally:
+            X.register_exchange_source_factory(prev)
+    finally:
+        stop.set()
+        proc.join(60)
+        if proc.is_alive():
+            proc.terminate()
+            proc.join(10)
+    for run in ("cold", "warm"):
+        _radix_launched(f"xchg_socket producer ({run})",
+                        info["launches"][run])
+    phase("xchg_socket", wall_s={r: v["wall_s"] for r, v in runs.items()},
+          produce_s=info["produce_s"], producer_start_s=started,
+          producer_launches=info["launches"]["cold"],
+          launches=runs["cold"]["launches"], rows=want["n"],
+          splits=info["splits"], exit_code=proc.exitcode)
+    return {"xchg_socket": {k: info["launches"]["cold"][k]
+                            + runs["cold"]["launches"][k]
+                            for k in runs["cold"]["launches"]}}
+
+
+def exchange_phase(conn, li, top) -> dict:
+    """Plan fragments on the card: PartitionedOutput -> OutputBuffer ->
+    Exchange (pages through PageSerde, uploaded onto cuda:0), cold and
+    warm, exact."""
+    from velox_tpu_torch.core import expressions as ex
+    from velox_tpu_torch.serializers.pages import available_codec
+    t_phase = time.perf_counter()
+    dicts = conn.gen.dictionaries("lineitem")
+    by_path = {}
+
+    def field(plan, name):
+        return ex.field(name, plan.output_type().field_type(name))
+
+    # xchg_q1: PARTIAL -> PartitionedOutput(flags, 4) -> 4 x FINAL
+    want_q1 = q1_oracle(li)
+    q1 = PATH_PLANS["q1"]()
+    final, partial = q1.source, q1.source.source
+    keys = [k.name for k in final.grouping_keys]
+
+    def q1_stages(run):
+        tid = f"xq1-{run}"
+        yield (P.PartitionedOutputNode(
+            "xq1-out", source=partial, num_partitions=4,
+            keys=tuple(final.grouping_keys)), {"task.id": tid}, False)
+        exch = P.ExchangeNode("xq1-in", row_type=partial.output_type())
+        consumer = dataclasses.replace(q1, source=dataclasses.replace(
+            final, source=exch))
+        for d in range(4):
+            yield consumer, {"exchange.xq1-in.tasks": [tid],
+                             "task.destination": d,
+                             "exchange.xq1-in.dictionaries": dicts}, True
+
+    runs = _xchg_run(conn, q1_stages, lambda outs: _top_rows(
+        _merged_top(outs, list(want_q1), lambda r: r[:2], 6), want_q1,
+        "xchg_q1"))
+    _radix_launched("xchg_q1", runs["cold"]["launches"])
+    _xchg_line("xchg_q1", runs, partitions=4, codec=available_codec("zstd"))
+    by_path["xchg_q1"] = runs["cold"]["launches"]
+
+    # xchg_q3: Q3 with lineitem through an Exchange from a producer Task
+    want_q3 = q3_oracle(conn, li)
+
+    def q3_stages(run):
+        tid = f"xq3-{run}"
+        consumer, scan = _replace_node(
+            PATH_PLANS["q3"](), _scan_of("lineitem"),
+            lambda n: P.ExchangeNode("xq3-in", row_type=n.output_type()))
+        yield (P.PartitionedOutputNode(
+            "xq3-out", source=scan, num_partitions=1,
+            keys=(field(scan, "l_orderkey"),)), {"task.id": tid}, False)
+        yield consumer, {"exchange.xq3-in.tasks": [tid],
+                         "exchange.xq3-in.dictionaries": dicts}, True
+
+    runs = _xchg_run(conn, q3_stages, lambda outs: _top_rows(
+        _host_rows(outs[0], list(want_q3)), want_q3, "xchg_q3"))
+    _radix_launched("xchg_q3", runs["cold"]["launches"])
+    _xchg_line("xchg_q3", runs, partitions=1)
+    by_path["xchg_q3"] = runs["cold"]["launches"]
+
+    # xchg_q18: Q18's orders through a PartitionedOutput of 2 partitions;
+    # each consumer's top 100 of its half, merged on the host
+    want_q18 = q18_oracle(conn, li, Q18_THRESHOLD)
+
+    def q18_stages(run):
+        tid = f"xq18-{run}"
+        consumer, scan = _replace_node(
+            PATH_PLANS["q18"](), _scan_of("orders"),
+            lambda n: P.ExchangeNode("xq18-in", row_type=n.output_type()))
+        yield (P.PartitionedOutputNode(
+            "xq18-out", source=scan, num_partitions=2,
+            keys=(field(scan, "o_orderkey"),)), {"task.id": tid}, False)
+        for d in range(2):
+            yield consumer, {"exchange.xq18-in.tasks": [tid],
+                             "task.destination": d,
+                             "exchange.xq18-in.dictionaries":
+                                 conn.gen.dictionaries("orders")}, True
+
+    names = list(want_q18)
+    ti, di, oi = (names.index(c) for c in ("o_totalprice", "o_orderdate",
+                                           "o_orderkey"))
+    runs = _xchg_run(conn, q18_stages, lambda outs: _top_rows(
+        _merged_top(outs, names, lambda r: (-r[ti], r[di], r[oi]), 100),
+        want_q18, "xchg_q18"))
+    _radix_launched("xchg_q18", runs["cold"]["launches"])
+    _xchg_line("xchg_q18", runs, partitions=2)
+    by_path["xchg_q18"] = runs["cold"]["launches"]
+
+    # xchg_merge: the orderBy config over 4 producer fragments (a quarter
+    # of the lineitem splits each) into a MergeExchange, LIMIT 1000
+    splits = conn.default_splits("lineitem")
+    want_top = {c: [int(x) for x in li[c][top]] for c in SORT_COLS[:2]}
+
+    n_prod = min(4, len(splits))  # each producer reads its own splits
+
+    def merge_stages(run):
+        plan = topn_plan()
+        scan_id = plan.source.source.id
+        ids = [f"xmerge-{run}-{p}" for p in range(n_prod)]
+        for p, tid in enumerate(ids):
+            yield (P.PartitionedOutputNode("xmerge-out", source=plan,
+                                           num_partitions=1),
+                   {"task.id": tid,
+                    f"splits.{scan_id}": splits[p::n_prod]}, False)
+        src = plan.source  # the OrderBy under the Limit
+        mx = P.MergeExchangeNode("xmerge-in", row_type=plan.output_type(),
+                                 keys=src.keys, orders=src.orders)
+        yield (P.LimitNode("xmerge-limit", source=mx, count=1000),
+               {"exchange.xmerge-in.tasks": ids}, True)
+
+    runs = _xchg_run(conn, merge_stages, lambda outs: _top_rows(
+        _host_rows(outs[0], SORT_COLS[:2]), want_top, "xchg_merge"))
+    _radix_launched("xchg_merge", runs["cold"]["launches"])
+    _xchg_line("xchg_merge", runs, producers=n_prod)
+    by_path["xchg_merge"] = runs["cold"]["launches"]
+
+    by_path.update(_xchg_socket(li, conn.scale_factor))
+    phase("exchange", seconds=time.perf_counter() - t_phase)
+    return by_path
+
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--sf", type=float, default=10.0,
@@ -5671,7 +6267,7 @@ def main() -> None:
     heads_phase(ctx, li)
     radix = radix_phase(args.seed, conn, li)
     t0 = time.perf_counter()
-    order = np.lexsort([li[c] for c in reversed(SORT_COLS)])
+    order = lexsort_order(li)
     phase("oracle_lexsort", rows=len(order),
           seconds=time.perf_counter() - t0)
     by_phase.update({"q1": q1_phase(conn, ctx, li),
@@ -5679,6 +6275,7 @@ def main() -> None:
                      "sort_full": sort_full_phase(conn, ctx, li, order)})
     by_phase.update(spill_phase(conn, ctx, li, order))
     by_phase["q6_generic"] = q6_generic_phase(conn, ctx, li)
+    top1000 = order[:1000].copy()
     del order
     gather = gather_phase(args.seed, conn)
     by_phase["q3"] = q3_phase(conn, ctx, li)
@@ -5690,6 +6287,8 @@ def main() -> None:
     by_phase.update(complex_phase(conn, ctx, li))
     by_phase.update(spark_phase(conn, ctx, li))
     by_phase.update(hive_phase(conn, ctx, li))
+    by_phase.update(distributed_phase(conn, li, top1000))
+    by_phase.update(exchange_phase(conn, li, top1000))
 
     main_shape = kernel["timings"][FILTER_TIMED[0]]
     kernels = [{

@@ -2,10 +2,12 @@
 
 TPC-H Q6 (through the filter-sum operator) and the scan+filter+project
 heads of Q6 and Q1 must give Arrow tables equal in value and type. Also:
-the filter-sum counter fires, unported nodes raise, and importing the
-whole port never imports jax. (Q1, the sorts and the generic aggregation,
-and Q3, Q18 and the join have their own files: test_torch_aggregation.py,
-test_torch_sort.py, test_torch_join.py.)
+the filter-sum counter fires, a plan the port cannot run raises, the
+plans that need Exchange and PartitionedOutput run as producer and
+consumer Tasks, and importing the whole port never imports jax, the
+reference, pandas or torch.distributed. (Q1, the sorts and the generic
+aggregation, and Q3, Q18 and the join have their own files:
+test_torch_aggregation.py, test_torch_sort.py, test_torch_join.py.)
 """
 
 import dataclasses
@@ -13,6 +15,7 @@ import subprocess
 import sys
 import textwrap
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import pyarrow as pa
@@ -135,45 +138,87 @@ def test_checked_overflow_raises_in_both():
 
 
 def _needs_unported(query: int):
-    """A plan shaped like TPC-H `query` that needs something the port
-    lacks: for 1, Q1's grouping with an aggregate it does not have; for 3,
-    Q3's lineitem-orders join with lineitem arriving through an Exchange
-    (ROADMAP A.10); for 18, Q18's orders sent to a PartitionedOutput
-    (A.10). (Q3's and Q18's own plans run: tests/test_torch_join.py.)"""
-    b = PlanBuilder()
-    if query == 3:
-        orders = b.new_builder().table_scan("orders", ["o_orderkey"])
-        join = (b.table_scan("lineitem", ["l_orderkey"])
-                .hash_join(["l_orderkey"], ["o_orderkey"], orders,
-                           output=["l_orderkey"]).plan())
-        return dataclasses.replace(join, left=P.ExchangeNode(
-            "exchange-lineitem", row_type=join.left.output_type()))
-    if query == 18:
-        scan = b.table_scan("orders", ["o_orderkey", "o_custkey"]).plan()
-        return P.PartitionedOutputNode(
-            "output-orders", source=scan, num_partitions=2,
-            keys=(ex.field("o_orderkey", scan.output_type().field_type(
-                "o_orderkey")),))
-    return (b.table_scan("lineitem", ["l_returnflag", "l_linestatus",
-                                      "l_quantity"])
-            .partial_aggregation(["l_returnflag", "l_linestatus"],
-                                 ["array_agg(l_quantity) as s"])
-            .final_aggregation().plan())
+    """Q1's grouping with an aggregate the port does not have."""
+    return (PlanBuilder().table_scan(
+        "lineitem", ["l_returnflag", "l_linestatus", "l_quantity"])
+        .partial_aggregation(["l_returnflag", "l_linestatus"],
+                             ["array_agg(l_quantity) as s"])
+        .final_aggregation().plan())
 
 
-@pytest.mark.parametrize("query", [1, 3, 18])
+@pytest.mark.parametrize("query", [1])
 def test_unported_plan_raises(query):
     with pytest.raises(NotImplementedError):
         Task(_needs_unported(query), CPU).run()
 
 
-def test_unported_node_kinds_raise():
-    """Each kind still to port names itself and its ROADMAP item."""
-    with pytest.raises(NotImplementedError, match=r"ExchangeNode.*A\.10"):
-        Task(_needs_unported(3), CPU).run()
-    with pytest.raises(NotImplementedError,
-                       match=r"PartitionedOutputNode.*A\.10"):
-        Task(_needs_unported(18), CPU).run()
+def _fragments(query: int, E):
+    """The plans that once needed an unported node kind, as (producer
+    plan, consumer plan) of engine ``E`` (a namespace of its PlanBuilder,
+    plan and expression modules): for 3, Q3's lineitem-orders join with
+    lineitem arriving through an Exchange from a producer's scan; for 18,
+    Q18's orders sent to a PartitionedOutput of 2 partitions and read
+    back by an Exchange. (Q3's and Q18's own plans run:
+    tests/test_torch_join.py.)"""
+    b = E.PB()
+    if query == 3:
+        scan = b.table_scan("lineitem", ["l_orderkey"]).plan()
+        orders = b.new_builder().table_scan("orders", ["o_orderkey"])
+        join = (b.hash_join(["l_orderkey"], ["o_orderkey"], orders,
+                            output=["l_orderkey"])
+                .single_aggregation([], ["count() as n",
+                                         "sum(l_orderkey) as s"]).plan())
+        exch = E.P.ExchangeNode("exchange-lineitem",
+                                row_type=scan.output_type())
+        consumer = dataclasses.replace(join, source=dataclasses.replace(
+            join.source, left=exch))
+        producer = E.P.PartitionedOutputNode(
+            "output-lineitem", source=scan, num_partitions=1,
+            keys=(E.ex.field("l_orderkey", scan.output_type().field_type(
+                "l_orderkey")),))
+        return producer, consumer
+    scan = b.table_scan("orders", ["o_orderkey", "o_custkey"]).plan()
+    producer = E.P.PartitionedOutputNode(
+        "output-orders", source=scan, num_partitions=2,
+        keys=(E.ex.field("o_orderkey", scan.output_type().field_type(
+            "o_orderkey")),))
+    return producer, E.P.ExchangeNode("exchange-orders",
+                                      row_type=scan.output_type())
+
+
+@pytest.mark.parametrize("query", [3, 18])
+def test_exchange_plans_equal_reference(query):
+    """The plans of Q3 and Q18 that needed Exchange and PartitionedOutput
+    run: a producer Task feeds consumer Tasks over the in-process
+    transport, in each engine, and every destination's rows are the
+    reference's."""
+    from velox_tpu.core import expressions as Jex
+    from velox_tpu.core import plan as JP
+    from velox_tpu.exec.exchange import OutputBufferManager as JOBM
+    from velox_tpu.exec.task import QueryCtx as JQueryCtx
+    from velox_tpu_torch.exec.exchange import OutputBufferManager
+    ref = SimpleNamespace(PB=JPlanBuilder, P=JP, ex=Jex, obm=JOBM,
+                          run=lambda p, c: JTask(p, JQueryCtx(c)).run())
+    port = SimpleNamespace(PB=PlanBuilder, P=P, ex=ex,
+                           obm=OutputBufferManager,
+                           run=lambda p, c: Task(p, QueryCtx("cpu", c)).run())
+    out = {}
+    for tag, E in (("ref", ref), ("port", port)):
+        producer, consumer = _fragments(query, E)
+        tid = f"q{query}-producer-{tag}"
+        assert E.run(producer, {"task.id": tid}).num_rows == 0
+        exchange_id = "exchange-lineitem" if query == 3 else consumer.id
+        out[tag] = [E.run(consumer, {
+            f"exchange.{exchange_id}.tasks": [tid],
+            "task.destination": d}).to_pylist()
+            for d in range(producer.num_partitions)]
+        E.obm.instance().remove(tid)
+    assert out["port"] == out["ref"]
+    if query == 3:
+        assert out["port"][0][0]["n"] == 60213
+    else:
+        assert sum(map(len, out["port"])) == 15000
+        assert all(out["port"])
 
 
 def test_local_partition_join_runs():
@@ -259,8 +304,26 @@ def test_port_never_imports_jax():
                      if k.split(".")[0] in ("jax", "jaxlib", "velox_tpu",
                                             "pandas"))
         assert not bad, bad
-        for m in ("velox_tpu_torch.exec.join", "velox_tpu_torch.ops.gather"):
+        for m in ("velox_tpu_torch.exec.join", "velox_tpu_torch.ops.gather",
+                  "velox_tpu_torch.parallel",
+                  "velox_tpu_torch.parallel.distributed",
+                  "velox_tpu_torch.exec.exchange",
+                  "velox_tpu_torch.exec.exchange_net"):
             assert m in sys.modules, m
+        # torch imports torch.distributed itself: read the imports of
+        # every port module instead
+        import ast
+        for name, mod in list(sys.modules.items()):
+            if not name.startswith("velox_tpu_torch"):
+                continue
+            tree = ast.parse(open(mod.__file__).read())
+            for node in ast.walk(tree):
+                names = ([a.name for a in node.names]
+                         if isinstance(node, ast.Import) else
+                         [node.module or ""]
+                         if isinstance(node, ast.ImportFrom) else [])
+                assert not any(n.startswith("torch.distributed")
+                               for n in names), name
         print("ok", len([k for k in sys.modules
                          if k.startswith("velox_tpu_torch")]))
     """)

@@ -17,8 +17,10 @@ raw_filter, raw_functions, dt_month, dt_week_hour, dt_zone and
 decimal_mul; the complex phase's cx_array_agg, cx_unnest, cx_maps,
 cx_map_union, cx_join, cx_join_topn and cx_bloom; the spark phase's
 spark_shuffle_hash, spark_runtime_filter, spark_runtime_filter_pass,
-spark_strings and spark_remote; default q3,q18) it clears the scan
-cache and runs
+spark_strings and spark_remote; the distributed phase's dist_q6,
+dist_q1, dist_topn, dist_q3, dist_q18, dist_partitioned_join and
+dist_skew, through DistributedTask on an 8-shard mesh of the card;
+default q3,q18) it clears the scan cache and runs
 chip_smoke.py's plan of that name cold (every split generated and
 uploaded) and warm
 (every split from the cache), then warm once more under torch.profiler
@@ -47,16 +49,19 @@ import torch
 REPO = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(REPO))
 
-from chip_smoke import PATH_PLANS  # noqa: E402
+from chip_smoke import DIST_PATHS, MESH_SHARDS, PATH_PLANS  # noqa: E402
 from velox_tpu_torch.connectors.cache import DataCache  # noqa: E402
 from velox_tpu_torch.connectors.tpch import register_tpch  # noqa: E402
 from velox_tpu_torch.exec.task import QueryCtx, Task  # noqa: E402
 
 
-def run(plan, ctx) -> float:
+def run(plan, ctx, mesh=None) -> float:
+    """One run's wall; through DistributedTask on ``mesh`` when given."""
+    from velox_tpu_torch.parallel import DistributedTask
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    task = Task(plan, ctx)
+    task = Task(plan, ctx) if mesh is None \
+        else DistributedTask(plan, mesh, ctx)
     for _ in task.batches():
         pass
     task.check_errors()
@@ -84,12 +89,19 @@ def main() -> None:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     for name in args.paths.split(","):
-        plan = PATH_PLANS[name]()
+        mesh, pctx = None, ctx
+        if name in DIST_PATHS:
+            from velox_tpu_torch.parallel import make_mesh
+            make, cfg = DIST_PATHS[name]
+            plan, mesh = make(), make_mesh(MESH_SHARDS)
+            pctx = QueryCtx(mesh.devices[0], dict(cfg))
+        else:
+            plan = PATH_PLANS[name]()
         DataCache.instance().clear()
-        walls = [run(plan, ctx), run(plan, ctx)]
+        walls = [run(plan, pctx, mesh), run(plan, pctx, mesh)]
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            walls.append(run(plan, ctx))
+            walls.append(run(plan, pctx, mesh))
         rows = [e for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA]
         busy_us = sum(e.self_device_time_total for e in rows)

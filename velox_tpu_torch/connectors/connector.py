@@ -57,9 +57,10 @@ class Connector:
     def table_schema(self, table: str) -> T.DataType:
         raise NotImplementedError
 
-    def default_splits(self, table: str) -> List[ConnectorSplit]:
+    def default_splits(self, table: str, ctx=None) -> List[ConnectorSplit]:
         """Splits covering the whole table (host engines normally supply
-        splits; this is the single-process convenience path)."""
+        splits; this is the single-process convenience path). ``ctx`` may
+        ask for a split count (``scan.splits_per_table``)."""
         raise NotImplementedError
 
 

@@ -54,9 +54,9 @@ class FaultyConnector(Connector):
         src = self.inner.create_data_source(table, columns, ctx)
         return FaultyDataSource(src, self._fire)
 
-    def default_splits(self, table):
+    def default_splits(self, table, ctx=None):
         self._fire("splits", table)
-        return self.inner.default_splits(table)
+        return self.inner.default_splits(table, ctx)
 
 
 def delay_hook(seconds: float) -> Callable:

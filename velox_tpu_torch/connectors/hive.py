@@ -572,7 +572,7 @@ class HiveConnector(Connector):
         return HiveDataSink(path, partition_keys, bucket_count,
                             bucket_keys, file_format=file_format)
 
-    def default_splits(self, table: str) -> List[HiveSplit]:
+    def default_splits(self, table: str, ctx=None) -> List[HiveSplit]:
         return self._tables[table].splits()
 
     def split_groups(self, table: str) -> Optional[List[List[HiveSplit]]]:

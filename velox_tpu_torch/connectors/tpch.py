@@ -950,11 +950,14 @@ class TpchConnector(Connector):
         engines: for lineitem the exact largest split (a split covers
         rows_per_split/5 orders of 1-7 lines each), otherwise the split
         size capped at the table's size. Eager PyTorch gains nothing from
-        the padding itself."""
+        the padding itself. The split size follows the ctx's
+        ``scan.splits_per_table`` (``_split_step``); the reference's
+        uniform capacity under that setting exists to stack batches for
+        ``vmap`` and is left out."""
         n = self.num_index_rows(table)
         if table == "lineitem":
             cap = default_capacity(
-                self._max_split_rows(self._split_step(table), n))
+                self._max_split_rows(self._split_step(table, ctx), n))
         else:
             cap = default_capacity(min(self.rows_per_split, n))
         return TpchDataSource(self.gen, table, columns, cap, ctx.device)
@@ -965,10 +968,18 @@ class TpchConnector(Connector):
             return int(ORDERS_PER_SF * self.gen.sf)
         return self.gen.num_rows(table)
 
-    def _split_step(self, table: str) -> int:
+    def _split_step(self, table: str, ctx=None) -> int:
+        n = self.num_index_rows(table)
+        rps = self.rows_per_split
+        if ctx is not None:
+            # scan.splits_per_table: a consumer that wants parallelism
+            # over splits (DistributedTask's waves) asks for more; the
+            # serial Task profits from few large batches
+            want = ctx.get("scan.splits_per_table")
+            if want:
+                rps = max(1, -(-n // int(want)))
         # lineitem splits are order ranges producing ~4x rows
-        step = (self.rows_per_split // 5 if table == "lineitem"
-                else self.rows_per_split)
+        step = rps // 5 if table == "lineitem" else rps
         return max(1, step)
 
     def _max_split_rows(self, step: int, n_orders: int) -> int:
@@ -984,9 +995,9 @@ class TpchConnector(Connector):
             self._max_rows_cache[key] = cached
         return cached
 
-    def default_splits(self, table: str) -> List[TpchSplit]:
+    def default_splits(self, table: str, ctx=None) -> List[TpchSplit]:
         n = self.num_index_rows(table)
-        step = self._split_step(table)
+        step = self._split_step(table, ctx)
         return [TpchSplit(self.connector_id, table, lo, min(lo + step, n))
                 for lo in range(0, n, step)]
 

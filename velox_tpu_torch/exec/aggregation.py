@@ -782,8 +782,9 @@ class AggregationOperator(Operator):
 
     # ---- operator contract -------------------------------------------------
 
-    def add_input(self, batch: DeviceBatch):
-        # remember dictionaries of string aggregate inputs for extraction
+    def note_dictionaries(self, batch: DeviceBatch) -> None:
+        """Remember the dictionaries of string aggregate inputs for the
+        extraction (a caller that drives the steps itself calls it)."""
         from velox_tpu_torch.core import expressions as ex
         for j, agg_call in enumerate(self._agg_calls):
             if agg_call.inputs and agg_call.inputs[0].dtype.is_string:
@@ -792,6 +793,9 @@ class AggregationOperator(Operator):
                     col = batch.columns.get(inp.name)
                     if col is not None:
                         self._agg_dicts[j] = col.dictionary
+
+    def add_input(self, batch: DeviceBatch):
+        self.note_dictionaries(batch)
         if self._collect_mode:
             if self._pct_split \
                     and self._step is not P.AggregationStep.PARTIAL:
@@ -982,6 +986,11 @@ class AggregationOperator(Operator):
         if errs:
             self.error_scalars.append(sum(errs))
 
+    def _accumulate_empty_global(self) -> None:
+        """A global aggregation over no input: every state its identity
+        (the one global row still comes out)."""
+        self._global_state = self._identity_state()
+
     def _identity_state(self) -> List[torch.Tensor]:
         out = []
         for agg in self._aggs:
@@ -997,9 +1006,9 @@ class AggregationOperator(Operator):
         return out
 
     def _extract_global(self) -> DeviceBatch:
+        if self._global_state is None:  # no input batch
+            self._accumulate_empty_global()
         state = self._global_state
-        if state is None:  # no input batch: every state is its identity
-            state = self._identity_state()
         one = torch.ones((1,), dtype=torch.bool, device=self._device)
         out_cols: Dict[str, DeviceColumn] = {}
         i = 0

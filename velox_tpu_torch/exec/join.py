@@ -433,7 +433,10 @@ class HashJoinOperator(Operator):
         self._probe_cols: Dict = {}
         self._join_key_ranges = ()
 
-    def set_built_table(self, bt: SortedBuild):
+    def set_built_table(self, bt: SortedBuild,
+                        unique: Optional[bool] = None):
+        """``unique``: whether the build keys are known unique already
+        (the distributed join's flag over every shard), else read."""
         node = self._node
         self._bt = bt
         # the union of both sides' plan-level stats narrows the merge-rank
@@ -447,8 +450,10 @@ class HashJoinOperator(Operator):
         self._join_key_ranges = tuple(rngs)
         # a build keyed on a superset of a provably unique column has no
         # duplicate keys: no host read of the build's flag
-        if any(resolve_column_unique(node.right, k.name)
-               for k in node.right_keys):
+        if unique is not None:
+            self._unique_build = unique
+        elif any(resolve_column_unique(node.right, k.name)
+                 for k in node.right_keys):
             self._unique_build = True
         else:
             self._unique_build = not bool(bt.has_dup_keys.item())

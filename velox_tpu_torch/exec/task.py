@@ -20,12 +20,23 @@ sort, and probes binary-search it; key tuples beyond one packed lane
 take the hash join), MarkDistinct, AssignUniqueId, Expand, GroupId
 (exec/misc_ops.py), Window, RowNumber and TopNRowNumber (exec/window.py),
 TableWrite (exec/writer.py, through a connector's DataSink), LocalPartition
-and LocalMerge. An aggregation over an OrderBy on its grouping keys
-streams (exec/streaming_agg.py, unless ``STREAMING_AGG_ENABLED`` is
-false), and one whose aggregate is ``map_union`` runs as an Unnest of the
-maps and a ``map_agg`` of their entries. The kinds still to port raise
-NotImplementedError naming their ROADMAP item: Exchange, MergeExchange
-and PartitionedOutput (A.10).
+and LocalMerge, and the multi-fragment exchange (exec/exchange.py):
+PartitionedOutput, Exchange and MergeExchange. An aggregation over an
+OrderBy on its grouping keys streams (exec/streaming_agg.py, unless
+``STREAMING_AGG_ENABLED`` is false), and one whose aggregate is
+``map_union`` runs as an Unnest of the maps and a ``map_agg`` of their
+entries.
+
+*Plan fragments* (exec/exchange.py). A PartitionedOutput sinks its rows
+into the OutputBuffer of the task named by the ``task.id`` setting and
+emits nothing; a Task that fails poisons that buffer. An Exchange pulls
+destination ``task.destination``'s pages from the tasks listed under
+``exchange.<node id>.tasks`` (or ``exchange.tasks``) through the
+registered transport, and uploads them onto the query's device with the
+``exchange.batch_capacity``, the ``exchange.<node id>.dictionaries`` and
+a queue bound of ``exchange.max_queue_bytes``. A MergeExchange drains its
+pages and sorts them once on the device. Distributed execution over a
+mesh of shards is parallel/distributed.py's ``DistributedTask``.
 
 *Local exchange* (exec/local_exchange.py). A LocalPartition runs
 ``LOCAL_EXCHANGE_DRIVERS`` driver threads (1 by default; 0 runs the node
@@ -150,12 +161,17 @@ _FILTERED_JOINS = (P.JoinType.INNER, P.JoinType.LEFT_SEMI_FILTER)
 _BUILD_SIDE_JOINS = (P.JoinType.RIGHT, P.JoinType.FULL,
                      P.JoinType.RIGHT_SEMI_FILTER)
 
-# node kinds still to port, and their ROADMAP item
-_UNPORTED = {
-    P.ExchangeNode: "A.10",
-    P.MergeExchangeNode: "A.10",
-    P.PartitionedOutputNode: "A.10",
-}
+
+def limit_as_top_n(node: P.LimitNode) -> Optional[P.TopNNode]:
+    """A Limit (offset 0) over an OrderBy as a TopN: a bounded key-only
+    sort per batch instead of a full sort (parity: the Limit-over-OrderBy
+    plans Presto lowers to TopNNode), or None."""
+    ob = node.source
+    if (isinstance(ob, P.OrderByNode) and node.offset == 0
+            and 0 < node.count <= (1 << 20)):
+        return P.TopNNode(f"{node.id}-topn", source=ob.source,
+                          keys=ob.keys, orders=ob.orders, count=node.count)
+    return None
 
 
 def _map_union_plan(node: P.AggregationNode) -> Optional[P.PlanNode]:
@@ -317,10 +333,13 @@ class Task:
             ev.set_cse_disabled(True)
         try:
             out = list(self.batches())
+            self.check_errors()
+        except BaseException as e:
+            self._terminate(e)
+            raise
         finally:
             if cse_off:
                 ev.set_cse_disabled(False)
-        self.check_errors()
         tables = [to_arrow(b) for b in out]
         M.record_counter(M.K_TASK_QUERIES)
         M.record_histogram(M.K_QUERY_WALL_MS,
@@ -462,23 +481,57 @@ class Task:
                 node.id, source=node.source, keys=node.keys,
                 orders=node.orders))
         elif isinstance(node, P.LimitNode):
-            # OrderBy + Limit(offset=0) => TopN: a bounded key-only sort
-            # per batch instead of a full sort (parity: the Limit-over-
-            # OrderBy plans Presto lowers to TopNNode)
-            if (isinstance(node.source, P.OrderByNode)
-                    and node.offset == 0 and 0 < node.count <= (1 << 20)):
-                ob = node.source
-                tn = P.TopNNode(f"{node.id}-topn", source=ob.source,
-                                keys=ob.keys, orders=ob.orders,
-                                count=node.count)
-                yield from self._drive(ob.source, TopNOperator(tn))
+            tn = limit_as_top_n(node)
+            if tn is not None:
+                yield from self._drive(tn.source, TopNOperator(tn))
             else:
                 yield from self._drive(node.source, LimitOperator(node))
+        elif isinstance(node, P.PartitionedOutputNode):
+            from velox_tpu_torch.exec.exchange import (
+                PartitionedOutputOperator,
+            )
+            op = PartitionedOutputOperator(
+                node, self.ctx.get("task.id", "task-0"), self.ctx.device)
+            # a sink: drive it to completion, emit nothing
+            for _ in self._drive(node.source, op):
+                pass
+        elif isinstance(node, (P.ExchangeNode, P.MergeExchangeNode)):
+            yield from self._run_exchange(node)
         else:
-            item = _UNPORTED.get(type(node), "A")
             raise NotImplementedError(
-                f"no operator for {type(node).__name__} in velox_tpu_torch "
-                f"(ROADMAP {item})")
+                f"no operator for {type(node).__name__} in velox_tpu_torch")
+
+    def _run_exchange(self, node) -> Iterator[DeviceBatch]:
+        """The pages of this task's destination from the remote tasks;
+        a MergeExchange re-establishes the total order with one device
+        sort over the drained pages (see MergeExchangeNode)."""
+        from velox_tpu_torch.exec.exchange import ExchangeOperator
+        from velox_tpu_torch.exec.orderby import sort_batch
+        ctx = self.ctx
+        op = ExchangeOperator(
+            node, ctx.get(f"exchange.{node.id}.tasks")
+            or ctx.get("exchange.tasks") or [],
+            ctx.get("task.destination", 0), ctx.device,
+            ctx.get("exchange.batch_capacity"),
+            ctx.get(f"exchange.{node.id}.dictionaries"),
+            ctx.get("exchange.max_queue_bytes"))
+        pages = self._drive_source(op)
+        if not isinstance(node, P.MergeExchangeNode):
+            yield from pages
+            return
+        got = list(pages)
+        if got:
+            yield sort_batch(concat_batches(got), list(node.keys),
+                             list(node.orders))
+
+    def _terminate(self, e: BaseException) -> None:
+        """Task::terminate parity (exec/Task.cpp:1934): a failing
+        fragment poisons its output buffer, so its consumer fragments
+        abort instead of waiting on a never-finished stream."""
+        from velox_tpu_torch.exec.exchange import PartitionedOutputOperator
+        for op in self.operators:
+            if isinstance(op, PartitionedOutputOperator):
+                op.terminate(f"{type(e).__name__}: {e}")
 
     def _streams(self, node: P.AggregationNode) -> bool:
         """An aggregation whose source is an OrderBy led by exactly its
@@ -787,7 +840,7 @@ class Task:
         conn = get_connector(node.connector_id)
         source = conn.create_data_source(node.table, node.columns, self.ctx)
         splits = self.ctx.get(f"splits.{node.id}") \
-            or conn.default_splits(node.table)
+            or conn.default_splits(node.table, self.ctx)
         if drv is not None:
             i, k = drv
             splits = list(splits)[i::k]
