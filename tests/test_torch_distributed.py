@@ -39,14 +39,13 @@ from velox_tpu.tpch import tpch_plan as jax_tpch_plan
 from velox_tpu_torch.common import metrics as M
 from velox_tpu_torch.common.errors import VeloxUserError
 from velox_tpu_torch.connectors.connector import register_connector
-from velox_tpu_torch.connectors.tpch import (
-    TPCH_SCHEMAS, TpchConnector, register_tpch,
-)
+from velox_tpu_torch.connectors.tpch import TpchConnector, register_tpch
 from velox_tpu_torch.core.config import QueryConfig as QC
 from velox_tpu_torch.exec.task import QueryCtx, Task
 from velox_tpu_torch.parallel import DistributedTask, make_mesh
 from velox_tpu_torch.parallel.exchange import destinations
-from velox_tpu_torch.testing.oracle import SqliteOracle, assert_frames_match
+from velox_tpu_torch.testing.golden import load_generated
+from velox_tpu_torch.testing.oracle import assert_frames_match
 from velox_tpu_torch.testing.plan_builder import PlanBuilder
 from velox_tpu_torch.tpch import tpch_plan
 from velox_tpu_torch.vector.device import from_arrow
@@ -386,23 +385,7 @@ def tpch01():
 
 @pytest.fixture(scope="module")
 def oracle(tpch01):
-    o = SqliteOracle()
-    gen = tpch01.gen
-    for t in ("lineitem", "orders", "customer", "part", "supplier",
-              "partsupp", "nation", "region"):
-        cols = list(TPCH_SCHEMAS[t].names)
-        arrays = gen.generate(t, 0, tpch01.num_index_rows(t), cols)
-        dicts = gen.dictionaries(t)
-        o.load(t, pa.table({
-            c: pa.array(np.asarray(dicts[c].take(arrays[c]))
-                        if c in dicts else arrays[c]) for c in cols}))
-    # indexes change no answer, only SQLite's plans: Q21's correlated
-    # subqueries take ~80 s without them, well under 1 s with
-    for i, on in enumerate(("lineitem(l_orderkey)", "lineitem(l_partkey)",
-                            "orders(o_orderkey)",
-                            "partsupp(ps_partkey, ps_suppkey)")):
-        o.con.execute(f"create index oracle_ix{i} on {on}")
-    return o
+    return load_generated(tpch01)
 
 
 @pytest.mark.parametrize("q", sorted(ORACLE_SQL))

@@ -6,9 +6,12 @@ with nulls and rows that overflow BIGINT arithmetic). Data, validity and
 the per-row error channel must be equal, and so must the storage dtype.
 """
 
+import decimal
+
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pyarrow as pa
 import pytest
 import torch
 
@@ -341,3 +344,115 @@ def test_raw_string_compare_raises_naming_the_roadmap(text):
         np.broadcast_to(np.asarray(jv.data), (CAP,))[live])
     assert 0 < int(tv.data.numpy()[live].sum()) < live.sum() \
         or text == "s = 'zzz'", text
+
+
+# ---------------------------------------------------------------------------
+# evaluate and compile_exprs (the counterparts of tests/test_expression.py's
+# cases, each through both packages' ``evaluate`` over the same table)
+# ---------------------------------------------------------------------------
+
+def _dec(*vals):
+    return [None if v is None else decimal.Decimal(v) for v in vals]
+
+
+_EVAL_TABLES = {
+    "ints": pa.table({"a": [1, 2, 3, None], "b": [10, None, 30, 40]}),
+    "div": pa.table({"a": [7, -7, 7], "b": [2, 2, 0]}),
+    "x": pa.table({"x": pa.array([1.0, 4.0, 9.0], type=pa.float64())}),
+    "cmp": pa.table({"a": [1, 2, None, 4], "b": [2, 2, 2, 2]}),
+    "between": pa.table({"a": [1, 5, 10, None]}),
+    "null": pa.table({"a": [1, None, 3]}),
+    "s": pa.table({"s": ["apple", "Banana", "cherry", None]}),
+    "sorted": pa.table({"s": ["b", "a", "c"]}),
+    "d": pa.table({"d": pa.array([0, 9000, 19000], type=pa.date32())}),
+    "dec": pa.table({
+        "p": pa.array([1, 2, 3], type=pa.decimal128(12, 2)),
+        "disc": pa.array(_dec("0.05", "0.10", "0.00"),
+                         type=pa.decimal128(12, 2))}),
+    "cast": pa.table({"a": [1, 2, 3], "x": pa.array([1.4, 2.5, -2.5])}),
+    "cse": pa.table({"a": [1.0, 2.0]}),
+}
+EVAL_CASES = [
+    ("ints", "a + b * 2"),
+    ("div", "a / b"), ("div", "a % b"),
+    ("x", "sqrt(x) + 0.5"),
+    ("cmp", "a < b"), ("cmp", "a < b and b = 2"), ("cmp", "a < b or b = 2"),
+    ("between", "a between 2 and 9"), ("between", "a in (1, 10)"),
+    ("between", "a not in (1, 10)"),
+    ("null", "a is null"), ("null", "case when a is null then 0 else a end"),
+    ("null", "coalesce(a, 99)"),
+    ("s", "upper(s)"), ("s", "length(s)"), ("s", "s like '%an%'"),
+    ("s", "s = 'cherry'"), ("s", "substr(s, 2, 3)"),
+    ("sorted", "s >= 'b'"),
+    ("d", "d >= DATE '1994-01-01'"), ("d", "year(d)"), ("d", "month(d)"),
+    ("d", "day(d)"),
+    ("dec", "p * disc"), ("dec", "p * (1.00::decimal(3,2) - disc)"),
+    ("cast", "cast(a as double)"), ("cast", "cast(x as bigint)"),
+    ("cast", "cast('2020-05-01' as date)"),
+    ("cse", "sqrt(a) + sqrt(a)"),
+]
+
+
+def _evaluated_rows(value, n, capacity):
+    """(values or None per row, dtype name) of an evaluated value: the
+    dictionary's strings for a string result."""
+    data = np.asarray(jax.device_get(value.full_data(capacity))) \
+        if not isinstance(value.data, torch.Tensor) \
+        else value.full_data(capacity).numpy()
+    valid = value.full_validity(capacity)
+    valid = valid.numpy() if isinstance(valid, torch.Tensor) \
+        else np.asarray(jax.device_get(valid))
+    data, valid = data[:n], valid[:n]
+    if value.dictionary is not None:
+        data = value.dictionary.values[data]
+    return [d.item() if hasattr(d, "item") else d if v else None
+            for d, v in zip(data, valid)], str(value.dtype)
+
+
+def _assert_same_rows(got, want, what):
+    """Equal rows and type; DOUBLE rows within the reference oracle's
+    relative tolerance (tests/tpch_sql.py's default, 1e-9): torch's CPU
+    ``sqrt`` of 2.0 is one ulp from the correctly rounded value."""
+    assert got[1] == want[1], what
+    if got[1] != "double":
+        assert got[0] == want[0], what
+        return
+    assert [v is None for v in got[0]] == [v is None for v in want[0]]
+    g = np.array([v for v in got[0] if v is not None], dtype=np.float64)
+    w = np.array([v for v in want[0] if v is not None], dtype=np.float64)
+    np.testing.assert_allclose(g, w, rtol=1e-9, atol=0, err_msg=what)
+
+
+@pytest.mark.parametrize("table, text", EVAL_CASES)
+def test_evaluate_matches_reference(table, text):
+    from velox_tpu.expression import evaluate as jevaluate
+    from velox_tpu_torch.expression import evaluate as tevaluate
+    t = _EVAL_TABLES[table]
+    jbatch, tbatch = jd.from_arrow(t), td.from_arrow(t, device="cpu")
+    want = jevaluate(jparse(text, jbatch.row_type()), jbatch)
+    got = tevaluate(tparse(text, tbatch.row_type()), tbatch)
+    _assert_same_rows(_evaluated_rows(got, t.num_rows, tbatch.capacity),
+                      _evaluated_rows(want, t.num_rows, jbatch.capacity),
+                      text)
+
+
+def test_compile_exprs_matches_evaluate_and_reference():
+    from velox_tpu.expression import compile_exprs as jcompile
+    from velox_tpu_torch.expression import compile_exprs as tcompile
+    from velox_tpu_torch.expression import evaluate as tevaluate
+    t = _EVAL_TABLES["dec"]
+    texts = ["p * disc", "p + disc", "p * disc", "p > 1.50"]
+    jbatch, tbatch = jd.from_arrow(t), td.from_arrow(t, device="cpu")
+    jset = jcompile([jparse(x, jbatch.row_type()) for x in texts],
+                    jbatch.row_type())
+    tset = tcompile([tparse(x, tbatch.row_type()) for x in texts],
+                    tbatch.row_type())
+    assert isinstance(tset, TExprSet)
+    for text, jv, tv in zip(texts, jset.eval_batch(jbatch),
+                            tset.eval_batch(tbatch)):
+        got = _evaluated_rows(tv, 3, tbatch.capacity)
+        _assert_same_rows(got, _evaluated_rows(jv, 3, jbatch.capacity),
+                          text)
+        assert got == _evaluated_rows(
+            tevaluate(tparse(text, tbatch.row_type()), tbatch), 3,
+            tbatch.capacity), text

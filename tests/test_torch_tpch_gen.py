@@ -1,8 +1,8 @@
 """TPC-H generator and connector of the torch port against the JAX one.
 
 Both engines must see bit-identical tables: the port carries its own copy
-of the generator and builds the native core from the reference's
-dbgen.cpp into its own build directory.
+of the generator, builds the native core from its own copy of dbgen.cpp
+into its own build directory, and that copy equals the reference's file.
 """
 
 import jax
@@ -31,10 +31,14 @@ def _gen_all(gen, table):
     return gen.generate(table, 0, n, tt.TPCH_SCHEMAS[table].names)
 
 
-def test_native_generator_builds_from_the_reference_source():
+def test_native_generator_builds_from_the_ports_own_source():
     from velox_tpu_torch.native import build
-    assert build.DBGEN_SOURCE.samefile(
-        build.CSRC.parent.parent / "velox_tpu" / "native" / "dbgen.cpp")
+    repo = build.CSRC.parent.parent
+    assert build.DBGEN_SOURCE == repo / "velox_tpu_torch" / "native" / \
+        "dbgen.cpp"
+    # the copy cannot drift from the reference's file unseen
+    assert build.DBGEN_SOURCE.read_bytes() == \
+        (repo / "velox_tpu" / "native" / "dbgen.cpp").read_bytes()
     assert build.load_dbgen() is not None
     assert any(build.NATIVE_BUILD_DIR.glob("dbgen-*.so"))
     assert tpch_native.lineitem_rows(0, 100) == \

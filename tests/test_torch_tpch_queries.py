@@ -1,12 +1,13 @@
 """All 22 TPC-H queries through the port, against the JAX reference, at
 SF 0.01.
 
-Each query runs through the port twice with a scan prefetch depth of 2: cold (the scan cache cleared, every split
-generated and uploaded by a producer thread) and warm (every split from
-the cache). Both runs must equal the reference's result: integers,
-decimals, dates and strings exactly, doubles within the reference
-oracle's relative tolerance (tests/tpch_sql.py ``TOLERANCES``). Q18 uses
-threshold 240, the spec's 300 selects no order at this scale.
+Each query runs through the port twice with a scan prefetch depth of 2:
+cold (the scan cache cleared, every split generated and uploaded by a
+producer thread) and warm (every split from the cache), and once more in
+both engines over 4,096-row splits. Every run must equal the reference's
+result: integers, decimals, dates and strings exactly, doubles within the
+reference oracle's relative tolerance (tests/tpch_sql.py ``TOLERANCES``).
+Q18 uses threshold 240, the spec's 300 selects no order at this scale.
 """
 
 import numpy as np
@@ -21,6 +22,8 @@ from velox_tpu.tpch import tpch_plan as jax_tpch_plan
 from velox_tpu_torch.connectors.cache import DataCache
 from velox_tpu_torch.connectors.tpch import register_tpch
 from velox_tpu_torch.core.config import QueryConfig as QC
+from velox_tpu_torch.core.expressions import Constant
+from velox_tpu_torch.core.plan import FilterNode
 from velox_tpu_torch.exec.task import QueryCtx, Task
 from velox_tpu_torch.tpch import tpch_plan
 
@@ -91,13 +94,7 @@ def _small_splits():
     DataCache.instance().clear()
 
 
-# Q4, Q5, Q10, Q19, Q21 and the six queries without a numpy oracle at
-# SF10 in chip_smoke.py; all 22 take about 70 s on one CPU worker, so the
-# other 11 wait (ROADMAP A.3)
-SMALL_SPLIT_QUERIES = (2, 4, 5, 7, 8, 9, 10, 16, 19, 20, 21)
-
-
-@pytest.mark.parametrize("q", SMALL_SPLIT_QUERIES)
+@pytest.mark.parametrize("q", QUERIES)
 def test_query_in_small_splits_equal_reference(q, _small_splits):
     """A query over 4,096-row splits: many batches a scan, so the
     aggregations compact and the joins probe batch after batch."""
@@ -105,3 +102,22 @@ def test_query_in_small_splits_equal_reference(q, _small_splits):
     want = JTask(jax_tpch_plan(q, **params)).run()
     got = Task(tpch_plan(q, **params), QueryCtx("cpu")).run()
     _assert_matches(got, want, TOLERANCES.get(q, (1e-9, 1))[0])
+
+
+def _constants(expr):
+    if isinstance(expr, Constant):
+        yield expr.value
+    for c in expr.children:
+        yield from _constants(c)
+
+
+@pytest.mark.parametrize("fraction", [0.0001, 0.0001 / 10, 0.0001 / 3000,
+                                      1e-14])
+def test_q11_threshold_is_the_fraction_itself(fraction):
+    """Q11's plan compares against the same float the caller passed: the
+    spec's 0.0001 / SF, at SF 3000 too, is not cut to a number of
+    decimals."""
+    node = tpch_plan(11, fraction=fraction)
+    while not isinstance(node, FilterNode):
+        (node,) = node.sources
+    assert fraction in list(_constants(node.predicate))

@@ -143,3 +143,107 @@ def test_batch_utils_match_reference(op):
     assert got.capacity == want.capacity
     np.testing.assert_array_equal(got.mask.numpy(), np.asarray(want.mask))
     assert td.to_arrow(got).equals(jd.to_arrow(want))
+
+
+# ---------------------------------------------------------------------------
+# The batch helpers (counterparts of tests/test_vector.py's cases that use
+# them): names, column, with_mask, with_columns, column_to_numpy and
+# Dictionary.arrow, through both packages over the same table.
+# ---------------------------------------------------------------------------
+
+def _helper_table():
+    return pa.table({
+        "a": pa.array([1, 2, None, 4], type=pa.int64()),
+        "b": pa.array([1.5, None, 3.5, 4.5], type=pa.float64()),
+        "s": pa.array(["x", "y", "x", None], type=pa.string()),
+        "d": pa.array([0, 1, 2, 3], type=pa.date32()),
+        "flag": pa.array([True, False, True, None]),
+    })
+
+
+def test_names_and_column_match_reference():
+    table = _helper_table()
+    jb, tb = jd.from_arrow(table), td.from_arrow(table, device="cpu")
+    assert tb.names == jb.names == table.column_names
+    for name in table.column_names:
+        jdata, jvalid = jd.column_to_numpy(jb.column(name))
+        tdata, tvalid = td.column_to_numpy(tb.column(name))
+        assert tb.column(name) is tb.columns[name]
+        assert tdata.dtype == jdata.dtype
+        np.testing.assert_array_equal(tdata, jdata)
+        assert (tvalid is None) == (jvalid is None)
+        if tvalid is not None:
+            np.testing.assert_array_equal(tvalid, jvalid)
+
+
+def test_with_mask_filters_rows_like_reference():
+    table = _helper_table()
+    jb, tb = jd.from_arrow(table), td.from_arrow(table, device="cpu")
+    keep = np.zeros(jb.capacity, dtype=bool)
+    keep[[0, 2]] = True
+    want = jd.to_arrow(jb.with_mask(jb.mask & jax.numpy.asarray(keep)))
+    got = td.to_arrow(tb.with_mask(tb.mask & torch.from_numpy(keep)))
+    assert got.equals(want)
+    assert got.num_rows == 2
+    assert got.column("a").to_pylist() == [1, None]
+    assert got.column("s").to_pylist() == ["x", "x"]
+
+
+def test_with_mask_and_with_columns_keep_the_error_count():
+    tb = td.from_arrow(_helper_table(), device="cpu")
+    tb = td.DeviceBatch(tb.columns, tb.mask, torch.tensor(3))
+    assert int(tb.with_mask(tb.mask).errors) == 3
+    assert int(tb.with_columns(dict(tb.columns)).errors) == 3
+
+
+def test_with_columns_matches_reference():
+    table = _helper_table()
+    jb, tb = jd.from_arrow(table), td.from_arrow(table, device="cpu")
+    ja, ta = jb.column("a"), tb.column("a")
+    jcols, tcols = dict(jb.columns), dict(tb.columns)
+    jcols["a"] = jd.DeviceColumn(ja.data + 1, ja.validity, ja.dtype)
+    tcols["a"] = td.DeviceColumn(ta.data + 1, ta.validity, ta.dtype)
+    want, got = jd.to_arrow(jb.with_columns(jcols)), \
+        td.to_arrow(tb.with_columns(tcols))
+    assert got.equals(want)
+    assert got.column("a").to_pylist() == [2, 3, None, 5]
+    assert got.column("s").to_pylist() == ["x", "y", "x", None]
+
+
+def test_stable_dictionary_remap_matches_reference():
+    table = pa.table({"s": pa.array(["y", "x", "y"])})
+    jstable = jd.Dictionary(["a", "b", "c", "x", "y"])
+    tstable = td.Dictionary(["a", "b", "c", "x", "y"])
+    jb = jd.from_arrow(table, dictionaries={"s": jstable})
+    tb = td.from_arrow(table, dictionaries={"s": tstable}, device="cpu")
+    assert tb.column("s").dictionary is tstable
+    np.testing.assert_array_equal(
+        td.column_to_numpy(tb.column("s"))[0][:3],
+        jd.column_to_numpy(jb.column("s"))[0][:3])
+    assert td.column_to_numpy(tb.column("s"))[0][:3].tolist() == [4, 3, 4]
+
+
+def test_decimal_column_to_numpy_matches_reference():
+    table = pa.table({"p": pa.array([None, 1, 2],
+                                    type=pa.decimal128(12, 2))})
+    jb, tb = jd.from_arrow(table), td.from_arrow(table, device="cpu")
+    assert str(tb.column("p").dtype) == str(jb.column("p").dtype)
+    (tdata, tvalid), (jdata, jvalid) = (td.column_to_numpy(tb.column("p")),
+                                        jd.column_to_numpy(jb.column("p")))
+    np.testing.assert_array_equal(tdata, jdata)
+    np.testing.assert_array_equal(tvalid, jvalid)
+    assert tdata[:3].tolist() == [0, 100, 200]
+
+
+@pytest.mark.parametrize("values", [
+    ["b", "a", "c"], ["", "ümlaut", "x" * 40], [b"\x00\xff", b"ab"], []])
+def test_dictionary_arrow_matches_reference(values):
+    jdict, tdict = jd.Dictionary(values), td.Dictionary(values)
+    got = tdict.arrow()
+    assert got.equals(jdict.arrow())
+    assert got is tdict.arrow()  # converted once
+    # a typed take in between does not change what arrow() gives
+    tdict.arrow_take(np.zeros(len(values), np.int64), None, pa.large_string()
+                     if values and isinstance(values[0], str)
+                     else pa.large_binary())
+    assert tdict.arrow().equals(jdict.arrow())

@@ -1002,16 +1002,17 @@ class TpchConnector(Connector):
                 for lo in range(0, n, step)]
 
 
-def register_tpch(scale_factor: float = 0.01,
-                  connector_id: str = "tpch") -> TpchConnector:
-    """Register the TPC-H connector with the reference's adaptive split
-    size: few large batches, capped at 8M lines so one lineitem batch
-    stays well inside device memory."""
-    # ~2 lineitem splits per table (rows_per_split counts LINE rows;
-    # lineitem has ~4 lines/order): every batch pays fixed per-launch
-    # costs, so few big batches win
-    orders = int(ORDERS_PER_SF * scale_factor)
-    rows_per_split = min(max(65536, orders * 2), 8 << 20)
+def register_tpch(scale_factor: float = 0.01, connector_id: str = "tpch",
+                  rows_per_split: Optional[int] = None) -> TpchConnector:
+    """Register the TPC-H connector. ``rows_per_split`` defaults to the
+    reference's adaptive split size: few large batches, capped at 8M lines
+    so one lineitem batch stays well inside device memory."""
+    if rows_per_split is None:
+        # ~2 lineitem splits per table (rows_per_split counts LINE rows;
+        # lineitem has ~4 lines/order): every batch pays fixed per-launch
+        # costs, so few big batches win
+        orders = int(ORDERS_PER_SF * scale_factor)
+        rows_per_split = min(max(65536, orders * 2), 8 << 20)
     conn = TpchConnector(connector_id, scale_factor, rows_per_split)
     register_connector(conn)
     return conn

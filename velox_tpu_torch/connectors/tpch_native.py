@@ -1,8 +1,8 @@
-"""ctypes bridge to the native TPC-H generator (velox_tpu/native/dbgen.cpp).
+"""ctypes bridge to the native TPC-H generator (``native/dbgen.cpp``).
 
 Counterpart of ``velox_tpu/connectors/tpch_native.py``: the same C entry
-points over the same source file, built by ``native/build.py`` into the
-port's own build directory. Its output is bit-identical to the numpy
+points over the port's copy of the reference's source file, built by
+``native/build.py`` into the port's own build directory. Its output is bit-identical to the numpy
 generator in ``connectors/tpch.py``; each function returns None when no
 C++ compiler is available, and the caller then uses numpy.
 """

@@ -356,6 +356,13 @@ class Task:
     def stats(self):
         return [op.stats.as_dict() for op in self.operators]
 
+    def total_hbm_bytes(self) -> int:
+        """Lower-bound device-memory traffic model: every operator reads
+        its input batches and writes its output batches at least once.
+        The byte count of a roofline share for a whole query."""
+        return sum(op.stats.input_bytes + op.stats.output_bytes
+                   for op in self.operators)
+
     def print_plan_with_stats(self) -> str:
         """The plan tree with each operator's batches, bytes and walls.
         Parity: velox printPlanWithStats (TpchBenchmark.cpp:82-103)."""

@@ -1,3 +1,3 @@
 from velox_tpu_torch.expression.eval import (  # noqa: F401
-    EvalValue, ExprSet,
+    EvalValue, ExprSet, compile_exprs, evaluate,
 )

@@ -175,6 +175,15 @@ class ExprSet:
         return out
 
 
+def compile_exprs(exprs, input_type: T.DataType) -> ExprSet:
+    return ExprSet(exprs, input_type)
+
+
+def evaluate(expr: ex.TypedExpr, batch: DeviceBatch) -> EvalValue:
+    """One-off evaluation of a single expression against a batch."""
+    return ExprSet([expr], batch.row_type()).eval_batch(batch)[0]
+
+
 # ---------------------------------------------------------------------------
 # Core recursive evaluator.
 # ---------------------------------------------------------------------------

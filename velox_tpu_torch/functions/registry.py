@@ -32,9 +32,22 @@ class ScalarFunction:
         return self.eval_fn(ctx, out_dtype, args)
 
 
-def register(name: str, resolver, eval_fn):
-    _REGISTRY.setdefault(name, []).append(
-        ScalarFunction(name, resolver, eval_fn))
+def register(name: str, resolver, eval_fn, *, overwrite: bool = False):
+    """Add an overload of ``name``; ``overwrite`` drops its earlier ones
+    first (and those of every alias sharing its list)."""
+    fns = _REGISTRY.setdefault(name, [])
+    if overwrite:
+        fns.clear()
+    fns.append(ScalarFunction(name, resolver, eval_fn))
+
+
+def scalar(name: str, resolver):
+    """Decorator: ``@scalar("plus", numeric_resolver)`` registers the
+    function it decorates as an overload of ``name``."""
+    def deco(fn):
+        register(name, resolver, fn)
+        return fn
+    return deco
 
 
 def _not_ported(name: str, arg_types) -> NotImplementedError:
@@ -67,3 +80,9 @@ def resolve_return_type(name: str, arg_types) -> T.DataType:
                 return a
         return T.UNKNOWN
     raise _not_ported(name, arg_types)
+
+
+def function_names() -> List[str]:
+    """Every registered scalar function name, aliases included, sorted."""
+    from velox_tpu_torch.functions import scalar as _impls  # noqa: F401
+    return sorted(_REGISTRY)

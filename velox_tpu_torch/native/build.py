@@ -2,9 +2,9 @@
 
 Two kinds of library:
 
-* ``dbgen``: the TPC-H generator core, compiled with g++ from the
-  reference's own source file ``velox_tpu/native/dbgen.cpp`` (read as a
-  path; the ``velox_tpu`` Python package is never imported) into
+* ``dbgen``: the TPC-H generator core, compiled with g++ from the port's
+  own ``native/dbgen.cpp`` (a byte-for-byte copy of the reference's
+  ``velox_tpu/native/dbgen.cpp``; a test holds the two equal) into
   ``velox_tpu_torch/native/_build/``.
 * one library per CUDA source under ``velox_tpu_torch/csrc/`` (the
   hand-written kernels), compiled with ``nvcc`` for ``sm_90a`` into
@@ -31,7 +31,7 @@ from pathlib import Path
 from typing import Dict, List, Optional, Sequence
 
 _PKG = Path(__file__).resolve().parent.parent
-DBGEN_SOURCE = _PKG.parent / "velox_tpu" / "native" / "dbgen.cpp"
+DBGEN_SOURCE = _PKG / "native" / "dbgen.cpp"
 CSRC = _PKG / "csrc"
 NATIVE_BUILD_DIR = _PKG / "native" / "_build"
 CUDA_BUILD_DIR = CSRC / "_build"

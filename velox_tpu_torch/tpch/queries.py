@@ -223,19 +223,20 @@ def q4(connector_id: str = "tpch") -> P.PlanNode:
             .plan())
 
 
-def q5(connector_id: str = "tpch") -> P.PlanNode:
-    """Local supplier volume: 6-way join, ASIA 1994."""
+def q5(connector_id: str = "tpch", region: str = "ASIA") -> P.PlanNode:
+    """Local supplier volume: 6-way join, 1994 (spec default ASIA; TPC-H
+    spec §2.4 substitution parameter)."""
     cid = connector_id
     b = PlanBuilder()
-    region = (b.new_builder()
-              .table_scan("region", ["r_regionkey", "r_name"],
-                          connector_id=cid, filter="r_name = 'ASIA'")
-              .project(["r_regionkey"]))
+    regions = (b.new_builder()
+               .table_scan("region", ["r_regionkey", "r_name"],
+                           connector_id=cid, filter=f"r_name = '{region}'")
+               .project(["r_regionkey"]))
     nation = (b.new_builder()
               .table_scan("nation",
                           ["n_nationkey", "n_name", "n_regionkey"],
                           connector_id=cid)
-              .hash_join(["n_regionkey"], ["r_regionkey"], region,
+              .hash_join(["n_regionkey"], ["r_regionkey"], regions,
                          output=["n_nationkey", "n_name"]))
     supplier = (b.new_builder()
                 .table_scan("supplier", ["s_suppkey", "s_nationkey"],
@@ -502,9 +503,12 @@ def q10(connector_id: str = "tpch") -> P.PlanNode:
             .plan())
 
 
-def q11(connector_id: str = "tpch") -> P.PlanNode:
+def q11(connector_id: str = "tpch", fraction: float = 0.0001
+        ) -> P.PlanNode:
     """Important stock identification (GERMANY): per-part value vs a
-    global-fraction threshold (cross join with the single-row total)."""
+    global-fraction threshold (cross join with the single-row total).
+    ``fraction`` is the TPC-H spec §2.4 substitution parameter, 0.0001 /
+    SF in the spec; 0.0001 by default."""
     cid = connector_id
     b = PlanBuilder()
     nation = (b.new_builder()
@@ -531,8 +535,10 @@ def q11(connector_id: str = "tpch") -> P.PlanNode:
     return (j.single_aggregation(["ps_partkey"],
                                  ["sum(pvalue) as value"])
             .nested_loop_join(total)
-            .filter("cast(value as double) > "
-                    "cast(total as double) * 0.0001")
+            # a DOUBLE literal of 17 significant digits reads back as
+            # ``fraction`` itself, at any scale factor's 0.0001 / SF
+            .filter("cast(value as double) > cast(total as double) * "
+                    + f"{fraction:.17e}")
             .project(["ps_partkey", "value"])
             .top_n(["value DESC"], 1000)
             .plan())

@@ -30,7 +30,7 @@ column's children are its fields, row-aligned with it.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -65,6 +65,21 @@ class Dictionary:
     def __len__(self):
         return len(self.values)
 
+    def _arrow_values(self, arrow_type):
+        """The values as one Arrow array of ``arrow_type`` (None: the type
+        pyarrow infers), converted once per dictionary and type."""
+        import pyarrow as pa
+        if self._arrow is None or self._arrow[0] != arrow_type:
+            self._arrow = (arrow_type, pa.array(self.values,
+                                                type=arrow_type))
+        return self._arrow[1]
+
+    def arrow(self):
+        """The values as one pyarrow array of the type pyarrow infers,
+        converted once: the input of a vectorized dictionary-space
+        transform."""
+        return self._arrow_values(None)
+
     def id_of(self, value) -> int:
         """Return the id of `value`, or -1 if absent (never matches)."""
         if self._index is None:
@@ -84,12 +99,10 @@ class Dictionary:
         no Python object is built per row. Ids clip as ``take``'s do."""
         import pyarrow as pa
         import pyarrow.compute as pc
-        if self._arrow is None or self._arrow[0] != arrow_type:
-            self._arrow = (arrow_type, pa.array(self.values,
-                                                type=arrow_type))
         idx = np.clip(ids, 0, max(len(self) - 1, 0)).astype(np.int64)
         mask = None if validity is None else ~validity
-        return pc.take(self._arrow[1], pa.array(idx, mask=mask))
+        return pc.take(self._arrow_values(arrow_type),
+                       pa.array(idx, mask=mask))
 
     def __repr__(self):
         return f"Dictionary({len(self.values)} values)"
@@ -167,6 +180,13 @@ class DeviceBatch:
     def device(self) -> torch.device:
         return self.mask.device
 
+    @property
+    def names(self) -> List[str]:
+        return list(self.columns)
+
+    def column(self, name: str) -> DeviceColumn:
+        return self.columns[name]
+
     def num_active(self) -> torch.Tensor:
         """Count of active rows as a 0-dim int32 tensor (no host sync)."""
         return self.mask.sum(dtype=torch.int32)
@@ -192,6 +212,15 @@ class DeviceBatch:
     def row_type(self) -> T.DataType:
         names = list(self.columns)
         return T.row(names, [self.columns[n].dtype for n in names])
+
+    def with_mask(self, mask: torch.Tensor) -> "DeviceBatch":
+        """The same columns under another active-row mask; the batch's
+        error count goes with them."""
+        return DeviceBatch(self.columns, mask, self.errors)
+
+    def with_columns(self, columns: Dict[str, DeviceColumn]) -> "DeviceBatch":
+        """Other columns under the same mask and error count."""
+        return DeviceBatch(columns, self.mask, self.errors)
 
     def __repr__(self):
         return f"DeviceBatch(cap={self.capacity}, cols={list(self.columns)})"
@@ -405,6 +434,14 @@ def from_arrow(table, capacity: Optional[int] = None,
 
 def _host(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
+
+
+def column_to_numpy(col: DeviceColumn
+                    ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+    """A column's data and validity (None when it has none) on the host,
+    every row of its capacity."""
+    return _host(col.data), (None if col.validity is None
+                             else _host(col.validity))
 
 
 def to_arrow(batch: DeviceBatch):
