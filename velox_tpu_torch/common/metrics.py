@@ -79,15 +79,12 @@ K_FILTER_SUM_KERNEL = "velox_tpu.agg.filter_sum_kernel_plans"
 K_SKEW_SPLITS = "velox_tpu.exchange.skew_key_splits"
 K_JOIN_BUILD_OFFLOADS = "velox_tpu.join.build_host_offloads"
 K_SPILL_DISK_WRITES = "velox_tpu.spill.disk_writes"
-K_JIT_PROGRAMS = "velox_tpu.jit.programs_built"
 K_SORT_OFFLOADS = "velox_tpu.sort.host_offloads"
 K_SPLITS_PRUNED = "velox_tpu.scan.splits_pruned"
 K_GROUPED_EXECUTIONS = "velox_tpu.task.grouped_executions"
 K_EXCHANGE_OVERFLOWS = "velox_tpu.exchange.page_overflows"
 K_EXCHANGE_PAGES = "velox_tpu.exchange.pages"
 K_EXCHANGE_BYTES = "velox_tpu.exchange.bytes"
-K_TRACE_BATCHES = "velox_tpu.trace.batches_recorded"
-K_COMPILED_PROGRAMS = "velox_tpu.jit.programs"
 K_QUERY_WALL_MS = "velox_tpu.task.wall_ms"
 K_MEM_RECLAIMS = "velox_tpu.memory.reclaims"
 K_MEM_RECLAIMED_BYTES = "velox_tpu.memory.reclaimed_bytes"

@@ -96,12 +96,13 @@ class QueryConfig:
     # velox kPreferredOutputBatchBytes: advisory output batch sizing
     # (BATCH_CAPACITY covers rows; static shapes make bytes advisory)
     PREFERRED_OUTPUT_BATCH_BYTES = "preferred_output_batch_bytes"
-    # block on each operator's device state at stage boundaries so
-    # OperatorStats walls attribute truthfully (XLA dispatch is async;
-    # without this, execution time lands at whatever sync point comes
-    # next). Parity intent: the reference's per-operator CPU times are
-    # real because its execution is synchronous. Debug/profiling only —
-    # it serializes the pipeline.
+    # synchronize the CUDA device after each operator call, so that the
+    # OperatorStats walls (host time) hold the device's time: a CUDA
+    # launch returns once the work is queued, and without this the work
+    # lands in the wall of whatever call waits for the device next.
+    # Parity intent: the reference's per-operator CPU times are real
+    # because its execution is synchronous. Debug/profiling only: it
+    # serializes the host and the device.
     DEBUG_SYNC_OPERATORS = "debug_sync_operators"
 
     _DEFAULTS: Dict[str, Any] = {

@@ -16,6 +16,7 @@ from typing import Dict, List, Optional
 import torch
 
 from velox_tpu_torch import types as T
+from velox_tpu_torch.common.process_trace import spanned
 from velox_tpu_torch.core import expressions as ex
 from velox_tpu_torch.core import plan as P
 from velox_tpu_torch.expression.eval import ExprSet
@@ -106,6 +107,7 @@ def chain_fn(chain: FusedChain):
     error semantics). The output batch carries the running error count.
     """
 
+    @spanned("chain")
     def fn(batch: DeviceBatch) -> DeviceBatch:
         mask = batch.mask
         err = torch.zeros((batch.capacity,), dtype=torch.bool,

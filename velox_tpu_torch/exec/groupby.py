@@ -35,6 +35,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from velox_tpu_torch import types as T
+from velox_tpu_torch.common.process_trace import spanned
 from velox_tpu_torch.expression.eval import EvalValue
 from velox_tpu_torch.functions.aggregates import RegisterAddend
 from velox_tpu_torch.ops.gather import take_many_rows, take_rows
@@ -96,6 +97,7 @@ def group_ids_array_mode(keys: List[EvalValue], capacity: int, active):
     return ids, domain
 
 
+@spanned("group_reduce")
 def reduce_array_mode(keys: List[EvalValue],
                       addends: List[Tuple[torch.Tensor, str]],
                       active, capacity: int, domain: int):
@@ -187,6 +189,7 @@ def _run_boundaries(words: List[torch.Tensor], perm: torch.Tensor,
     return neq
 
 
+@spanned("group_reduce")
 def sorted_group_info(keys: Sequence[EvalValue], active, capacity: int,
                       ranges=None):
     """Radix-sort rows by key words and segment equal-key runs.
@@ -209,6 +212,7 @@ def sorted_group_info(keys: Sequence[EvalValue], active, capacity: int,
     return perm, gid, boundary, active_sorted, num_groups
 
 
+@spanned("group_reduce")
 def sorted_group_info_vals(keys: Sequence[EvalValue],
                            vals: Sequence[EvalValue], active, capacity: int,
                            ranges=None):
@@ -285,6 +289,7 @@ def _head(v: EvalValue, n: int) -> EvalValue:
                      children=children)
 
 
+@spanned("group_reduce")
 def reduce_sort_mode(keys: List[EvalValue], addends, active,
                      capacity: int, ranges=None):
     """Generic grouping: radix sort by packed key words + run reduce.

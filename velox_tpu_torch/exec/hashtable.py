@@ -41,6 +41,7 @@ from typing import List, NamedTuple, Sequence, Tuple
 
 import torch
 
+from velox_tpu_torch.common.process_trace import spanned
 from velox_tpu_torch.exec.sort import value_words
 from velox_tpu_torch.expression.eval import EvalValue
 from velox_tpu_torch.ops.gather import take_many_rows, take_rows
@@ -193,6 +194,7 @@ def _check_rounds(r: int, table: HashTable, what: str) -> None:
             f"over {table.size} slots (the table is full)")
 
 
+@spanned("hash_insert")
 def insert(table: HashTable, keys: Sequence[EvalValue], active,
            capacity: int):
     """Insert active rows' keys; returns (table, slots, is_new).
@@ -241,6 +243,7 @@ def insert(table: HashTable, keys: Sequence[EvalValue], active,
 insert.rounds = 0
 
 
+@spanned("hash_lookup")
 def lookup(table: HashTable, keys: Sequence[EvalValue], active,
            capacity: int):
     """Probe; returns (slots, found). Stops at the first empty slot

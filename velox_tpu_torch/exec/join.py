@@ -60,6 +60,7 @@ from typing import Dict, List, NamedTuple, Optional
 import torch
 
 from velox_tpu_torch import types as T
+from velox_tpu_torch.common.process_trace import spanned
 from velox_tpu_torch.core import plan as P
 from velox_tpu_torch.core.expressions import referenced_fields
 from velox_tpu_torch.core.stats import (
@@ -490,6 +491,7 @@ class HashJoinOperator(Operator):
         hit = probe_ok & (counts > 0)
         return probe_ok, lo, torch.where(hit, counts, 0), hit
 
+    @spanned("merge_rank")
     def _merge_rank(self, batch: DeviceBatch, bt: SortedBuild, pkeys,
                     probe_ok):
         """(lo, counts) per probe row, in sorted build positions: one sort

@@ -22,6 +22,7 @@ from typing import Callable, Iterator, Optional
 import torch
 
 from velox_tpu_torch.common import metrics as M
+from velox_tpu_torch.common import process_trace as PT
 from velox_tpu_torch.common import testvalue as TV
 from velox_tpu_torch.core import plan as P
 from velox_tpu_torch.exec.memory import DeviceLru, batch_nbytes
@@ -32,7 +33,12 @@ from velox_tpu_torch.vector.device import (
 
 @dataclass
 class OperatorStats:
-    """Parity: velox/exec/OperatorStats (TaskStats.h)."""
+    """Parity: velox/exec/OperatorStats (TaskStats.h).
+
+    The walls are host nanoseconds of the operator's calls, each the
+    length of the call's span (common/process_trace.py). On a CUDA
+    device a call returns once its work is queued, so they hold the
+    device's time only under ``DEBUG_SYNC_OPERATORS``."""
     operator_type: str = ""
     plan_node_id: str = ""
     input_batches: int = 0
@@ -228,7 +234,12 @@ class TableScanOperator(SourceOperator):
     a queue of at most ``prefetch`` batches while the query works on the
     current one: the split preload of velox's I/O executor and a bounded
     exchange queue in one. One producer thread a scan, so a data source
-    needs no locking. Its error is raised on the consumer side."""
+    needs no locking. Its error is raised on the consumer side.
+
+    The consumer's wait on the queue runs in a ``TableScan[id].wait``
+    span, and each of the producer's reads of a split (from the scan
+    cache, or generated and uploaded) in a ``TableScan[id].produce`` span
+    caused by the span that was open where the scan was made."""
 
     _DONE = object()
 
@@ -245,6 +256,9 @@ class TableScanOperator(SourceOperator):
         self._error: Optional[BaseException] = None
         self._exhausted = False
         if prefetch > 0 and len(self._splits) > 1:
+            self._wait = PT.site("TableScan", node.id, "wait")
+            self._produced = PT.site("TableScan", node.id, "produce")
+            self._cause = PT.current()
             self._queue = queue.Queue(maxsize=prefetch)
             self._stop = threading.Event()
             self._thread = threading.Thread(
@@ -274,7 +288,8 @@ class TableScanOperator(SourceOperator):
                 if self._stop.is_set():
                     return
                 while True:
-                    out = self._source.next(split)
+                    with PT.Span(self._produced, cause=self._cause):
+                        out = self._source.next(split)
                     if out is None:
                         break
                     if not self._put(out):
@@ -310,7 +325,8 @@ class TableScanOperator(SourceOperator):
         if self._queue is not None:
             if self._exhausted:
                 return None
-            item = self._queue.get()
+            with PT.Span(self._wait):
+                item = self._queue.get()
             if item is self._DONE:
                 self._exhausted = True
                 if self._error is not None:

@@ -48,6 +48,7 @@ from typing import List, Sequence
 import torch
 
 from velox_tpu_torch import types as T
+from velox_tpu_torch.common.process_trace import spanned
 from velox_tpu_torch.expression.eval import EvalValue
 from velox_tpu_torch.ops.gather import flat_gather
 from velox_tpu_torch.ops.radix import (RADIX, _destinations, radix_hist,
@@ -173,6 +174,7 @@ def sort_words(keys: Sequence[EvalValue], orders, capacity: int, active,
     return words, bits
 
 
+@spanned("sort_keys")
 def sort_words_layout(keys: Sequence[EvalValue], orders, capacity: int,
                       active, ranges=None):
     """(words, bit_widths, layout) for a multi-key sort, most significant
@@ -373,6 +375,7 @@ def pack_words_u64(words: List[torch.Tensor],
     return lanes
 
 
+@spanned("radix_sort")
 def sort_perm_key(words: List[torch.Tensor], bits: List[int],
                   capacity: int):
     """(perm, None): the stable sort permutation from the counting radix

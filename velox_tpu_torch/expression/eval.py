@@ -34,6 +34,7 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from velox_tpu_torch import types as T
+from velox_tpu_torch.common.process_trace import spanned
 from velox_tpu_torch.core import expressions as ex
 from velox_tpu_torch.ops.int128 import from_python_int
 from velox_tpu_torch.vector.device import DeviceBatch, DeviceColumn, Dictionary
@@ -161,6 +162,7 @@ class ExprSet:
         self.exprs = list(exprs)
         self.input_type = input_type
 
+    @spanned("eval")
     def eval_batch(self, batch: DeviceBatch,
                    err_sink: Optional[list] = None) -> List[EvalValue]:
         """Evaluate all expressions. When ``err_sink`` (a list) is given,
