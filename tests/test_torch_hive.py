@@ -664,6 +664,25 @@ def test_tpch_over_hive(tpch_hive, q):
     assert got.to_pylist() == want.cast(got.schema).to_pylist()
 
 
+def test_tpch_joins_over_hive_take_array_mode(tpch_hive):
+    """The Hive connector has no column stats: Q3's and Q18's four hash
+    joins take array mode from their builds' own key ranges, none the
+    merge-rank, and the answers equal the reference's."""
+    keys = (M.K_JOIN_ARRAY_MODE_BUILDS, M.K_JOIN_OBSERVED_RANGE_BUILDS,
+            M.K_JOIN_MERGE_RANK_BUILDS)
+
+    def counts():
+        c = M.reporter().snapshot()["counters"]
+        return [c.get(k, 0) for k in keys]
+    before = counts()
+    for q in (3, 18):
+        want = JTask(_hive_plan(q, jq, "hive-tpch")).run()
+        got = Task(_hive_plan(q, tq, "hive-tpch"), CPU).run()
+        assert got.num_rows > 0
+        assert got.to_pylist() == want.cast(got.schema).to_pylist()
+    assert [a - b for a, b in zip(counts(), before)] == [4, 4, 0]
+
+
 def test_tpch_q3_prunes_customer_partitions(tpch_hive):
     before = M.reporter().snapshot()["counters"].get(M.K_SPLITS_PRUNED, 0)
     Task(_hive_plan(3, tq, "hive-tpch"), CPU).run()

@@ -4,12 +4,13 @@ The same numpy-seeded tables go through both packages and the Arrow
 results must be equal, rows in the same order: both engines emit probe
 rows in probe order, expansion candidates in sorted build order and the
 right phase in build order. Covered: every join type x {unique, duplicate}
-build keys x {no nulls, nulls}, through the merge-rank (Values tables have
-no stats) and in array mode (the operators driven directly with a key
-range); filtered joins; packable multi-key, two-BIGINT wide keys;
-multi-chunk expansion; null-aware anti joins; the array-mode tables;
-TPC-H Q3 and Q18 at SF 0.01. The probe's gathers run B5's plain version
-here, so no kernel launch is counted.
+build keys x {no nulls, nulls}, in array mode over the build's own key
+range (Values tables have no stats), through the merge-rank (the domain
+cap lowered) and in array mode with a given key range (the operators
+driven directly); the array-mode boundaries; filtered joins; packable
+multi-key, two-BIGINT wide keys; multi-chunk expansion; null-aware anti
+joins; the array-mode tables; TPC-H Q3 and Q18 at SF 0.01. The probe's
+gathers run B5's plain version here, so no kernel launch is counted.
 """
 
 import dataclasses
@@ -27,6 +28,7 @@ from velox_tpu.testing.plan_builder import PlanBuilder as JPlanBuilder
 from velox_tpu.tpch import tpch_plan as jax_tpch_plan
 from velox_tpu.vector import device as JD
 from velox_tpu_torch import types as T
+from velox_tpu_torch.common import metrics as M
 from velox_tpu_torch.connectors.tpch import register_tpch
 from velox_tpu_torch.exec import join as J
 from velox_tpu_torch.exec.sort import packable_words
@@ -89,14 +91,160 @@ def _assert_same(jplan, tplan):
     return got
 
 
+ROUTES = {"observed_range": (1, 1, 0), "merge_rank": (0, 0, 1)}
+
+
+def _route_counters():
+    """(array-mode, observed-range, merge-rank) builds counted so far."""
+    c = M.reporter().snapshot()["counters"]
+    return np.array([c.get(k, 0) for k in (
+        M.K_JOIN_ARRAY_MODE_BUILDS, M.K_JOIN_OBSERVED_RANGE_BUILDS,
+        M.K_JOIN_MERGE_RANK_BUILDS)])
+
+
+@pytest.mark.parametrize("route", list(ROUTES))
 @pytest.mark.parametrize("nulls", [False, True])
 @pytest.mark.parametrize("dup", [False, True])
 @pytest.mark.parametrize("jt", JOIN_TYPES)
-def test_join_types_merge_rank_equal_reference(jt, dup, nulls):
+def test_join_types_merge_rank_equal_reference(jt, dup, nulls, route,
+                                               monkeypatch):
+    """Values carry no stats: the build takes array mode from its own
+    keys' range, or the merge-rank where the domain cap is below that
+    range; the reference's build takes the merge-rank either way."""
     probe, build = make_tables(dup, nulls)
+    if route == "merge_rank":
+        monkeypatch.setattr(J, "ARRAY_JOIN_MAX_DOMAIN", 8)
+    before = _route_counters()
     got = _assert_same(_plan(JPlanBuilder, probe, build, jt),
                        _plan(PlanBuilder, probe, build, jt))
     assert got.num_rows > 0
+    assert tuple(_route_counters() - before) == ROUTES[route]
+
+
+def _keyed_tables(probe_keys, build_keys, key_type):
+    """(probe, build) Arrow tables keyed pk / bk (``None`` a NULL key)."""
+    def table(k, v, keys):
+        return pa.table({k: pa.array(keys, key_type),
+                         v: pa.array(np.arange(len(keys)), pa.int64())})
+    return table("pk", "pv", probe_keys), table("bk", "bv", build_keys)
+
+
+def _boundary_tables(case):
+    """(probe, build, key columns, string encoding) of one boundary
+    case; the domain caps are 16 and 2^21 but where BOUNDARY_CAPS says."""
+    import datetime
+    import decimal
+    rng = np.random.default_rng(17)
+    ints = [int(x) for x in rng.integers(-3, 20, 60)]
+    if case in ("cap", "cap_plus_one"):
+        hi = 15 if case == "cap" else 16
+        build = [0, hi] + [int(x) for x in rng.integers(0, hi, 10)]
+        return (*_keyed_tables(ints, build, pa.int64()), None, "dict")
+    if case in ("small_domain", "small_domain_plus_one"):
+        # ten rows at least 2^21 - 1 apart at the ends: within velox's
+        # kArray size, and one value past it
+        hi = (1 << 21) - (1 if case == "small_domain" else 0)
+        build = [0, hi] + [int(x) for x in rng.integers(0, hi, 8)]
+        return (*_keyed_tables(ints, build, pa.int64()), None, "dict")
+    if case in ("rows_dense", "rows_sparse"):
+        # ten rows over 80 values (8 a row), or over 10^7: a small build
+        # far apart keeps the merge-rank
+        hi = 79 if case == "rows_dense" else 10 ** 7
+        build = [-30, hi - 30] + [int(x) for x in rng.integers(-30, 10, 8)]
+        return (*_keyed_tables(ints, build, pa.int64()), None, "dict")
+    if case == "negative":
+        build = [int(x) for x in rng.permutation(np.arange(-9, 6))[:10]]
+        return (*_keyed_tables(ints, build, pa.int64()), None, "dict")
+    if case == "empty":
+        return (*_keyed_tables(ints, [], pa.int64()), None, "dict")
+    if case == "all_null":
+        return (*_keyed_tables(ints, [None] * 8, pa.int64()), None, "dict")
+    if case == "date":
+        day = datetime.date(1998, 8, 1)
+        return (*_keyed_tables(
+            [day + datetime.timedelta(days=k) for k in ints],
+            [day + datetime.timedelta(days=k) for k in (0, 2, 2, 7, 12)],
+            pa.date32()), None, "dict")
+    if case in ("short_decimal", "long_decimal"):
+        # DECIMAL(38) keys non-negative: the reference's merge-rank drops
+        # their high limb (test_long_decimal_keys_compare_both_limbs)
+        shift = 0 if case == "short_decimal" else 3
+        t = pa.decimal128(12 if case == "short_decimal" else 38, 2)
+        return (*_keyed_tables(
+            [decimal.Decimal(k + shift) / 100 for k in ints],
+            [decimal.Decimal(k + shift) / 100 for k in (-3, 1, 1, 8, 12)],
+            t), None, "dict")
+    if case == "two_column":
+        probe, build = _multi_key_tables(pa.int32())
+        return probe, build, (["k1", "k2"], ["b1", "b2"]), "dict"
+    assert case == "raw_string"
+    words = [f"sku-{k:+03d}" for k in ints]
+    return (*_keyed_tables(words, words[::5], pa.string()), None, "raw")
+
+
+# (array-mode, observed-range, merge-rank) builds of each case
+BOUNDARIES = {
+    "cap": (1, 1, 0), "cap_plus_one": (0, 0, 1), "negative": (1, 1, 0),
+    "empty": (0, 0, 1), "all_null": (0, 0, 1), "date": (1, 1, 0),
+    "short_decimal": (1, 1, 0), "long_decimal": (0, 0, 1),
+    "two_column": (0, 0, 1), "raw_string": (0, 0, 1),
+    "small_domain": (1, 1, 0), "small_domain_plus_one": (0, 0, 1),
+    "rows_dense": (1, 1, 0), "rows_sparse": (0, 0, 1),
+}
+# (ARRAY_JOIN_MAX_DOMAIN, ARRAY_JOIN_SMALL_DOMAIN) of the cases that do
+# not take (16, as set)
+BOUNDARY_CAPS = {
+    "small_domain": (J.ARRAY_JOIN_MAX_DOMAIN, J.ARRAY_JOIN_SMALL_DOMAIN),
+    "small_domain_plus_one": (J.ARRAY_JOIN_MAX_DOMAIN,
+                              J.ARRAY_JOIN_SMALL_DOMAIN),
+    "rows_dense": (J.ARRAY_JOIN_MAX_DOMAIN, 16),
+    "rows_sparse": (J.ARRAY_JOIN_MAX_DOMAIN, 16),
+}
+
+
+@pytest.mark.parametrize("case", list(BOUNDARIES))
+def test_array_mode_boundaries_equal_reference(case, monkeypatch):
+    """Which builds take array mode from their own key range: a domain of
+    exactly the cap does and one more value does not; a ten-row build
+    does over 2^21 values (velox's kArray size) or 8 a row, and keeps
+    the merge-rank one value past 2^21 or over 10^7 values; negative
+    keys, DATE and short-DECIMAL keys do; an empty or all-NULL build, a
+    DECIMAL(38), two-column or raw-string key keeps the merge-rank. A
+    left join, so the empty builds still probe."""
+    max_domain, small_domain = BOUNDARY_CAPS.get(
+        case, (16, J.ARRAY_JOIN_SMALL_DOMAIN))
+    monkeypatch.setattr(J, "ARRAY_JOIN_MAX_DOMAIN", max_domain)
+    monkeypatch.setattr(J, "ARRAY_JOIN_SMALL_DOMAIN", small_domain)
+    probe, build, keys, enc = _boundary_tables(case)
+    keys = keys or (["pk"], ["bk"])
+    out = probe.column_names + build.column_names
+
+    def plan(builder):
+        b = builder()
+        bb = b.new_builder().values([build], string_encoding=enc)
+        return (b.values([probe], string_encoding=enc)
+                .hash_join(keys[0], keys[1], bb, output=out,
+                           join_type="left").plan())
+    before = _route_counters()
+    got = _assert_same(plan(JPlanBuilder), plan(PlanBuilder))
+    assert got.num_rows >= probe.num_rows
+    assert tuple(_route_counters() - before) == BOUNDARIES[case]
+
+
+@pytest.mark.parametrize("key_range,capacity,want", [
+    ((0, 5, 9), 1024, None),                        # no usable row
+    ((3, -4, 11), 1024, (-4, 11)),
+    ((3, 0, (1 << 21) - 1), 1024, (0, (1 << 21) - 1)),
+    ((3, 0, 1 << 21), 1024, None),                  # past 2^21 and 8 a row
+    ((9, 0, 8 * 300_000 - 1), 300_000, (0, 8 * 300_000 - 1)),
+    ((9, 0, 8 * 300_000), 300_000, None),
+    ((10 ** 7, 1, 1 << 26), 1 << 24, (1, 1 << 26)),
+    ((10 ** 7, 0, 1 << 26), 1 << 24, None),         # past the cap
+])
+def test_observed_domain_bounds(key_range, capacity, want):
+    """An observed domain takes array mode within ARRAY_JOIN_MAX_DOMAIN
+    and within ARRAY_JOIN_SMALL_DOMAIN or 8 entries a build row."""
+    assert J.observed_domain(key_range, capacity) == want
 
 
 def _run_operator(mod, dev_mod, plan, probe, build, array_range, **kw):

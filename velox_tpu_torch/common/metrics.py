@@ -78,6 +78,13 @@ K_AGG_HOST_OFFLOADS = "velox_tpu.agg.host_offload_runs"
 K_FILTER_SUM_KERNEL = "velox_tpu.agg.filter_sum_kernel_plans"
 K_SKEW_SPLITS = "velox_tpu.exchange.skew_key_splits"
 K_JOIN_BUILD_OFFLOADS = "velox_tpu.join.build_host_offloads"
+# hash-join builds by probe route: with array mode's domain tables (from
+# plan stats or the build's own key range), among those the ones whose
+# range came from the build's keys, and those that probe through the
+# merge-rank
+K_JOIN_ARRAY_MODE_BUILDS = "velox_tpu.join.array_mode_builds"
+K_JOIN_OBSERVED_RANGE_BUILDS = "velox_tpu.join.observed_range_builds"
+K_JOIN_MERGE_RANK_BUILDS = "velox_tpu.join.merge_rank_builds"
 K_SPILL_DISK_WRITES = "velox_tpu.spill.disk_writes"
 K_SORT_OFFLOADS = "velox_tpu.sort.host_offloads"
 K_SPLITS_PRUNED = "velox_tpu.scan.splits_pruned"

@@ -10,10 +10,16 @@ and B4), and a probe batch finds each row's run [lo, lo + count) of equal
 build keys in one of two ways:
 
 * **array mode** (velox HashMode::kArray, HashTable.h:119): a single
-  integral key whose plan-level stats span at most
+  integral, DATE or short-DECIMAL key whose range spans at most
   ``ARRAY_JOIN_MAX_DOMAIN`` values gets dense direct-address tables over
   the domain (``arr_start``, ``arr_count``, ``arr_row1``); a probe is one
-  or two table lookups;
+  or two table lookups. The range comes from plan-level stats, or where
+  the plan has none, from the build's own usable keys at build finish
+  (one host read), as velox picks kArray from the values its table
+  holds; such an observed domain also stays within
+  ``ARRAY_JOIN_SLOTS_PER_ROW`` entries a build row (or
+  ``ARRAY_JOIN_SMALL_DOMAIN``), so a small, sparse build keeps the
+  merge-rank;
 * **merge-rank**: one radix sort of the concatenated (build, probe) keys,
   build rows first among equal keys; counts of build rows before each
   probe row's key run give its [lo, hi).
@@ -60,6 +66,7 @@ from typing import Dict, List, NamedTuple, Optional
 import torch
 
 from velox_tpu_torch import types as T
+from velox_tpu_torch.common import metrics as M
 from velox_tpu_torch.common.process_trace import spanned
 from velox_tpu_torch.core import plan as P
 from velox_tpu_torch.core.expressions import referenced_fields
@@ -111,6 +118,9 @@ class SortedBuild(NamedTuple):
     # a merge join's presorted build: the usable rows (the sorted prefix
     # of ``sorted_key`` that its binary searches may land in)
     n_usable: Optional[torch.Tensor] = None   # 0-dim int64
+    # a single key's (usable rows, min, max) as read on the host at build
+    # finish, where it had no plan-level range (HashBuildStage)
+    key_range: Optional[tuple] = None
 
 
 def key_values(batch: DeviceBatch, key_fields) -> List[EvalValue]:
@@ -220,14 +230,28 @@ def build_table(b: DeviceBatch, key_fields, array_range=None,
     merge-rank."""
     dtypes = [k.dtype for k in key_fields]
     if packable_words(dtypes) and not has_raw_key(b, key_fields):
-        return build_sorted_table(b, key_fields, array_range, key_ranges)
-    return build_sorted_table(b, key_fields, None, key_ranges)
+        bt = build_sorted_table(b, key_fields, array_range, key_ranges)
+    else:
+        bt = build_sorted_table(b, key_fields, None, key_ranges)
+    M.record_counter(M.K_JOIN_ARRAY_MODE_BUILDS if bt.arr_start is not None
+                     else M.K_JOIN_MERGE_RANK_BUILDS)
+    return bt
 
 
 # Max dense direct-address domain for array-mode joins: 1 << 26 entries,
 # three int32 tables of 256 MB each, which covers every TPC-H key at
-# SF <= 10 (o_orderkey spans 6e7 values there).
+# SF <= 10 (o_orderkey spans 6e7 values there). The domain is the build
+# key's range, from plan-level stats or from the build's own values.
 ARRAY_JOIN_MAX_DOMAIN = 1 << 26
+# A domain observed in the build's own keys also stays within
+# ARRAY_JOIN_SLOTS_PER_ROW entries a row the build holds (its capacity,
+# whose sorted table already takes 16 bytes a row), or within
+# ARRAY_JOIN_SMALL_DOMAIN (velox's kArrayHashMaxSize, HashTable.h:119):
+# the tables then cost at most 96 bytes a build row or 24 MiB, and a small
+# build whose keys lie far apart keeps the merge-rank. TPC-H's order keys
+# span 4 values an order.
+ARRAY_JOIN_SLOTS_PER_ROW = 8
+ARRAY_JOIN_SMALL_DOMAIN = 1 << 21
 
 
 def build_key_ranges(node: P.HashJoinNode):
@@ -236,26 +260,82 @@ def build_key_ranges(node: P.HashJoinNode):
                  for k in node.right_keys)
 
 
-def array_join_range(node: P.HashJoinNode):
-    """Static (min, max) bounds for array-mode probing, or None: a single
-    integral/DATE/short-DECIMAL equi-key whose build side's plan-level
-    stats span at most ARRAY_JOIN_MAX_DOMAIN values (only build keys can
-    match, so the probe side's range does not widen it)."""
-    if len(node.right_keys) != 1:
-        return None
-    k = node.right_keys[0]
-    dt = k.dtype
-    if dt.is_long_decimal or not (
-            dt.is_integral or dt.kind in (T.TypeKind.DATE,
-                                          T.TypeKind.DECIMAL)):
-        return None
-    rng = resolve_column_stats(node.right, k.name)
-    if rng is None:
-        return None
-    lo, hi = int(rng[0]), int(rng[1])
-    if hi - lo + 1 > ARRAY_JOIN_MAX_DOMAIN or hi < lo:
+def int_storage_type(dt) -> bool:
+    """An integral, DATE or short-DECIMAL type: its storage ints order
+    its values, so their (min, max) bound a key (a long decimal's would
+    need both limbs)."""
+    return not dt.is_long_decimal and (
+        dt.is_integral or dt.kind in (T.TypeKind.DATE, T.TypeKind.DECIMAL))
+
+
+def array_key(key_fields) -> bool:
+    """Whether build keys ``key_fields`` can take array mode: a single
+    ``int_storage_type`` key (its storage ints index the domain)."""
+    return len(key_fields) == 1 and int_storage_type(key_fields[0].dtype)
+
+
+def array_domain(lo: int, hi: int):
+    """(lo, hi) when the range spans at most ARRAY_JOIN_MAX_DOMAIN values,
+    else None."""
+    if hi < lo or hi - lo + 1 > ARRAY_JOIN_MAX_DOMAIN:
         return None
     return (lo, hi)
+
+
+def array_join_range(node: P.HashJoinNode):
+    """Static (min, max) bounds for array-mode probing, or None: an
+    ``array_key`` whose build side's plan-level stats fit
+    ``array_domain`` (only build keys can match, so the probe side's range
+    does not widen it)."""
+    if not array_key(node.right_keys):
+        return None
+    rng = resolve_column_stats(node.right, node.right_keys[0].name)
+    if rng is None:
+        return None
+    return array_domain(int(rng[0]), int(rng[1]))
+
+
+def key_summaries(b: DeviceBatch, key_fields, summarized,
+                  first: bool = True):
+    """The usable row count of build ``b`` and, for each key index in
+    ``summarized``, its (min, max) over the usable rows and, with
+    ``first``, its first min(count, 64) usable values: reduced on the
+    device and read in one host read (min and max are meaningless when
+    no row is usable)."""
+    cap = b.capacity
+    keys = key_values(b, key_fields)
+    ok = usable_rows(b, keys)
+    parts = [ok.sum(dtype=torch.int64).reshape(1)]
+    if first:
+        pos = torch.cumsum(ok.to(torch.int64), 0) - 1
+        tgt = torch.where(ok & (pos < 64), pos, 64)
+    big = torch.iinfo(torch.int64).max
+    for i in summarized:
+        d = keys[i].full_data(cap).to(torch.int64)
+        if first:
+            head = torch.zeros((65,), dtype=torch.int64, device=d.device)
+            head[tgt] = d
+        parts += [torch.where(ok, d, big).min().reshape(1),
+                  torch.where(ok, d, -big).max().reshape(1)]
+        if first:
+            parts.append(head[:64])
+    host = torch.cat(parts).tolist()
+    n, w = host[0], 66 if first else 2
+    return n, [(host[1 + w * j], host[2 + w * j],
+                host[3 + w * j:3 + w * j + min(n, 64)] if first else [])
+               for j in range(len(summarized))]
+
+
+def observed_domain(key_range, capacity: int):
+    """The array-mode (min, max) of a build of ``capacity`` rows whose
+    single key's (usable rows, min, max) is ``key_range``, or None: no
+    usable row, a domain over ``array_domain``'s cap, or over both
+    ARRAY_JOIN_SMALL_DOMAIN and ARRAY_JOIN_SLOTS_PER_ROW a row."""
+    n, lo, hi = key_range
+    if not n or hi - lo + 1 > max(ARRAY_JOIN_SMALL_DOMAIN,
+                                  ARRAY_JOIN_SLOTS_PER_ROW * capacity):
+        return None
+    return array_domain(lo, hi)
 
 
 class HashBuildStage:
@@ -263,13 +343,21 @@ class HashBuildStage:
     once they are all in. The Task hands it an ``OffloadBuffer`` with the
     query's spill settings (parity: velox Spiller kHashJoinBuild,
     exec/Spiller.h:29); without one every batch stays on the device,
-    unaccounted."""
+    unaccounted.
+
+    An ``array_key`` with no plan-level range takes array mode from the
+    build's own key range where ``observed_domain`` admits it; the range
+    narrows the build sort's words too, and the table keeps the
+    (usable rows, min, max) read for the join's dynamic filter."""
 
     def __init__(self, key_fields, array_range=None, key_ranges=None,
                  buffer: Optional[OffloadBuffer] = None):
         self._key_fields = list(key_fields)
         self._array_range = array_range
         self._key_ranges = key_ranges
+        self._observe = (array_range is None
+                         and array_key(self._key_fields)
+                         and not (key_ranges and key_ranges[0]))
         self._buf = buffer if buffer is not None else OffloadBuffer(None)
 
     def add_input(self, batch: DeviceBatch):
@@ -287,8 +375,19 @@ class HashBuildStage:
         return concat_batches(batches)
 
     def finish(self) -> SortedBuild:
-        return build_table(self._merged(), self._key_fields,
-                           self._array_range, self._key_ranges)
+        b = self._merged()
+        if not self._observe:
+            return build_table(b, self._key_fields, self._array_range,
+                               self._key_ranges)
+        n, ((lo, hi, _),) = key_summaries(b, self._key_fields, [0],
+                                          first=False)
+        seen = (n, lo, hi)
+        rng = observed_domain(seen, b.capacity)
+        if rng is not None:
+            M.record_counter(M.K_JOIN_OBSERVED_RANGE_BUILDS)
+        bt = build_table(b, self._key_fields, rng,
+                         self._key_ranges if rng is None else (rng,))
+        return bt._replace(key_range=seen)
 
 
 def build_sorted_table_presorted(b: DeviceBatch, key_fields) -> SortedBuild:

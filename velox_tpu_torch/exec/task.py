@@ -121,7 +121,7 @@ from velox_tpu_torch.exec.local_exchange import LocalExchangeQueue
 from velox_tpu_torch.exec.join import (
     HashBuildStage, HashJoinOperator, MergeBuildStage, MergeJoinOperator,
     SortedBuild, array_join_range, build_key_ranges, has_raw_key,
-    key_values, usable_rows,
+    int_storage_type, key_summaries,
 )
 from velox_tpu_torch.exec.operator import (
     ArrowStreamOperator, FilterProjectOperator, LimitOperator, Operator,
@@ -692,7 +692,8 @@ class Task:
         """Dynamic filters are on, the join drops unmatched probe rows
         (inner, left semi), and it is not an array-mode join over a
         unique build, whose domain lookup rejects out-of-range keys at no
-        cost."""
+        cost. Decided from the plan before the build: a build that takes
+        array mode from its own key range still pushes its filter."""
         return (self.ctx.query_config.get_bool(QueryConfig.DYNAMIC_FILTERS,
                                                True)
                 and node.join_type in _FILTERED_JOINS
@@ -712,36 +713,23 @@ class Task:
         Only joins ``_pushes_dynamic_filter`` accepts get one; raw-string
         keys have no summary. The summaries (the usable row count, each
         key's min, max and first 64 usable values) are reduced on the
-        device and read in one host read."""
+        device and read in one host read; a build that read its key's
+        range at finish (``SortedBuild.key_range``) needs no other read
+        unless it holds 1 to 64 usable rows."""
         qc = self.ctx.query_config
         left = node.left
         if not self._pushes_dynamic_filter(node) \
                 or has_raw_key(table.batch, node.right_keys):
             return left
-        batch = table.batch
-        cap = batch.capacity
-        keys = key_values(batch, node.right_keys)
-        ok = usable_rows(batch, keys)
-        # keys whose summary can become a predicate: integral, DATE and
-        # short DECIMAL (a long decimal's summary would need both limbs)
+        # keys whose summary can become a predicate
         summarized = [i for i, lk in enumerate(node.left_keys)
-                      if (lk.dtype.is_integral
-                          or lk.dtype.kind in (T.TypeKind.DATE,
-                                               T.TypeKind.DECIMAL))
-                      and not lk.dtype.is_long_decimal]
-        parts = [ok.sum(dtype=torch.int64).reshape(1)]
-        pos = torch.cumsum(ok.to(torch.int64), 0) - 1
-        tgt = torch.where(ok & (pos < 64), pos, 64)
-        for i in summarized:
-            d = keys[i].full_data(cap).to(torch.int64)
-            big = torch.iinfo(torch.int64).max
-            first = torch.zeros((65,), dtype=torch.int64, device=d.device)
-            first[tgt] = d
-            parts += [torch.where(ok, d, big).min().reshape(1),
-                      torch.where(ok, d, -big).max().reshape(1),
-                      first[:64]]
-        host = torch.cat(parts).tolist()
-        n_usable = host[0]
+                      if int_storage_type(lk.dtype)]
+        if table.key_range is not None and not 0 < table.key_range[0] <= 64:
+            n_usable, lo, hi = table.key_range
+            ranges = [(lo, hi, [])] * len(summarized)
+        else:
+            n_usable, ranges = key_summaries(table.batch, node.right_keys,
+                                             summarized)
         if n_usable == 0:
             if qc.get_bool(QueryConfig.HASH_PROBE_FINISH_EARLY_ON_EMPTY_BUILD,
                            True):
@@ -749,10 +737,8 @@ class Task:
             return left
         lt = left.output_type()
         preds = []
-        for j, i in enumerate(summarized):
+        for i, (lo, hi, small) in zip(summarized, ranges):
             lk = node.left_keys[i]
-            lo, hi = host[1 + 66 * j], host[2 + 66 * j]
-            small = host[3 + 66 * j:3 + 66 * j + min(n_usable, 64)]
             f = ex.field(lk.name, lt.field_type(lk.name))
             if n_usable <= 64:
                 preds.append(ex.Call(T.BOOLEAN, "in", (f,) + tuple(
