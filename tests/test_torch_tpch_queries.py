@@ -8,6 +8,13 @@ both engines over 4,096-row splits. Every run must equal the reference's
 result: integers, decimals, dates and strings exactly, doubles within the
 reference oracle's relative tolerance (tests/tpch_sql.py ``TOLERANCES``).
 Q18 uses threshold 240, the spec's 300 selects no order at this scale.
+
+The reference orders a dictionary string by its dictionary id (ROADMAP C,
+"faults of the reference that the port does not copy"), and the TPC-H
+connector's ``n_name`` is in key order, so Q9's ``ORDER BY nation,
+o_year DESC`` comes out of order there. For Q9 the port is held to the
+reference's rows put into that order by value (``IN_VALUE_ORDER``), and
+``tests/test_torch_tpch_sqlite.py`` holds every query's order to SQLite.
 """
 
 import numpy as np
@@ -32,12 +39,23 @@ torch.set_num_threads(1)
 SF = 0.01
 QUERIES = tuple(range(1, 23))
 PARAMS = {18: {"threshold": 240.0}}
+# queries whose ORDER BY sorts the connector's unsorted n_name dictionary
+IN_VALUE_ORDER = {9: [("nation", "ascending"), ("o_year", "descending")]}
 
 
 @pytest.fixture(autouse=True)
 def _tpch():
     jax_register_tpch(SF)
     register_tpch(SF)
+
+
+def _reference(q: int, **params) -> pa.Table:
+    """The reference's answer, in ORDER BY order by value where the
+    reference orders by dictionary id (a stable sort of its rows)."""
+    want = JTask(jax_tpch_plan(q, **params)).run()
+    if q in IN_VALUE_ORDER:
+        want = want.sort_by(IN_VALUE_ORDER[q])
+    return want
 
 
 def _assert_matches(got: pa.Table, want: pa.Table, rel_tol: float):
@@ -56,7 +74,7 @@ def _assert_matches(got: pa.Table, want: pa.Table, rel_tol: float):
 @pytest.mark.parametrize("q", QUERIES)
 def test_query_cold_and_warm_equal_reference(q):
     params = PARAMS.get(q, {})
-    want = JTask(jax_tpch_plan(q, **params)).run()
+    want = _reference(q, **params)
     assert want.num_rows > 0
     rel_tol = TOLERANCES.get(q, (1e-9, 1))[0]
     cache = DataCache.instance()
@@ -99,7 +117,7 @@ def test_query_in_small_splits_equal_reference(q, _small_splits):
     """A query over 4,096-row splits: many batches a scan, so the
     aggregations compact and the joins probe batch after batch."""
     params = PARAMS.get(q, {})
-    want = JTask(jax_tpch_plan(q, **params)).run()
+    want = _reference(q, **params)
     got = Task(tpch_plan(q, **params), QueryCtx("cpu")).run()
     _assert_matches(got, want, TOLERANCES.get(q, (1e-9, 1))[0])
 

@@ -85,6 +85,14 @@ K_JOIN_BUILD_OFFLOADS = "velox_tpu.join.build_host_offloads"
 K_JOIN_ARRAY_MODE_BUILDS = "velox_tpu.join.array_mode_builds"
 K_JOIN_OBSERVED_RANGE_BUILDS = "velox_tpu.join.observed_range_builds"
 K_JOIN_MERGE_RANK_BUILDS = "velox_tpu.join.merge_rank_builds"
+# the build and probe key rows each merge-rank probe sorts together (the
+# two batches' capacities)
+K_JOIN_MERGE_RANK_ROWS = "velox_tpu.join.merge_rank_rows"
+# dictionary-string key columns as they become sort words (exec/sort.py
+# ``dictionary_keys``): by their ids (a sorted dictionary) or by the
+# ranks of their values
+K_SORT_DICT_ID_KEYS = "velox_tpu.sort.dictionary_id_keys"
+K_SORT_DICT_RANKED_KEYS = "velox_tpu.sort.dictionary_ranked_keys"
 K_SPILL_DISK_WRITES = "velox_tpu.spill.disk_writes"
 K_SORT_OFFLOADS = "velox_tpu.sort.host_offloads"
 K_SPLITS_PRUNED = "velox_tpu.scan.splits_pruned"

@@ -12,9 +12,9 @@ around a piece of host work: a query (``Task.run``), an operator's
 for its prefetch queue or its producer's split, and the calls into
 another layer's module from inside an operator (a fused chain, an
 expression set, a radix sort, a group-by's reduce, a merge-rank, a hash
-table's insert or lookup rounds, a sort's key words). Each thread keeps
-its open spans on a
-stack and its last ``HISTORY_DEPTH`` openings in a ring, without a lock:
+table's insert or lookup rounds, a sort's key words, the rank table of
+an unsorted dictionary). Each thread keeps its open spans on a stack
+and its last ``HISTORY_DEPTH`` openings in a ring, without a lock:
 ``status_lines()`` names each live thread's innermost span and
 ``recent()`` a thread's last openings.
 
@@ -69,7 +69,7 @@ LAYERS: Dict[str, str] = {
     "LocalPartition": "task",
     # calls into another layer's module from inside an operator
     "chain": "expr", "eval": "expr",
-    "radix_sort": "sort", "sort_keys": "sort",
+    "radix_sort": "sort", "sort_keys": "sort", "dictionary_rank": "sort",
     "group_reduce": "agg",
     "merge_rank": "join", "hash_insert": "join", "hash_lookup": "join",
 }

@@ -212,7 +212,8 @@ class HiveTable:
             for c in self.partition_cols:
                 vals = {ps.get(c) for ps in self.partitions.values()}
                 self._dictionaries[c] = Dictionary(
-                    sorted(v for v in vals if v is not None))
+                    sorted(v for v in vals if v is not None),
+                    is_sorted=True)
         raw = self.raw_string_cols()
         str_cols = [f.name for f in self.schema_arrow
                     if T.from_arrow(f.type).is_string
@@ -228,7 +229,8 @@ class HiveTable:
                     vals = pc.unique(t.column(c).combine_chunks()).to_pylist()
                     uniq[c].update(v for v in vals if v is not None)
             for c in str_cols:
-                self._dictionaries[c] = Dictionary(sorted(uniq[c]))
+                self._dictionaries[c] = Dictionary(sorted(uniq[c]),
+                                                   is_sorted=True)
         return self._dictionaries
 
     def max_row_group_rows(self) -> int:

@@ -127,16 +127,23 @@ class VirtualDictionary(Dictionary):
     ``fmt`` maps an int64 id array to the list of its values;
     ``fmt_bytes``, when given, maps it to the same values as a
     fixed-width uint8 byte matrix (None when it cannot), so that
-    ``arrow_take`` builds no Python object per row.
+    ``arrow_take`` builds no Python object per row. ``is_sorted`` states
+    the order by construction (the numbered names' zero-padded ids), so a
+    sorted one is never materialized to be ordered; an unsorted one (the
+    phones) is ranked over its byte matrix, as fixed-width byte strings:
+    UTF-8 bytes order as the text does, and a formatted value holds no
+    NUL byte (a fixed-width numpy byte string drops trailing NULs).
     """
 
-    def __init__(self, size: int, fmt, fmt_bytes=None):
+    def __init__(self, size: int, fmt, fmt_bytes=None,
+                 is_sorted: bool = False):
         self._size = size
         self._fmt = fmt
         self._fmt_bytes = fmt_bytes
         self._values: Optional[np.ndarray] = None
         self._arrow = None
-        self.is_sorted = True
+        self._order = True if is_sorted else None
+        self._device_ranks, self._maps = {}, {}
 
     def __len__(self):
         return self._size
@@ -150,6 +157,14 @@ class VirtualDictionary(Dictionary):
     def take(self, ids: np.ndarray) -> np.ndarray:
         return np.array(self._fmt(np.asarray(ids, dtype=np.int64)),
                         dtype=object)
+
+    def _order_keys(self) -> np.ndarray:
+        matrix = None if self._fmt_bytes is None \
+            else self._fmt_bytes(np.arange(self._size, dtype=np.int64))
+        if matrix is None:
+            return self.values
+        matrix = np.ascontiguousarray(matrix)
+        return matrix.view(f"S{max(1, matrix.shape[1])}").reshape(-1)
 
     def arrow_take(self, ids: np.ndarray, validity: Optional[np.ndarray],
                    arrow_type):
@@ -179,8 +194,10 @@ class VirtualDictionary(Dictionary):
         return f"VirtualDictionary({self._size})"
 
     def __reduce__(self):
-        # pickled as its size and formatters, never its materialized values
-        return (VirtualDictionary, (self._size, self._fmt, self._fmt_bytes))
+        # pickled as its size, formatters and stated order, never its
+        # materialized values
+        return (VirtualDictionary, (self._size, self._fmt, self._fmt_bytes,
+                                    self._order is True))
 
 
 def _format_numbered(prefix: str, ids: np.ndarray) -> list:
@@ -212,6 +229,13 @@ def _numbered(prefix: str):
 
 def _numbered_bytes(prefix: str):
     return functools.partial(_format_numbered_bytes, prefix)
+
+
+def _numbered_dictionary(size: int, prefix: str) -> VirtualDictionary:
+    """'Prefix#%09d' for ids 0..size-1: sorted by construction while the
+    ids fit nine digits."""
+    return VirtualDictionary(size, _numbered(prefix), _numbered_bytes(prefix),
+                             is_sorted=size <= 10 ** 9)
 
 
 def _comment_dict(stream: int) -> Dictionary:
@@ -326,14 +350,12 @@ class TpchTableGen:
             "orders": {
                 "o_orderstatus": Dictionary(ORDER_STATUS),
                 "o_orderpriority": Dictionary(ORDER_PRIORITIES),
-                "o_clerk": VirtualDictionary(
-                    max(1, nsupp // 10) * 1000 + 1, _numbered("Clerk"),
-                    _numbered_bytes("Clerk")),
+                "o_clerk": _numbered_dictionary(
+                    max(1, nsupp // 10) * 1000 + 1, "Clerk"),
                 "o_comment": comment,
             },
             "customer": {
-                "c_name": VirtualDictionary(ncust + 1, _numbered("Customer"),
-                                            _numbered_bytes("Customer")),
+                "c_name": _numbered_dictionary(ncust + 1, "Customer"),
                 "c_address": comment,
                 "c_phone": VirtualDictionary(ncust + 1, _phones,
                                              _phones_bytes),
@@ -361,8 +383,7 @@ class TpchTableGen:
                 "p_comment": comment,
             },
             "supplier": {
-                "s_name": VirtualDictionary(nsupp + 1, _numbered("Supplier"),
-                                            _numbered_bytes("Supplier")),
+                "s_name": _numbered_dictionary(nsupp + 1, "Supplier"),
                 "s_address": comment,
                 "s_phone": VirtualDictionary(nsupp + 1, _phones,
                                              _phones_bytes),

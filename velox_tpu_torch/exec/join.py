@@ -599,6 +599,7 @@ class HashJoinOperator(Operator):
         cap = batch.capacity
         bcap = bt.batch.capacity
         m = bcap + cap
+        M.record_counter(M.K_JOIN_MERGE_RANK_ROWS, m)
         dev = batch.device
         bkeys = key_values(bt.batch, self._node.right_keys)
         busable = usable_rows(bt.batch, bkeys)

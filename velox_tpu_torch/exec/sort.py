@@ -27,8 +27,12 @@ Key encoding (the reference's):
                   lo2 = f32(x - hi - lo))
 * long decimal -> four words: the hi limb biased, then the lo limb's
                   halves
-* strings      -> sorted-dictionary ids; a raw string's W/4 big-endian
-                  byte words and its length word (vector/strings.py)
+* strings      -> a dictionary string's id where its dictionary is
+                  sorted, else the id's dense rank among the values
+                  (``value_ranks``), so the words order by value and
+                  equal values give equal words; a raw string's W/4
+                  big-endian byte words and its length word
+                  (vector/strings.py)
 * descending   -> every value word inverted
 * nulls        -> a leading 1-bit field per nullable key
 * active       -> the most significant bit: inactive rows sort last
@@ -48,6 +52,7 @@ from typing import List, Sequence
 import torch
 
 from velox_tpu_torch import types as T
+from velox_tpu_torch.common import metrics as M
 from velox_tpu_torch.common.process_trace import spanned
 from velox_tpu_torch.expression.eval import EvalValue
 from velox_tpu_torch.ops.gather import flat_gather
@@ -73,6 +78,25 @@ def _signed_words(data: torch.Tensor) -> List[torch.Tensor]:
     if data.dtype == torch.int64:
         return [(data >> 32) + _SIGN32, data & _M32]
     return [data.to(torch.int64) + _SIGN32]
+
+
+def value_ranks(ids: torch.Tensor, d) -> torch.Tensor:
+    """Dictionary ids as integers in the order of their values: the ids
+    where the dictionary ``d`` is sorted, else each id's dense rank among
+    the values (``Dictionary.ranks``: equal values, equal ranks), through
+    the rank table's device copy."""
+    if d.is_sorted:
+        return ids
+    ranks = d.device_ranks(ids.device)
+    return ranks.index_select(0, ids.to(torch.int32).clamp(0, len(d) - 1))
+
+
+def dictionary_keys(v: EvalValue, capacity: int) -> torch.Tensor:
+    """``value_ranks`` of a dictionary string key column as it becomes
+    sort words, counted by route."""
+    M.record_counter(M.K_SORT_DICT_ID_KEYS if v.dictionary.is_sorted
+                     else M.K_SORT_DICT_RANKED_KEYS)
+    return value_ranks(v.full_data(capacity), v.dictionary)
 
 
 def value_words(v: EvalValue, capacity: int) -> List[torch.Tensor]:
@@ -109,7 +133,7 @@ def value_words(v: EvalValue, capacity: int) -> List[torch.Tensor]:
     if dt.kind is T.TypeKind.BOOLEAN:
         return [data.to(torch.int64)]
     if dt.is_string:
-        return _signed_words(data.to(torch.int32))
+        return _signed_words(dictionary_keys(v, capacity).to(torch.int32))
     return _signed_words(data)
 
 
@@ -117,7 +141,8 @@ def _narrow_bits(v: EvalValue, rng) -> int:
     """Static bit width of the normalized (value - min) field, or -1 when
     the key cannot be narrowed: dictionary strings narrow to their id
     range, BOOLEAN to 1 bit, integral/DATE/DECIMAL keys to the span of
-    their true (min, max) storage bounds (core/stats.py)."""
+    their true (min, max) storage bounds (core/stats.py). A dictionary's
+    ranks lie in its id range too."""
     dt = v.dtype
     if dt.is_long_decimal or S.is_raw(v):
         return -1
@@ -144,7 +169,8 @@ class KeyFieldLayout:
     kind: 'const' (no bits; value == base), 'narrow' (value = base +
     bits), 'words' (full-width order-preserving words), 'raw' (a raw
     string's byte words and length word; base holds the width W),
-    'opaque' (not invertible: DOUBLE's three-f32 split, int128 limbs)."""
+    'opaque' (not invertible: DOUBLE's three-f32 split, int128 limbs, an
+    unsorted dictionary's narrowed ranks)."""
 
     __slots__ = ("kind", "off", "nb", "base", "desc", "null_off",
                  "null_is_one", "dtype", "arr_dtype", "dictionary")
@@ -217,7 +243,11 @@ def sort_words_layout(keys: Sequence[EvalValue], orders, capacity: int,
                 v.dtype, arr_dt, v.dictionary))
             continue  # provably constant: contributes nothing
         if nb > 0:
-            data = v.full_data(capacity)
+            ranked = v.dtype.is_string and not v.dictionary.is_sorted
+            if v.dtype.is_string:
+                data = dictionary_keys(v, capacity)
+            else:
+                data = v.full_data(capacity)
             if v.dtype.is_string or v.dtype.kind is T.TypeKind.BOOLEAN:
                 base = 0
             else:
@@ -230,8 +260,8 @@ def sort_words_layout(keys: Sequence[EvalValue], orders, capacity: int,
                 w = w ^ mask
             fields.append((w, nb))
             layout.append(KeyFieldLayout(
-                "narrow", off, nb, base, desc, null_off, null_is_one,
-                v.dtype, arr_dt, v.dictionary))
+                "opaque" if ranked else "narrow", off, nb, base, desc,
+                null_off, null_is_one, v.dtype, arr_dt, v.dictionary))
             off += nb
             continue
         vw = value_words(v, capacity)

@@ -46,7 +46,8 @@ from velox_tpu_torch.core.stats import resolve_column_stats
 from velox_tpu_torch.exec import hashtable as H
 from velox_tpu_torch.exec.batch_utils import concat_batches, take_columns_rows
 from velox_tpu_torch.exec.operator import Operator
-from velox_tpu_torch.exec.sort import radix_sort_perm, sort_words
+from velox_tpu_torch.exec.sort import (radix_sort_perm, sort_words,
+                                     value_ranks)
 from velox_tpu_torch.expression.eval import EvalValue, value_from_column
 from velox_tpu_torch.ops.gather import take_rows
 from velox_tpu_torch.ops.int128 import from_i64
@@ -125,11 +126,14 @@ def _runs(flag: torch.Tensor):
 def _changes(s: DeviceBatch, keys) -> torch.Tensor:
     """True where a row's key tuple differs from the previous row's (row
     0 compares with itself). Every row-aligned array of a key counts:
-    data, validity and a long decimal's high limb."""
+    data (a dictionary string's value ranks, as its sort words order
+    them), validity and a long decimal's high limb."""
     out = torch.zeros((s.capacity,), dtype=torch.bool, device=s.device)
     for k in keys:
         col = s.columns[k.name]
-        arrays = [col.data] + [ch.data for ch in col.children]
+        data = col.data if col.dictionary is None \
+            else value_ranks(col.data, col.dictionary)
+        arrays = [data] + [ch.data for ch in col.children]
         if col.validity is not None:
             arrays.append(col.validity)
         for a in arrays:

@@ -414,10 +414,14 @@ _SIGN32 = 1 << 31
 _M32 = 0xFFFFFFFF
 
 
-def _pack32(v: EvalValue, capacity: int) -> torch.Tensor:
+def _pack32(v: EvalValue, capacity: int, keep_id: bool = False
+            ) -> torch.Tensor:
     """The order-preserving 32-bit word of a packable value, as an int64
-    in [0, 2^32)."""
+    in [0, 2^32). With ``keep_id`` a dictionary string packs its id,
+    which ``_unpack32`` gives back, and not the rank of its value."""
     from velox_tpu_torch.exec.sort import value_words
+    if keep_id and v.dtype.is_string:
+        return v.full_data(capacity).to(torch.int64) + _SIGN32
     (w,) = value_words(v, capacity)
     return w
 
@@ -438,9 +442,9 @@ def _unpack32(u: torch.Tensor, dtype: T.DataType) -> torch.Tensor:
 class MinMaxByAgg(AggregateFunction):
     """min_by(x, y) / max_by(x, y) for 32-bit-packable x and y: the pair
     (y, x) packs into one int64, so the min/max combine is an exact
-    argmin/argmax (ties in y take the smaller x). With
-    ``position_ordered`` (first/last) y is the row's position within its
-    batch. Parity: prestosql MinMaxByAggregates.cpp."""
+    argmin/argmax (ties in y take the smaller x; a string x, the smaller
+    id). With ``position_ordered`` (first/last) y is the row's position
+    within its batch. Parity: prestosql MinMaxByAggregates.cpp."""
 
     def __init__(self, name: str, x_type: T.DataType, y_type: T.DataType,
                  position_ordered: bool = False):
@@ -465,7 +469,7 @@ class MinMaxByAgg(AggregateFunction):
         keep = _valid_and_active(y, active, cap)
         if x.validity is not None:
             keep = keep & x.full_validity(cap)
-        xp = _pack32(x, cap)
+        xp = _pack32(x, cap, keep_id=True)
         yp = _pack32(y, cap)
         if self.name == "max_by":
             xp = _M32 - xp  # ties in y: the smaller x wins under max

@@ -686,8 +686,7 @@ def _unify_dicts(ca: DeviceColumn, cb: DeviceColumn):
     va, vb = ca.dictionary.values.tolist(), cb.dictionary.values.tolist()
     merged = sorted(set(va) | set(vb))
     pos = {v: i for i, v in enumerate(merged)}
-    d = Dictionary(merged)
-    d.is_sorted = True
+    d = Dictionary(merged, is_sorted=True)
 
     def remap(vals, data):
         table = torch.tensor([pos[v] for v in vals] or [0],

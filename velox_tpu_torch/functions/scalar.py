@@ -17,7 +17,8 @@ Counterpart of ``velox_tpu/functions/scalar.py``:
 * the double-domain math block (sqrt ... tan, ceil/floor/round, power,
   sign, greatest/least);
 * dictionary-string functions (substr, like, lower, trim, strpos, ...):
-  a host pass over the dictionary's values, then one device gather by id.
+  a host pass over the dictionary's values, then one device gather by id
+  (substr's pass is kept on the dictionary, built once);
   lower, upper, length, the trims and reverse map the values through
   pyarrow's ``utf8_*`` kernels, with the reference's plain-Python
   fallback where pyarrow rejects them; raw columns take the forms of
@@ -335,12 +336,11 @@ def eq_value(ctx, a: EvalValue, b: EvalValue) -> EvalValue:
 
 
 def _require_sorted(d) -> None:
+    """Ordered compares of ids hold only where ids order like the values:
+    the dictionary's order memo, which the sort keys read too."""
     if not d.is_sorted:
-        vals = d.values
-        if any(vals[i] > vals[i + 1] for i in range(len(vals) - 1)):
-            raise ValueError(
-                "ordered string comparison requires a sorted dictionary")
-        d.is_sorted = True
+        raise ValueError(
+            "ordered string comparison requires a sorted dictionary")
 
 
 def _ordered_constant(col: EvalValue, const: EvalValue, op: str):
@@ -356,8 +356,8 @@ def _ordered_constant(col: EvalValue, const: EvalValue, op: str):
 def _compare_strings(a: EvalValue, b: EvalValue, op: str) -> EvalValue:
     """Comparison of dictionary ids: eq/neq across any dictionaries (a
     second dictionary's ids translate into the first's through a host
-    table), ordered compares within one sorted dictionary. Connectors and
-    the Arrow bridge build sorted dictionaries (vector/device.py). A raw
+    table), ordered compares within one sorted dictionary (its order
+    memo, vector/device.py; an unsorted one raises). A raw
     side compares bytes (functions/raw_strings.py)."""
     if S.is_raw(a) or S.is_raw(b):
         from velox_tpu_torch.functions.raw_strings import raw_compare
@@ -709,27 +709,39 @@ def _gather_table(table: np.ndarray, v: EvalValue) -> torch.Tensor:
     return torch.as_tensor(table, device=dev)[ids]
 
 
+def _remap_table(vals):
+    """(each value's new id, the new dictionary) for ``vals``: the output
+    dictionary is the sorted distinct results."""
+    uniq = sorted(set(vals))
+    new_id = {x: i for i, x in enumerate(uniq)}
+    remap = np.fromiter((new_id[x] for x in vals), dtype=np.int32,
+                        count=len(vals))
+    return remap, Dictionary(uniq, is_sorted=True)
+
+
 def _remap(v: EvalValue, vals, out_dtype=T.VARCHAR) -> EvalValue:
     """The column's rows mapped to ``vals`` (one new value a dictionary
     value). Distinct values may map to one (substr, lower, trim), and
     duplicate values would break id equality and grouping, so the output
     dictionary is the sorted distinct results and the ids are remapped
     through one device gather."""
-    uniq = sorted(set(vals))
-    new_id = {x: i for i, x in enumerate(uniq)}
-    remap = np.fromiter((new_id[x] for x in vals), dtype=np.int32,
-                        count=len(vals))
-    new_dict = Dictionary(uniq)
-    new_dict.is_sorted = True
+    remap, new_dict = _remap_table(vals)
     return EvalValue(_gather_table(remap, v), v.validity, out_dtype,
                      new_dict)
 
 
-def _dict_map(v: EvalValue, f, fname: str,
-              out_dtype=T.VARCHAR) -> EvalValue:
-    """Dictionary-to-dictionary transform by ``f``."""
+def _dict_map(v: EvalValue, f, fname: str, out_dtype=T.VARCHAR,
+              key=None) -> EvalValue:
+    """Dictionary-to-dictionary transform by ``f``; with ``key`` (the
+    function's name and constant arguments, which fix ``f``) the remap is
+    built once a dictionary (``Dictionary.mapped``)."""
     d = _require_dict(v, fname)
-    return _remap(v, [f(x) for x in d.values], out_dtype)
+    if key is None:
+        return _remap(v, [f(x) for x in d.values], out_dtype)
+    remap, new_dict = d.mapped(
+        key, lambda: _remap_table([f(x) for x in d.values]))
+    return EvalValue(_gather_table(remap, v), v.validity, out_dtype,
+                     new_dict)
 
 
 def _with_nulls(out: EvalValue, v: EvalValue, vals) -> EvalValue:
@@ -828,7 +840,7 @@ def _substr_eval(ctx, out_dtype, args):
         if i < 0:
             i = 0
         return s[i:i + length] if length is not None else s[i:]
-    return _dict_map(args[0], f, "substr")
+    return _dict_map(args[0], f, "substr", key=("substr", start, length))
 
 
 register("substr", lambda ts: T.VARCHAR if ts and ts[0].is_string else None,

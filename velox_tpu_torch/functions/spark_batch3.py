@@ -92,8 +92,7 @@ register("bit_length", sig("string -> integer"),
 def _chr_eval(ctx, out_dtype, args):
     """chr(n): the character n % 256; '' for n < 0 (Spark's Chr)."""
     vals = sorted({chr(i) for i in range(256)} | {""})
-    d = Dictionary(vals)
-    d.is_sorted = True
+    d = Dictionary(vals, is_sorted=True)
     ids = {v: i for i, v in enumerate(vals)}
     table = torch.tensor([ids[chr(i)] for i in range(256)],
                          dtype=torch.int32, device=ctx.device)
@@ -333,8 +332,7 @@ def _flat_strings(parts, src, in_use) -> DeviceColumn:
     ids into the sorted distinct parts."""
     uniq = sorted({p for ps in parts for p in ps})
     pid = {p: i for i, p in enumerate(uniq)}
-    d = Dictionary(uniq)
-    d.is_sorted = True
+    d = Dictionary(uniq, is_sorted=True)
     flat = np.array([pid[p] for ps in parts for p in ps] or [0], np.int32)
     data = take_rows(torch.from_numpy(flat).to(src.device), src)
     return DeviceColumn(torch.where(in_use, data, 0), None, T.VARCHAR, d)

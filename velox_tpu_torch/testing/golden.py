@@ -222,13 +222,37 @@ def _differ(what) -> AssertionError:
     return AssertionError(f"engine and SQLite differ: {what}")
 
 
-def assert_matches_sqlite(got, exp, rel_tol: float = 1e-9) -> int:
+def _runs(rows, order):
+    """[start, end) of each run of ``rows`` whose ``order`` keys are equal,
+    after checking that the rows come in that order: [(column, descending)],
+    the first the most significant."""
+    for a, b in zip(rows, rows[1:]):
+        for i, desc in order:
+            if a[i] != b[i]:
+                if (a[i] > b[i]) != desc:
+                    raise _differ(("the oracle's rows out of its order",
+                                   a, b))
+                break
+    out, lo = [], 0
+    for i in range(1, len(rows) + 1):
+        if i == len(rows) or any(rows[i][c] != rows[lo][c]
+                                 for c, _ in order):
+            out.append((lo, i))
+            lo = i
+    return out
+
+
+def assert_matches_sqlite(got, exp, rel_tol: float = 1e-9,
+                          order=()) -> int:
     """``got`` (the engine's pyarrow Table) equals ``exp`` (the oracle's),
-    columns matched by position and rows sorted on both sides: DECIMAL
-    columns as scaled integers exactly, DOUBLE columns within
-    ``rel_tol``, other columns exactly, NULLs in the same places. Raises
-    AssertionError on a difference (also under ``python -O``); returns
-    the rows that hold a value."""
+    columns matched by position: DECIMAL columns as scaled integers
+    exactly, DOUBLE columns within ``rel_tol``, other columns exactly,
+    NULLs in the same places. Rows compare as a multiset, or with
+    ``order`` ([(column position, descending)], the query's ORDER BY,
+    which the oracle's rows follow) in the oracle's order: rows may trade
+    places only within a run of equal keys, which compares as a multiset.
+    Raises AssertionError on a difference (also under ``python -O``);
+    returns the rows that hold a value."""
     import pyarrow as pa
     if got.num_columns != exp.num_columns:
         raise _differ((got.column_names, exp.column_names))
@@ -237,20 +261,22 @@ def assert_matches_sqlite(got, exp, rel_tol: float = 1e-9) -> int:
     types = got.schema.types
     scales = [t.scale if pa.types.is_decimal(t) else None for t in types]
     doubles = [pa.types.is_floating(t) for t in types]
-    g_rows = sorted(zip(*(
+    g_rows = list(zip(*(
         [_engine_value(v, s) for v in got.column(i).to_pylist()]
-        for i, s in enumerate(scales))), key=_sort_key) \
-        if got.num_rows else []
+        for i, s in enumerate(scales)))) if got.num_rows else []
     e_rows = [tuple(_oracle_value(v, s) for v, s in zip(r, scales))
               for r in zip(*(exp.column(i).to_pylist()
                              for i in range(exp.num_columns)))]
-    e_rows = sorted(e_rows, key=_sort_key)
-    for g, e in zip(g_rows, e_rows):
-        for name, gv, ev, dbl in zip(got.column_names, g, e, doubles):
-            same = (gv is None and ev is None) or (
-                gv is not None and ev is not None and (
-                    math.isclose(gv, ev, rel_tol=rel_tol, abs_tol=0)
-                    if dbl else gv == ev))
-            if not same:
-                raise _differ((name, g, e))
+    runs = _runs(e_rows, order) if order else [(0, len(e_rows))]
+    for lo, hi in runs:
+        for g, e in zip(sorted(g_rows[lo:hi], key=_sort_key),
+                        sorted(e_rows[lo:hi], key=_sort_key)):
+            for name, gv, ev, dbl in zip(got.column_names, g, e, doubles):
+                same = (gv is None and ev is None) or (
+                    gv is not None and ev is not None and (
+                        math.isclose(gv, ev, rel_tol=rel_tol, abs_tol=0)
+                        if dbl else gv == ev))
+                if not same:
+                    raise _differ((name, g, e) if not order
+                                  else (name, f"rows {lo}..{hi - 1}", g, e))
     return sum(any(v is not None for v in r) for r in e_rows)

@@ -27,6 +27,34 @@ def days(iso: str) -> int:
 # per-query comparison knobs: (rel_tol, min_rows)
 TOLERANCES = {17: (1e-6, 1), 20: (1e-9, 0)}
 
+# each query's ORDER BY (TPC-H v3.0.1 section 2.4) over its output
+# columns: [(column position, descending)], the first the most
+# significant; a query without one compares as a multiset
+ORDER_BY = {
+    1: [(0, False), (1, False)],
+    2: [(0, True), (2, False), (1, False), (3, False)],
+    3: [(1, True), (2, False)],
+    4: [(0, False)],
+    5: [(1, True)],
+    6: [],
+    7: [(0, False), (1, False), (2, False)],
+    8: [(0, False)],
+    9: [(0, False), (1, True)],
+    10: [(7, True)],
+    11: [(1, True)],
+    12: [(0, False)],
+    13: [(1, True), (0, True)],
+    14: [],
+    15: [(0, False)],
+    16: [(3, True), (0, False), (1, False), (2, False)],
+    17: [],
+    18: [(4, True), (3, False)],
+    19: [],
+    20: [(0, False)],
+    21: [(1, True), (0, False)],
+    22: [(0, False)],
+}
+
 
 def oracle_sql(q: int, **params) -> str:
     """Oracle SQL for query ``q``. Queries 5/7/8/17/18/19/20 accept the

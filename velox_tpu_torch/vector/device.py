@@ -36,6 +36,12 @@ import numpy as np
 import torch
 
 from velox_tpu_torch import types as T
+from velox_tpu_torch.common.process_trace import Span, site
+
+# building and uploading an unsorted dictionary's rank table
+_RANK_SITE = site("dictionary_rank")
+# the maps of a dictionary's values (``Dictionary.mapped``) it keeps
+MAX_MAPS = 16
 
 
 def round_up(n: int, m: int) -> int:
@@ -47,20 +53,98 @@ def default_capacity(n: int) -> int:
     return max(1024, round_up(n, 1024))
 
 
+def order_of(keys: np.ndarray):
+    """True where ``keys`` strictly increase with their index, else the
+    dense rank of each key (int32: equal keys, equal ranks)."""
+    if len(keys) < 2 or bool(np.all(keys[:-1] < keys[1:])):
+        return True
+    with Span(_RANK_SITE):
+        _, inverse = np.unique(keys, return_inverse=True)
+        return inverse.astype(np.int32).reshape(-1)
+
+
 class Dictionary:
     """A host-side value dictionary for a string column.
 
     Hash/eq by identity, as in the reference. Values are a numpy object
     array of Python str/bytes; device columns hold int32 ids into it.
+
+    The dictionary keeps one memo of its order (``ranks``): *sorted*
+    where its values strictly increase with the id, so ids order and
+    compare like the values, or else the dense rank of each id's value
+    (equal values, equal rank). It is worked out once on the host, and
+    its device copy is kept per device (``device_ranks``). A maker whose
+    values are sorted by construction states it (``is_sorted=True``) and
+    the memo costs nothing. Sort keys (exec/sort.py) and ordered string
+    comparisons (functions/scalar.py) read it.
+
+    It keeps, likewise, the maps of its values through a function with
+    constant arguments (``mapped``): substr's new dictionary and id
+    remap are built once a dictionary, not once a batch.
     """
 
-    __slots__ = ("values", "_index", "is_sorted", "_arrow")
+    __slots__ = ("values", "_index", "_order", "_arrow", "_device_ranks",
+                 "_maps")
 
-    def __init__(self, values):
+    def __init__(self, values, is_sorted: bool = False):
         self.values = np.asarray(values, dtype=object)
         self._index: Optional[Dict] = None
-        self.is_sorted = False  # memoized by ordered-comparison checks
+        # the order memo: None until asked, True when sorted, else ranks
+        self._order = True if is_sorted else None
         self._arrow = None  # (arrow type, the values as one Arrow array)
+        self._device_ranks: Dict[torch.device, torch.Tensor] = {}
+        self._maps: Dict = {}
+
+    def __getstate__(self):
+        # pickled (the SSD tier) by value and order, never a device copy
+        return self.values, self._order
+
+    def __setstate__(self, state):
+        self.values, self._order = state
+        self._index = self._arrow = None
+        self._device_ranks, self._maps = {}, {}
+
+    def ranks(self) -> Optional[np.ndarray]:
+        """None when the dictionary is sorted; else each id's dense rank
+        among the values (int32), built once."""
+        if self._order is None:
+            self._order = order_of(self._order_keys())
+        return None if self._order is True else self._order
+
+    def _order_keys(self) -> np.ndarray:
+        """An array whose entries order as the values do."""
+        return self.values
+
+    @property
+    def is_sorted(self) -> bool:
+        """Whether ids order like the values (the ``ranks`` memo)."""
+        return self.ranks() is None
+
+    def device_ranks(self, device) -> torch.Tensor:
+        """``ranks()`` of an unsorted dictionary as an int32 tensor on
+        ``device``, uploaded once a device."""
+        device = torch.device(device)
+        t = self._device_ranks.get(device)
+        if t is None:
+            ranks = self.ranks()
+            if ranks is None:
+                raise ValueError("a sorted dictionary's ids are its ranks")
+            with Span(_RANK_SITE):
+                t = torch.from_numpy(ranks).to(device)
+            self._device_ranks[device] = t
+        return t
+
+    def mapped(self, key, build):
+        """``build()``, the map of the values that ``key`` names (a
+        function and its constant arguments), built once a dictionary;
+        past ``MAX_MAPS`` keys the oldest is dropped."""
+        got = self._maps.get(key)
+        if got is None:
+            got = build()
+            if len(self._maps) >= MAX_MAPS:
+                self._maps.pop(next(iter(self._maps)))
+            self._maps[key] = got
+        return got
 
     def __len__(self):
         return len(self.values)
@@ -343,7 +427,10 @@ def column_from_arrow(arr, capacity: int,
                 ids = remap[ids]
             col_dict = dictionary
         else:
-            col_dict = Dictionary(values)
+            # dictionary_encode's values are distinct, so sorted they
+            # strictly increase; an Arrow dictionary may repeat values
+            col_dict = Dictionary(
+                values, is_sorted=not pa.types.is_dictionary(arr.type))
         data_np = _pad_np(ids, capacity)
     elif dtype.kind is T.TypeKind.DECIMAL:
         # decimal128 storage: little-endian (lo, hi) int64 limb pairs
